@@ -1,0 +1,1 @@
+"""baselines: see the counterpart in gcn_maxcut_tpu/baselines/."""

@@ -1,0 +1,1 @@
+"""bench: see the counterpart in gcn_maxcut_tpu/bench/."""

@@ -1,0 +1,1 @@
+"""core: see the counterpart in gcn_maxcut_tpu/core/."""

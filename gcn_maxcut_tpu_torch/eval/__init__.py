@@ -1,0 +1,1 @@
+"""eval: see the counterpart in gcn_maxcut_tpu/eval/."""

@@ -1,0 +1,1 @@
+"""models: see the counterpart in gcn_maxcut_tpu/models/."""

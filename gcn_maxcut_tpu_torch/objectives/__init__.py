@@ -1,0 +1,1 @@
+"""objectives: see the counterpart in gcn_maxcut_tpu/objectives/."""

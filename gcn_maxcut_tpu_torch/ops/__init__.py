@@ -1,0 +1,1 @@
+"""ops: see the counterpart in gcn_maxcut_tpu/ops/."""

@@ -1,0 +1,1 @@
+"""train: see the counterpart in gcn_maxcut_tpu/train/."""
