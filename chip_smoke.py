@@ -5,23 +5,35 @@
 
 Phases; any failure ends the run with a non-zero exit code:
 
-  1. build    compile every ``gcn_maxcut_tpu_torch/csrc/*.cu`` with nvcc for
-              sm_90a (one nvcc per source, started together) and print the
-              card's name and power limit;
-  2. kernels  hold K2 (``banded_spmm_unit``, r = 1, F = 16 and 3) and K3
-              (``banded_spmm_unit_packed``, r = 8, F = 16) against their
-              plain PyTorch versions on the card, forward and gradient, in
-              float32 and bfloat16, at the giant trainer's shapes and at
-              small odd ones; time each beside its bound, its plain version
-              and (K2) one cuDNN circular convolution;
-  3. giant    the packed giant trainer at its defaults (n = 10,002,432,
-              d = 8, bandwidth 63, bf16 aggregation and first moment, 40
-              epochs) through K3, after a small run held against the CPU;
-              then the plain-layout trainer at n = 1,048,576 through K2;
-  4. recipe   the ``pipeline`` flow: 20 graphs of n = 500, d in [6, 8],
-              padded to 1000, GCNSoftmax 1000-500-3, 300 epochs, decoded
-              with 200 rollouts and held against the JAX pipeline's cut;
-              the randomized baseline is printed beside it.
+  1. build      compile every ``gcn_maxcut_tpu_torch/csrc/*.cu``
+                (``banded_window.cu``: K2, K3, K4; ``block_ell_window.cu``:
+                K1) with nvcc for sm_90a, one nvcc per source, started
+                together, and print the card's name and power limit;
+  2. kernels    hold K1 (``block_ell_spmm``: the microbenchmark's plan at
+                F = 128, the locality trainer's at F = 64 and 3, and small
+                odd plans), K2 (``banded_spmm_unit``, r = 1, F = 16 and 3;
+                F = 128 at ``bench --what banded``'s two sizes),
+                K3 (``banded_spmm_unit_packed``, r = 8, F = 16) and K4
+                (``banded_spmm``, n = 131,072 and 1,250,304 at F = 128, and
+                F = 3) against their plain PyTorch versions on the card,
+                forward and gradient; time each beside its bound, its plain
+                version and one PyTorch library call where there is one;
+  3. giant      the packed giant trainer at its defaults (n = 10,002,432,
+                d = 8, bandwidth 63, bf16 aggregation and first moment, 40
+                epochs) through K3, after a small run held against the CPU;
+                then the plain-layout trainer at n = 1,048,576 through K2;
+  4. recipe     the ``pipeline`` flow: 20 graphs of n = 500, d in [6, 8],
+                padded to 1000, GCNSoftmax 1000-500-3, 300 epochs, decoded
+                with 200 rollouts and held against the JAX pipeline's cut;
+                the randomized baseline is printed beside it;
+  5. locality   the locality trainer (``bench --what locality``): a small
+                run held against the CPU, then n = 100,000 through K1 (RCM,
+                plan, 200 epochs, decode), held against the JAX package's
+                cut on the same graph (checked by its digest; the RCM
+                relabeling is saved for the reference) and initial
+                parameters;
+  6. microbench ``bench --what spmm`` (K1) and ``bench --what banded`` (K2,
+                K4) at their defaults.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after.  The end of the output is the card's name and power limit, one
@@ -44,6 +56,7 @@ OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = "gcn_maxcut_tpu_torch/csrc/banded_window.cu"
+BLOCK_ELL_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_window.cu"
 
 GIANT_N = 10_002_432
 GIANT_EPOCHS = 40
@@ -58,6 +71,16 @@ SMALL_CASES = [                 # (n, F, r, offsets): odd shapes and wrap edges
 # on the same held-out graphs: argmax 1205.0, post-processed 1238.6,
 # randomized baseline 1253.8 (average cuts).
 REFERENCE_POST_CUT = 1238.6
+# The JAX package's train_model on the locality trainer's graph from the same
+# initial parameters (tools/locality_reference.py at its defaults on the CPU,
+# with --perm the RCM relabeling this script saves on the card's machine,
+# SciPy 1.18.1: bandwidth 331, 119 outliers): 200 epochs, decoded argmax cut
+# 390,629 of 400,000 edges, on the graph of this digest.
+REFERENCE_LOCALITY_CUT = 390_629.0
+REFERENCE_LOCALITY_GRAPH = "cf6f0c38cf606dbc"
+LOCALITY_N = 100_000
+MICRO_N = 100_000
+BANDED_N, BANDED_BIG_N = 131_072, 1_250_304
 
 
 def log(*args) -> None:
@@ -128,8 +151,10 @@ def phase_build(build) -> dict:
     return {"seconds": seconds, "card": card}
 
 
-def phase_kernels(torch, tb, offsets: tuple[int, ...]) -> dict:
-    """Kernel against plain version, forward and gradient; then timings."""
+def phase_kernels(torch, tb, offsets: tuple[int, ...], bench_offsets: tuple[int, ...]) -> dict:
+    """Kernel against plain version, forward and gradient; then timings.
+    ``offsets`` are the giant trainers', ``bench_offsets`` those of
+    ``bench --what banded``, which runs K2 at F = 128."""
     log("== kernels")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -143,7 +168,8 @@ def phase_kernels(torch, tb, offsets: tuple[int, ...]) -> dict:
     }
     cases = [("K2", GIANT_N, 16, 1, offsets), ("K2", GIANT_N, 3, 1, offsets),
              ("K2", PLAIN_N, 16, 1, offsets), ("K2", PLAIN_N, 3, 1, offsets),
-             ("K3", GIANT_N, 16, 8, offsets)]
+             ("K3", GIANT_N, 16, 8, offsets),
+             ("K2", BANDED_N, 128, 1, bench_offsets), ("K2", BANDED_BIG_N, 128, 1, bench_offsets)]
     cases += [(k, n, F, r, o) for (n, F, r, o) in SMALL_CASES for k in ("K2", "K3")]
     errors = {"K2": 0.0, "K3": 0.0}
     for name, n, F, r, offs in cases:
@@ -205,6 +231,172 @@ def phase_kernels(torch, tb, offsets: tuple[int, ...]) -> dict:
             del x
     torch.cuda.empty_cache()
     return {"max_abs_err": errors, "timings": timings}
+
+
+def bell_operands(g, mode: str = "mask") -> tuple:
+    """(sidx, w, out_s, out_r, out_w) of a graph's block-ELL plan."""
+    w = g.bell_mask if mode == "mask" else g.bell_weights
+    ow = g.bell_out_mask if mode == "mask" else g.bell_out_weights
+    return g.bell_senders, w, g.bell_out_senders, g.bell_out_receivers, ow
+
+
+def small_block_ell_graphs(np, tgraph) -> dict:
+    """Odd plans, each with edges across the wrap at both ends."""
+    rng = np.random.default_rng(7)
+
+    def banded(n, per_node, w, long_edges=()):
+        i = np.repeat(np.arange(n), per_node)
+        j = (i + rng.integers(-w, w + 1, size=i.size)) % n
+        keep = i != j
+        extra = np.asarray(long_edges, dtype=np.int64).reshape(-1, 2)
+        return np.concatenate([np.stack([i[keep], j[keep]], axis=1), extra])
+
+    ring = np.stack([np.arange(2048), (np.arange(2048) + 1) % 2048], axis=1)
+    adj = np.zeros((2048, 2048), np.float32)
+    e = banded(2048, 3, 40, [(3, 1500), (700, 10)])
+    adj[e[:, 0], e[:, 1]] = rng.random(e.shape[0]) + 0.5
+    graphs = {
+        "B=240, R0=B": tgraph.graph_from_edges(banded(1200, 2, 20, [(1, 600)]), 1200,
+                                               block_ell=True),
+        "width 1, directed ring (transpose plan)": tgraph.graph_from_edges(
+            ring, 2048, symmetrize=False, block_ell=True),
+        "width 1 forced, outliers + padding": tgraph.attach_block_ell(
+            tgraph.graph_from_edges(banded(4096, 3, 60, [(0, 2000)]), 4096, block_ell=False),
+            force_wp=64, force_width=1),
+        "asymmetric weighted (transpose plan)": tgraph.graph_from_dense(adj, block_ell=True),
+    }
+    for name, g in graphs.items():
+        check(g.bell_block is not None, f"small plan {name!r} exists")
+    return graphs
+
+
+def check_block_ell(torch, tbell, seg, g, F: int, gen, mode: str = "mask") -> float:
+    """K1 through ``spmm`` (kernel forward and backward) against autograd
+    through the plain version on the card; returns the max |error|."""
+    dev = torch.device("cuda")
+    gc = g.to(dev)
+    n = g.n_pad
+    x = torch.randn(n, F, generator=gen, device=dev)
+    dy = torch.randn(n, F, generator=gen, device=dev)
+    xk = x.clone().requires_grad_(True)
+    yk = seg.spmm(gc, xk, None if mode == "mask" else gc.weights)
+    yk.backward(dy)
+    xp = x.clone().requires_grad_(True)
+    yp = tbell.block_ell_spmm_plain(xp, *bell_operands(gc, mode), n, gc.bell_block, gc.bell_wp)
+    yp.backward(dy)
+    torch.cuda.synchronize()
+    return max(max_err_within_tolerance(torch, yk.detach(), yp.detach()),
+               max_err_within_tolerance(torch, xk.grad, xp.grad))
+
+
+def csr_of(torch, rows, cols, vals, n: int):
+    """float32 CSR matrix with entries (rows, cols) = vals."""
+    coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]), vals, (n, n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def time_block_ell(torch, tbell, g, F: int, gen, label: str) -> dict:
+    dev = torch.device("cuda")
+    gc = g.to(dev)
+    n, B, wp = gc.n_pad, gc.bell_block, gc.bell_wp
+    ops = bell_operands(gc)
+    width, o_pad = ops[0].shape[1], ops[2].shape[0]
+    x = torch.randn(n, F, generator=gen, device=dev)
+    row = {"name": "K1", "case": label, "n": n, "F": F, "block": B, "wp": wp,
+           "width": width, "o_pad": o_pad, "n_outliers": int(ops[4].sum()), "dtype": "float32"}
+    with torch.no_grad():
+        row["ms"] = best_ms(torch, lambda: tbell.block_ell_spmm(x, *ops, n, B, wp))
+        row["kernel_only_ms"] = best_ms(torch, lambda: tbell._launch(x, ops[0], ops[1], n, B, wp))
+        row["plain_ms"] = best_ms(torch, lambda: tbell.block_ell_spmm_plain(x, *ops, n, B, wp))
+        real = gc.edge_mask > 0
+        csr = csr_of(torch, gc.receivers[real], gc.senders[real], gc.edge_mask[real], n)
+        lib = torch.sparse.mm(csr, x)
+        row["library_max_abs_err"] = float(
+            (lib - tbell.block_ell_spmm_plain(x, *ops, n, B, wp)).abs().max())
+        row["library_ms"] = best_ms(torch, lambda: torch.sparse.mm(csr, x))
+    bytes_ms = (2 * n * F * 4 + n * width * 8 + o_pad * (2 * F * 4 + 12)) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n * width * F / F32_OPS_PER_S * 1e3
+    row["bound_ms"] = max(bytes_ms, ops_ms)
+    row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"  K1 {label} n={n} F={F} B={B} Wp={wp} width={width} o_pad={o_pad}: op {row['ms']:.4f} ms "
+        f"(kernel alone {row['kernel_only_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+        f"sparse.mm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def phase_kernels_block_ell(torch, np, tbell, seg, tgraph, micro, loc) -> dict:
+    log("== kernels: K1 block_ell_spmm")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t0 = time.perf_counter()
+    g_micro = micro._banded_regular_graph(MICRO_N, 8, 255, n_pad=tgraph.round_up(MICRO_N, 2048))
+    g_loc, bandwidth = loc.locality_graph(loc.locality_spec(LOCALITY_N))
+    log(f"  plans built in {time.perf_counter() - t0:.2f} s: microbench B={g_micro.bell_block} "
+        f"Wp={g_micro.bell_wp}; locality (RCM bandwidth {bandwidth}) B={g_loc.bell_block} "
+        f"Wp={g_loc.bell_wp} outliers {int(g_loc.bell_out_mask.sum())}")
+    cases = [("microbench", g_micro, 128, "mask"), ("locality", g_loc, 64, "mask"),
+             ("locality", g_loc, 3, "mask"), ("microbench", g_micro, 3, "weights")]
+    cases += [(name, g, F, mode) for name, g in small_block_ell_graphs(np, tgraph).items()
+              for F, mode in ((16, "mask"), (3, "weights"))]
+    err = 0.0
+    for name, g, F, mode in cases:
+        e = check_block_ell(torch, tbell, seg, g, F, gen, mode)
+        err = max(err, e)
+        log(f"  K1 {name} n={g.n_pad} F={F} {mode} B={g.bell_block} Wp={g.bell_wp} "
+            f"width={g.bell_senders.shape[1]} symmetric={g.symmetric}: fwd+grad max |err| {e:.3g}")
+    timings = [time_block_ell(torch, tbell, g_loc, 64, gen, "locality"),
+               time_block_ell(torch, tbell, g_loc, 3, gen, "locality"),
+               time_block_ell(torch, tbell, g_micro, 128, gen, "microbench")]
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "timings": timings}
+
+
+def phase_kernels_weighted(torch, tb, offsets) -> dict:
+    log("== kernels: K4 banded_spmm")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    d = len(offsets)
+    err = 0.0
+    timings = []
+    for n, F in ((BANDED_N, 128), (BANDED_BIG_N, 128), (BANDED_N, 3), (296, 20)):
+        x = torch.randn(n, F, generator=gen, device=dev)
+        w = torch.rand(n, d, generator=gen, device=dev) + 0.5
+        dy = torch.randn(n, F, generator=gen, device=dev)
+        xk, wk = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        yk = tb.banded_spmm(xk, wk, offsets)
+        yk.backward(dy)
+        yk = yk.detach()
+        xp, wq = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        yp = tb.banded_spmm_plain(xp, wq, offsets)
+        yp.backward(dy)
+        torch.cuda.synchronize()
+        e = max(max_err_within_tolerance(torch, yk, yp.detach()),
+                max_err_within_tolerance(torch, xk.grad, xp.grad),
+                max_err_within_tolerance(torch, wk.grad, wq.grad))
+        err = max(err, e)
+        log(f"  K4 n={n} F={F} D={d}: fwd+grad (dx, dw) max |err| {e:.3g}")
+        del xk, wk, xp, wq, yp, dy
+        if n < BANDED_N:
+            continue
+        row = {"name": "K4", "n": n, "F": F, "D": d, "dtype": "float32"}
+        with torch.no_grad():
+            row["ms"] = best_ms(torch, lambda: tb.banded_spmm(x, w, offsets))
+            row["plain_ms"] = best_ms(torch, lambda: tb.banded_spmm_plain(x, w, offsets))
+            rows = torch.arange(n, device=dev).repeat_interleave(d)
+            cols = (rows.view(n, d) + torch.tensor(offsets, device=dev)) % n
+            csr = csr_of(torch, rows, cols.reshape(-1), w.reshape(-1), n)
+            row["library_max_abs_err"] = float((torch.sparse.mm(csr, x) - yk).abs().max())
+            row["library_ms"] = best_ms(torch, lambda: torch.sparse.mm(csr, x))
+            del csr, rows, cols
+        bytes_ms = (2 * n * F * 4 + n * d * 4) / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * n * d * F / F32_OPS_PER_S * 1e3
+        row["bound_ms"] = max(bytes_ms, ops_ms)
+        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        timings.append(row)
+        log(f"  K4 n={n} F={F}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"sparse.mm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del x, w, yk
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "timings": timings}
 
 
 def circulant_cut(torch, assignment, offsets) -> int:
@@ -291,6 +483,102 @@ def phase_recipe(tb, run_pipeline) -> dict:
     return {**res, "launches": launches}
 
 
+def phase_locality(torch, np, tbell, tb, loc) -> dict:
+    log("== locality")
+    small = dict(n=4096, epochs=10)
+    p0 = loc.locality_params(4096)
+    on_card = loc.train_locality(params=p0, device="cuda", **small)
+    on_cpu = loc.train_locality(params=p0, device="cpu", **small)
+    agree = float((on_card["assignment"] == on_cpu["assignment"]).mean())
+    log(f"  n=4096, card vs CPU: history {on_card['history']} vs {on_cpu['history']}, "
+        f"assignments agree on {agree:.6f}")
+    torch.testing.assert_close(torch.tensor(on_card["history"]),
+                               torch.tensor(on_cpu["history"]), rtol=1e-3, atol=0)
+    check(agree >= 0.999, "small locality run: card and CPU assignments agree")
+
+    import scipy
+
+    from gcn_maxcut_tpu_torch.data.reorder import rcm_permutation
+
+    # this machine's relabeling, for tools/locality_reference.py --perm
+    perm = rcm_permutation(loc.locality_spec(LOCALITY_N).edges, LOCALITY_N)
+    np.save(OUT_DIR / "locality_rcm_perm.npy", perm)
+    log(f"  SciPy {scipy.__version__} (its RCM relabels the graph; saved to "
+        f"{OUT_DIR.name}/locality_rcm_perm.npy)")
+    tbell.reset_launches()
+    tb.reset_launches()
+    res = loc.train_locality(n=LOCALITY_N, device="cuda")
+    launches = {**tbell.LAUNCHES, **tb.LAUNCHES}
+    ratio = res["final_cut"] / REFERENCE_LOCALITY_CUT
+    log(f"  n={res['n']} (n_pad {res['n_pad']}, RCM bandwidth {res['rcm_bandwidth']}, B="
+        f"{res['bell_block']}, Wp={res['bell_wp']}, width {res['bell_width']}, "
+        f"{res['n_outliers']} outliers): {res['epochs_run']} epochs, {res['epoch_ms']:.3f} ms an "
+        f"epoch (graph built in {res['build_s']:.2f} s on the host); cut {res['initial_cut']:.0f} -> "
+        f"{res['final_cut']:.0f} (fraction {res['cut_fraction']:.5f}, {ratio:.5f} of the JAX "
+        f"package's {REFERENCE_LOCALITY_CUT:.0f}); launches {launches}")
+    # 4 a training epoch (conv1 and conv2, forward and backward), 2 for each
+    # of the two decode forwards (initial and best parameters)
+    check(launches["block_ell_spmm"] == 4 * res["epochs_run"] + 2 * 2,
+          "K1 launched 4 times an epoch plus 2 for each decode")
+    check(all(v == 0 for k, v in launches.items() if k != "block_ell_spmm"),
+          "the locality trainer runs no banded kernel")
+    check(all(map(math.isfinite, res["history"])), "finite loss history")
+    check(res["final_cut"] > res["initial_cut"], "training improves the cut")
+    check(res["cut_fraction"] > 2 / 3, "cut beats the (k-1)/k = 2/3 floor")
+    check(res["graph_digest"] == REFERENCE_LOCALITY_GRAPH,
+          f"the graph is the one the JAX reference trained on (digest {res['graph_digest']}, "
+          f"reference {REFERENCE_LOCALITY_GRAPH}): rerun tools/locality_reference.py --perm "
+          f"{OUT_DIR.name}/locality_rcm_perm.npy")
+    check(abs(ratio - 1) <= 0.02, "cut within 2% of the JAX package's")
+    res.pop("assignment")
+    res.pop("history")
+    torch.cuda.empty_cache()
+    return {**res, "launches": launches, "reference_cut": REFERENCE_LOCALITY_CUT,
+            "reference_graph": REFERENCE_LOCALITY_GRAPH, "small_agreement": agree}
+
+
+def phase_microbench(tbell, tb, micro) -> dict:
+    log("== microbench")
+    tbell.reset_launches()
+    tb.reset_launches()
+    spmm = micro.bench_spmm(device="cuda")
+    spmm_launches = {**tbell.LAUNCHES, **tb.LAUNCHES}
+    log(f"  spmm n={spmm['n']} d={spmm['d']} F={spmm['feature_dim']}: banded-random on K1 "
+        f"(B={spmm['bell_block']}, Wp={spmm['bell_wp']}) fwd {spmm['fwd_edges_per_s']:.4g} "
+        f"edges/s ({spmm['fraction_of_roofline_fwd']:.4f} of roofline), fwd+bwd "
+        f"{spmm['fwdbwd_edges_per_s']:.4g} ({spmm['fraction_of_roofline_fwdbwd']:.4f}); "
+        f"expander gather fwd {spmm['expander_fwd_edges_per_s']:.4g} "
+        f"({spmm['expander_fraction_of_roofline_fwd']:.4f}), fwd+bwd "
+        f"{spmm['expander_fwdbwd_edges_per_s']:.4g} "
+        f"({spmm['expander_fraction_of_roofline_fwdbwd']:.4f}), bf16 fwd "
+        f"{spmm['expander_bf16_fwd_edges_per_s']:.4g}; launches {spmm_launches}")
+    check(spmm_launches["block_ell_spmm"] == 3 * (2 + 10), "K1 launched 3 times a timed call")
+    tbell.reset_launches()
+    tb.reset_launches()
+    banded = micro.bench_spmm_banded(device="cuda")
+    banded_launches = {**tbell.LAUNCHES, **tb.LAUNCHES}
+    banded["hbm_regime_fraction"] = (
+        banded["hbm_regime_fwd_edges_per_s"] / banded["banded_roofline_edges_per_s"])
+    banded["hbm_regime_weighted_fraction"] = (
+        banded["hbm_regime_weighted_fwd_edges_per_s"] / banded["weighted_roofline_edges_per_s"])
+    log(f"  banded n={banded['n']} W={banded['bandwidth']}: K2 fwd "
+        f"{banded['fwd_edges_per_s']:.4g} edges/s ({banded['fraction_of_banded_roofline']:.4f} "
+        f"of roofline), fwd+bwd {banded['fwdbwd_edges_per_s']:.4g}, K4 fwd "
+        f"{banded['weighted_fwd_edges_per_s']:.4g} "
+        f"({banded['weighted_fraction_of_banded_roofline']:.4f}); n={banded['hbm_regime_n']}: "
+        f"K2 {banded['hbm_regime_fwd_edges_per_s']:.4g} ({banded['hbm_regime_fraction']:.4f}, "
+        f"{banded['hbm_regime_gbps']:.1f} GB/s), K4 "
+        f"{banded['hbm_regime_weighted_fwd_edges_per_s']:.4g} "
+        f"({banded['hbm_regime_weighted_fraction']:.4f}); launches {banded_launches}")
+    check(banded_launches["banded_spmm_unit"] == 3 * (2 + 30) + (2 + 10), "K2 launch count")
+    check(banded_launches["banded_spmm"] == (2 + 30) + (2 + 10), "K4 launch count")
+    fractions = [spmm[k] for k in spmm if "fraction" in k]
+    fractions += [banded[k] for k in banded if "fraction" in k]
+    check(all(0 < f <= 1 for f in fractions), "every roofline fraction in (0, 1]")
+    return {"spmm": {**spmm, "launches": spmm_launches},
+            "banded": {**banded, "launches": banded_launches}}
+
+
 def main() -> int:
     import torch
 
@@ -302,38 +590,62 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    import numpy as np
+
     from gcn_maxcut_tpu_torch import build
     from gcn_maxcut_tpu_torch.bench import giant_demo as giant
+    from gcn_maxcut_tpu_torch.bench import locality as loc
+    from gcn_maxcut_tpu_torch.bench import microbench as micro
     from gcn_maxcut_tpu_torch.cli import run_pipeline
+    from gcn_maxcut_tpu_torch.core import graph as tgraph
     from gcn_maxcut_tpu_torch.device import resolve_device
     from gcn_maxcut_tpu_torch.ops import banded as tb
+    from gcn_maxcut_tpu_torch.ops import block_ell as tbell
+    from gcn_maxcut_tpu_torch.ops import segment as seg
 
     resolve_device()                      # turns TF32 off
     OUT_DIR.mkdir(exist_ok=True)
     t_start = time.perf_counter()
     report = {"build": phase_build(build)}
-    report["kernels"] = phase_kernels(torch, tb, giant.circulant_offsets(8, 63, 0))
+    report["kernels"] = phase_kernels(torch, tb, giant.circulant_offsets(8, 63, 0),
+                                      micro.banded_offsets(8, 63))
+    report["kernels_k1"] = phase_kernels_block_ell(torch, np, tbell, seg, tgraph, micro, loc)
+    report["kernels_k4"] = phase_kernels_weighted(torch, tb, micro.banded_offsets(8, 63))
     report["giant"] = phase_giant(torch, tb, giant)
     report["recipe"] = phase_recipe(tb, run_pipeline)
+    report["locality"] = phase_locality(torch, np, tbell, tb, loc)
+    report["microbench"] = phase_microbench(tbell, tb, micro)
     report["seconds"] = time.perf_counter() - t_start
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
 
     rows = {t["name"]: t for t in report["kernels"]["timings"]
             if (t["name"], t["n"], t["F"], t["dtype"]) in
             {("K2", GIANT_N, 16, "float32"), ("K3", GIANT_N, 16, "bfloat16")}}
-    launches = {"K2": report["giant"]["plain"]["launches"]["banded_spmm_unit"],
-                "K3": report["giant"]["packed"]["launches"]["banded_spmm_unit_packed"]}
-    replaces = {"K2": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
-                "K3": "gcn_maxcut_tpu/ops/pallas_banded.py:529"}
+    rows["K1"] = next(t for t in report["kernels_k1"]["timings"]
+                      if (t["case"], t["F"]) == ("locality", 64))
+    rows["K4"] = next(t for t in report["kernels_k4"]["timings"]
+                      if (t["n"], t["F"]) == (BANDED_N, 128))
+    launches = {"K1": report["locality"]["launches"]["block_ell_spmm"],
+                "K2": report["giant"]["plain"]["launches"]["banded_spmm_unit"],
+                "K3": report["giant"]["packed"]["launches"]["banded_spmm_unit_packed"],
+                "K4": report["microbench"]["banded"]["launches"]["banded_spmm"]}
+    errors = {**report["kernels"]["max_abs_err"], "K1": report["kernels_k1"]["max_abs_err"],
+              "K4": report["kernels_k4"]["max_abs_err"]}
+    names = {"K1": "block_ell_spmm", "K2": "banded_spmm_unit",
+             "K3": "banded_spmm_unit_packed", "K4": "banded_spmm"}
+    replaces = {"K1": "gcn_maxcut_tpu/ops/pallas_block_ell.py:146",
+                "K2": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
+                "K3": "gcn_maxcut_tpu/ops/pallas_banded.py:529",
+                "K4": "gcn_maxcut_tpu/ops/pallas_banded.py:257"}
     kernels = [{
-        "name": f"{name} {'banded_spmm_unit' if name == 'K2' else 'banded_spmm_unit_packed'}",
-        "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces[name],
-        "launches": launches[name], "max_abs_err": report["kernels"]["max_abs_err"][name],
-        "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+        "name": f"{name} {names[name]}", "route": "cuda",
+        "source": BLOCK_ELL_SOURCE if name == "K1" else KERNEL_SOURCE,
+        "replaces": replaces[name], "launches": launches[name],
+        "max_abs_err": errors[name], "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
         "library_ms": rows[name]["library_ms"],
         "shape": [rows[name]["n"], rows[name]["F"]], "dtype": rows[name]["dtype"],
-    } for name in ("K2", "K3")]
+    } for name in ("K1", "K2", "K3", "K4")]
     log(f"total {report['seconds']:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

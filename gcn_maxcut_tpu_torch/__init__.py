@@ -10,17 +10,20 @@ Entry points run on the CUDA device unless the caller passes
 Kernels are hand-written CUDA C++ under ``csrc/``, built by ``build.py`` at
 first use; on CPU tensors each op runs its plain PyTorch version.
 
-This slice holds:
-  core/        padded Graph container (COO sorted by receiver, ELL tables)
-  data/        seeded regular / G(n,p) graphs, terminal normalisation
-  ops/         ELL/COO SpMM, SDDMM, STE ops, banded SpMM kernel (K2, K3)
+So far the port holds:
+  core/        padded Graph container (COO sorted by receiver, ELL tables,
+               block-ELL plans, locality relabeling)
+  data/        seeded regular / G(n,p) graphs, terminal normalisation, RCM
+  ops/         block-ELL / ELL / COO SpMM, SDDMM, STE ops; the banded SpMM
+               kernels (K2, K3, weighted K4) and the block-ELL kernel (K1)
   models/      GraphConv (norm='both') and the GCNSoftmax module
   objectives/  edge-form cut loss and hard cut value
   train/       TrainingConfig, per-graph Adam loop with early stopping
   eval/        argmax and sampled decoders
   baselines/   randomized k-way max-cut
-  bench/       single-device giant banded trainers (plain and packed)
-  cli.py       ``pipeline`` and ``bench --what giant``
+  bench/       giant banded trainers, the locality trainer, SpMM
+               microbenchmarks and the H100 roofline
+  cli.py       ``pipeline`` and ``bench --what giant|locality|spmm|banded``
 """
 
 __version__ = "0.1.0"

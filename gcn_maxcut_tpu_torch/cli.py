@@ -1,7 +1,7 @@
-"""Command-line driver of the port: ``pipeline`` and ``bench --what giant``.
+"""Command-line entry point of the port: ``pipeline`` and ``bench``.
 
-Port of the two subcommands of ``gcn_maxcut_tpu/cli.py`` that this slice
-covers, with the same flags plus ``--device`` (default: the CUDA device;
+Port of the subcommands of ``gcn_maxcut_tpu/cli.py`` that the port covers
+so far, with the same flags plus ``--device`` (default: the CUDA device;
 ``--device cpu`` runs on the CPU):
 
   python -m gcn_maxcut_tpu_torch pipeline --workdir out/
@@ -9,6 +9,13 @@ covers, with the same flags plus ``--device`` (default: the CUDA device;
       SUMMARY.md (no dataset npz or checkpoint yet)
   python -m gcn_maxcut_tpu_torch bench --what giant
       the single-device giant banded trainer (packed layout by default)
+  python -m gcn_maxcut_tpu_torch bench --what spmm [--n 100000 --d 8]
+      SpMM edges/s: banded-random graph on the block-ELL kernel, expander
+      on the ELL gather path
+  python -m gcn_maxcut_tpu_torch bench --what banded
+      banded SpMM edges/s: the unit and weighted kernels
+  python -m gcn_maxcut_tpu_torch bench --what locality [--n 100000]
+      the locality trainer (bench/locality.py): RCM, plan, train, decode
 """
 
 from __future__ import annotations
@@ -171,6 +178,24 @@ def _cmd_bench(args) -> int:
         train_banded_giant_packed,
     )
 
+    if args.what == "spmm":
+        from gcn_maxcut_tpu_torch.bench.microbench import bench_spmm
+
+        print(json.dumps({"spmm": bench_spmm(n=args.n, d=args.d, device=args.device)},
+                         default=float))
+        return 0
+    if args.what == "banded":
+        from gcn_maxcut_tpu_torch.bench.microbench import bench_spmm_banded
+
+        print(json.dumps({"banded": bench_spmm_banded(device=args.device)}, default=float))
+        return 0
+    if args.what == "locality":
+        from gcn_maxcut_tpu_torch.bench.locality import train_locality
+
+        res = train_locality(n=args.n, d=args.d, epochs=args.epochs, device=args.device)
+        res.pop("assignment")
+        print(json.dumps({"locality": res}, default=float))
+        return 0
     if args.giant_layout == "packed":
         res = train_banded_giant_packed(
             n=args.giant_nodes, d=args.d, epochs=args.giant_epochs,
@@ -191,9 +216,11 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="gcn_maxcut_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
-    b = sub.add_parser("bench", help="the giant banded trainer")
-    b.add_argument("--what", choices=["giant"], default="giant")
+    b = sub.add_parser("bench", help="microbenchmarks and the single-device trainers")
+    b.add_argument("--what", choices=["giant", "spmm", "banded", "locality"], default="giant")
+    b.add_argument("--n", type=int, default=100_000, help="nodes (spmm, locality)")
     b.add_argument("--d", type=int, default=8)
+    b.add_argument("--epochs", type=int, default=200, help="locality trainer epochs")
     b.add_argument("--giant-nodes", type=int, default=10_002_432)
     b.add_argument("--giant-epochs", type=int, default=40)
     b.add_argument(

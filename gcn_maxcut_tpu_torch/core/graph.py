@@ -11,11 +11,15 @@ tables, all as torch tensors.  Padding conventions are the JAX package's:
 
 ``symmetric`` records that every directed edge is stored with its reverse
 and the same weight (graphs built with ``symmetrize=True``, or from a
-symmetric dense matrix).  Only then may the ELL SpMM reuse its forward as
-its backward (``ops/segment.py``).
+symmetric dense matrix).  Only then may the ELL and block-ELL SpMMs reuse
+their forward as their backward (``ops/segment.py``).
 
-The block-ELL plan fields and locality reordering of the JAX container are
-not in this port yet.
+A graph that bands carries a block-ELL plan (``ops/block_ell.py``): the
+``bell_*`` tensors and the static geometry ``bell_block``/``bell_wp``.  A
+graph that is not symmetric carries the plan of its transpose as well
+(``bell_t_*``), which its backward runs on; when either does not plan,
+neither is attached.  ``reorder_perm`` records a locality relabeling:
+original node ``i`` lives at id ``reorder_perm[i]``.
 """
 
 from __future__ import annotations
@@ -29,11 +33,19 @@ import torch
 # Rows with degree above this skip the ELL path (COO index_add_ instead).
 ELL_MAX_DEGREE = 64
 
+_PLAN_TENSORS = (
+    "senders", "weights", "mask", "out_senders", "out_receivers",
+    "out_weights", "out_mask",
+)
 _TENSOR_FIELDS = (
     "senders", "receivers", "weights", "edge_mask", "row_ptr", "degrees",
     "node_mask", "n_nodes", "n_edges", "ell_senders", "ell_weights",
     "ell_mask",
+    *(f"bell_{f}" for f in _PLAN_TENSORS),
+    *(f"bell_t_{f}" for f in _PLAN_TENSORS),
+    "reorder_perm",
 )
+_STATIC_FIELDS = ("bell_block", "bell_wp", "bell_t_block", "bell_t_wp")
 
 
 def round_up(x: int, m: int) -> int:
@@ -64,6 +76,27 @@ class Graph:
     ell_senders: torch.Tensor | None = None   # int32 [n_pad, width]
     ell_weights: torch.Tensor | None = None   # float32 [n_pad, width]
     ell_mask: torch.Tensor | None = None      # float32 [n_pad, width]
+    # block-ELL plan of A (ops/block_ell.py); None when the graph does not band
+    bell_senders: torch.Tensor | None = None         # int32 [n_pad, bw]
+    bell_weights: torch.Tensor | None = None         # f32 [n_pad, bw], 0 pad
+    bell_mask: torch.Tensor | None = None            # f32 [n_pad, bw]
+    bell_out_senders: torch.Tensor | None = None     # int32 [o_pad]
+    bell_out_receivers: torch.Tensor | None = None   # int32 [o_pad]
+    bell_out_weights: torch.Tensor | None = None     # f32 [o_pad], 0 pad
+    bell_out_mask: torch.Tensor | None = None        # f32 [o_pad]
+    bell_block: int | None = None
+    bell_wp: int | None = None
+    # plan of Aᵀ, only for a graph that is not symmetric
+    bell_t_senders: torch.Tensor | None = None
+    bell_t_weights: torch.Tensor | None = None
+    bell_t_mask: torch.Tensor | None = None
+    bell_t_out_senders: torch.Tensor | None = None
+    bell_t_out_receivers: torch.Tensor | None = None
+    bell_t_out_weights: torch.Tensor | None = None
+    bell_t_out_mask: torch.Tensor | None = None
+    bell_t_block: int | None = None
+    bell_t_wp: int | None = None
+    reorder_perm: torch.Tensor | None = None         # int32 [n_pad]
     symmetric: bool = False
 
     @property
@@ -101,11 +134,15 @@ def _build_padded_coo(
     e_pad: int,
     ell_width: int | None,
     symmetric: bool,
+    block_ell: bool | str = "auto",
 ) -> Graph:
     """Assemble a `Graph` from host-side directed COO arrays.
 
     ``ell_width``: None = this graph's max degree (when ≤ ELL_MAX_DEGREE);
     0 = no ELL tables; a positive width lets a dataset share one width.
+
+    ``block_ell``: attach a block-ELL plan when the graph bands; ``"auto"``
+    tries only for n_pad ≥ 4096, ``True`` always, ``False`` never.
     """
     m = src.shape[0]
     if m > e_pad:
@@ -156,6 +193,10 @@ def _build_padded_coo(
             "ell_mask": torch.from_numpy(ell_mask),
         }
 
+    plan = {}
+    if ell_width > 0 and _wants_plan(block_ell, n_pad):
+        plan = _plan_fields(src, dst, w, n_pad, symmetric) or {}
+
     return Graph(
         senders=torch.from_numpy(senders),
         receivers=torch.from_numpy(receivers),
@@ -168,7 +209,35 @@ def _build_padded_coo(
         n_edges=torch.tensor(m, dtype=torch.int32),
         symmetric=symmetric,
         **ell,
+        **plan,
     )
+
+
+def _wants_plan(block_ell: bool | str, n_pad: int) -> bool:
+    """``block_ell``: ``True`` always plans, ``"auto"`` from n_pad 4096 on."""
+    return block_ell is True or (block_ell == "auto" and n_pad >= 4096)
+
+
+def _bell_fields(plan, prefix: str = "bell_") -> dict:
+    """Graph fields of a ``BlockEllPlan``."""
+    fields = {f"{prefix}{f}": torch.from_numpy(getattr(plan, f)) for f in _PLAN_TENSORS}
+    return {**fields, f"{prefix}block": plan.block, f"{prefix}wp": plan.wp}
+
+
+def _plan_fields(src, dst, w, n_pad: int, symmetric: bool, **plan_kwargs) -> dict | None:
+    """Plan fields of A (and of Aᵀ when A is not symmetric), or None when
+    either does not plan."""
+    from gcn_maxcut_tpu_torch.ops.block_ell import plan_block_ell
+
+    plan = plan_block_ell(src, dst, w, n_pad, **plan_kwargs)
+    if plan is None:
+        return None
+    if symmetric:
+        return _bell_fields(plan)
+    plan_t = plan_block_ell(dst, src, w, n_pad, **plan_kwargs)
+    if plan_t is None:
+        return None
+    return {**_bell_fields(plan), **_bell_fields(plan_t, "bell_t_")}
 
 
 def graph_from_edges(
@@ -180,34 +249,62 @@ def graph_from_edges(
     e_pad: int | None = None,
     symmetrize: bool = True,
     ell_width: int | None = None,
+    block_ell: bool | str = "auto",
     reorder: str = "off",
 ) -> Graph:
     """Build a padded `Graph` from an undirected edge list of (u, v) pairs;
     with ``symmetrize`` (the default) both directions are stored.
 
-    Only ``reorder="off"`` is ported; locality reordering comes with the
-    block-ELL kernel.
+    ``reorder``: ``"off"`` keeps the ids; ``"rcm"`` relabels by reverse
+    Cuthill–McKee; ``"auto"`` does so only when a plan is wanted
+    (``block_ell``) but the raw order does not plan, and keeps the RCM
+    graph only if it plans.  A kept permutation relabels node ``i`` to
+    ``g.reorder_perm[i]``.  Callers with pinned ids (terminals) reorder at
+    the spec level instead (``data.reorder.rcm_reorder``, then
+    ``normalize_terminals``).
     """
-    if reorder != "off":
-        raise NotImplementedError(f"reorder={reorder!r} is not ported yet")
+    if reorder not in ("off", "auto", "rcm"):
+        raise ValueError(f"unknown reorder {reorder!r}")
     e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
     w = (
         np.ones(e.shape[0], dtype=np.float32)
         if weights is None
         else np.asarray(weights, dtype=np.float32)
     )
-    if symmetrize:
-        src = np.concatenate([e[:, 0], e[:, 1]])
-        dst = np.concatenate([e[:, 1], e[:, 0]])
-        w = np.concatenate([w, w])
-    else:
-        src, dst = e[:, 0], e[:, 1]
+
     n_pad = n_pad if n_pad is not None else round_up(n_nodes, 8)
-    e_pad = e_pad if e_pad is not None else round_up(src.shape[0], 128)
-    return _build_padded_coo(
-        src.astype(np.int32), dst.astype(np.int32), w, n_nodes, n_pad, e_pad,
-        ell_width, symmetric=symmetrize,
-    )
+
+    def build(e2: np.ndarray, perm: np.ndarray | None = None) -> Graph:
+        if symmetrize:
+            src = np.concatenate([e2[:, 0], e2[:, 1]])
+            dst = np.concatenate([e2[:, 1], e2[:, 0]])
+            w2 = np.concatenate([w, w])
+        else:
+            src, dst, w2 = e2[:, 0], e2[:, 1], w
+        ep_ = e_pad if e_pad is not None else round_up(src.shape[0], 128)
+        g = _build_padded_coo(
+            src.astype(np.int32), dst.astype(np.int32), w2, n_nodes, n_pad, ep_,
+            ell_width, symmetric=symmetrize, block_ell=block_ell,
+        )
+        if perm is not None:
+            perm_pad = np.arange(n_pad, dtype=np.int32)
+            perm_pad[: perm.shape[0]] = perm
+            g = dataclasses.replace(g, reorder_perm=torch.from_numpy(perm_pad))
+        return g
+
+    if reorder == "off" or n_nodes < 2 or not e.size:
+        return build(e)
+    if reorder == "auto":
+        g = build(e)
+        if g.bell_block is not None or not _wants_plan(block_ell, n_pad):
+            return g
+    from gcn_maxcut_tpu_torch.data.reorder import rcm_permutation
+
+    perm = rcm_permutation(e, n_nodes)
+    g_rcm = build(perm[e], perm)
+    if reorder == "rcm" or g_rcm.bell_block is not None:
+        return g_rcm
+    return g
 
 
 def graph_from_dense(
@@ -216,6 +313,7 @@ def graph_from_dense(
     n_pad: int | None = None,
     e_pad: int | None = None,
     ell_width: int | None = None,
+    block_ell: bool | str = "auto",
 ) -> Graph:
     """Build a `Graph` from a dense (possibly weighted) adjacency matrix;
     it is marked symmetric when the matrix is."""
@@ -227,8 +325,23 @@ def graph_from_dense(
     e_pad = e_pad if e_pad is not None else round_up(max(1, src.shape[0]), 128)
     return _build_padded_coo(
         src.astype(np.int32), dst.astype(np.int32), w, n, n_pad, e_pad,
-        ell_width, symmetric=bool(np.array_equal(adj, adj.T)),
+        ell_width, symmetric=bool(np.array_equal(adj, adj.T)), block_ell=block_ell,
     )
+
+
+def attach_block_ell(g: Graph, **plan_kwargs) -> Graph:
+    """Plan an existing single `Graph` from its real COO edges; the graph
+    comes back unchanged when it does not band (check ``g.bell_block``)."""
+    mask = g.edge_mask.cpu().numpy() > 0
+    plan = _plan_fields(
+        g.senders.cpu().numpy()[mask], g.receivers.cpu().numpy()[mask],
+        g.weights.cpu().numpy()[mask], g.n_pad, g.symmetric, **plan_kwargs,
+    )
+    if plan is None:
+        return g
+    return dataclasses.replace(g, **{
+        k: (v.to(g.device) if isinstance(v, torch.Tensor) else v) for k, v in plan.items()
+    })
 
 
 def dense_adjacency(
@@ -251,10 +364,22 @@ def dense_adjacency(
 
 
 def pad_graph_batch(graphs: List[Graph]) -> Graph:
-    """Stack equally padded graphs into a leading batch dimension."""
+    """Stack equally padded graphs into a leading batch dimension.  Graphs
+    must agree on which fields they carry and on the block-ELL geometry; a
+    graph without ``reorder_perm`` gets the identity when others have one."""
     shapes = {(g.n_pad, g.e_pad) for g in graphs}
     if len(shapes) != 1:
         raise ValueError(f"graphs must share padded shapes, got {shapes}")
+    static = {tuple(getattr(g, f) for f in _STATIC_FIELDS) for g in graphs}
+    if len(static) != 1:
+        raise ValueError(f"graphs disagree on block-ELL geometry {_STATIC_FIELDS}: {static}")
+    if any(g.reorder_perm is not None for g in graphs):
+        ident = torch.arange(graphs[0].n_pad, dtype=torch.int32)
+        graphs = [
+            g if g.reorder_perm is not None
+            else dataclasses.replace(g, reorder_perm=ident.to(g.device))
+            for g in graphs
+        ]
     fields = {}
     for f in _TENSOR_FIELDS:
         vals = [getattr(g, f) for g in graphs]
@@ -264,4 +389,7 @@ def pad_graph_batch(graphs: List[Graph]) -> Graph:
             fields[f] = None
         else:
             fields[f] = torch.stack(vals)
-    return Graph(**fields, symmetric=all(g.symmetric for g in graphs))
+    return Graph(
+        **fields, **dict(zip(_STATIC_FIELDS, static.pop())),
+        symmetric=all(g.symmetric for g in graphs),
+    )

@@ -1,9 +1,12 @@
-// Unit-weight banded (circulant) SpMM over row windows, for Hopper (sm_90a).
+// Banded (circulant) SpMM over row windows, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gcn_maxcut_tpu/ops/pallas_banded.py::_fused_window_kernel
-// on its unit path, in both of its uses:
+// in its three uses:
 //   * K2, _banded_spmm_unit_raw: y[i] = sum_k x[(i + o_k) mod n] on [n, F];
-//   * K3, _banded_spmm_unit_packed_raw: the same sum on arrays stored in the
+//   * K4, _banded_spmm_raw (weighted, "mxu" and "vpu" modes):
+//     y[i] = sum_k w[i, k] * x[(i + o_k) mod n], x float32 [n, F] and
+//     w float32 [n, D]; both TPU modes are exact float32 here;
+//   * K3, _banded_spmm_unit_packed_raw: the unit sum on arrays stored in the
 //     interleaved node order, viewed as [m, L = r*F].  A node shift is then a
 //     row shift, and rows that wrap past either end of the array read their
 //     source with the lane groups rotated by F (the wrap_lo / wrap_hi tiles of
@@ -17,9 +20,10 @@
 // With r = 1 (F = L) the rotation is the identity and the kernel is K2.
 //
 // Bound on this card: bytes.  The function reads x once and writes y once,
-// 2*m*L*sizeof(T) bytes, against m*L*d float adds; at the packed giant
-// trainer's shape (n = 10,002,432, F = 16, bf16) that is ~0.64 GB per call,
-// ~0.19 ms at 3.35 TB/s, while the adds need ~19 us at 67 TFLOP/s.
+// 2*m*L*sizeof(T) bytes (K4 adds the n*D*4 bytes of w), against m*L*d
+// float adds (K4: 2*m*L*d operations); at the packed giant trainer's shape
+// (n = 10,002,432, F = 16, bf16) that is ~0.64 GB per call, ~0.19 ms at
+// 3.35 TB/s, while the adds need ~19 us at 67 TFLOP/s.
 //
 // Design (simple and right first): each block owns a tile of rows and up to
 // 128 columns.  It stages the [rows + 2*Wp, cols] window, wrap rows included,
@@ -29,8 +33,11 @@
 // float.  Offsets arrive by value in a small struct.  Accumulation is f32 in
 // offset order starting from 0, the order of the plain PyTorch version, so
 // f32 results agree bit for bit and bf16 results agree after the one final
-// rounding.  No TMA or wgmma: there is no matrix product here, and
-// asynchronous staging is work for a later change.
+// rounding.  K4 also stages its tile's [rows, D] weights in shared memory
+// after the window, so each weight is read from device memory once, and
+// adds w*x with separate multiply and add roundings (no FMA contraction),
+// as the plain version does.  No TMA or wgmma: there is no matrix product
+// here, and asynchronous staging is work for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,11 +60,18 @@ __device__ __forceinline__ void banded_store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T>
+// Bytes of the staged window, rounded up so that the weight tile after it
+// starts 16-byte aligned.
+__host__ __device__ __forceinline__ size_t banded_window_bytes(
+    int tile_rows, int Wp, int tile_cols, size_t elsize) {
+  return ((size_t)(tile_rows + 2 * Wp) * tile_cols * elsize + 15) / 16 * 16;
+}
+
+template <typename T, bool WEIGHTED>
 __global__ void __launch_bounds__(BANDED_THREADS)
-banded_window_kernel(const T* __restrict__ x, T* __restrict__ out, int m,
-                     int L, int F, int Wp, int tile_rows, int tile_cols,
-                     BandedOffsets offs) {
+banded_window_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                     T* __restrict__ out, int m, int L, int F, int Wp,
+                     int tile_rows, int tile_cols, BandedOffsets offs) {
   extern __shared__ __align__(16) unsigned char banded_smem[];
   T* win = reinterpret_cast<T*>(banded_smem);
 
@@ -66,6 +80,15 @@ banded_window_kernel(const T* __restrict__ x, T* __restrict__ out, int m,
   const int rows = min(tile_rows, m - r0);
   const int cols = min(tile_cols, L - c0);
   const int win_rows = rows + 2 * Wp;
+
+  // K4: the tile's weights, rows [r0, r0 + rows) of the [m, D] table.
+  float* wtile = reinterpret_cast<float*>(
+      banded_smem + banded_window_bytes(tile_rows, Wp, tile_cols, sizeof(T)));
+  if (WEIGHTED) {
+    for (int idx = threadIdx.x; idx < rows * offs.n; idx += blockDim.x) {
+      wtile[idx] = w[(int64_t)r0 * offs.n + idx];
+    }
+  }
 
   // Stage the window.  Window row t holds source row q = r0 - Wp + t; the
   // caller guarantees 2*Wp <= m, so a wrapped row lies inside [0, m).
@@ -97,56 +120,94 @@ banded_window_kernel(const T* __restrict__ x, T* __restrict__ out, int m,
     const int cl = idx - i * cols;
     float acc = 0.0f;
     for (int k = 0; k < offs.n; ++k) {
-      acc += banded_to_f32(win[(i + Wp + offs.o[k]) * tile_cols + cl]);
+      const float v = banded_to_f32(win[(i + Wp + offs.o[k]) * tile_cols + cl]);
+      if (WEIGHTED) {
+        acc = __fadd_rn(acc, __fmul_rn(wtile[i * offs.n + k], v));
+      } else {
+        acc += v;
+      }
     }
     banded_store(&out[(int64_t)(r0 + i) * L + c0 + cl], acc);
   }
 }
 
-template <typename T>
-static int banded_window_launch_t(const void* x, void* out, int m, int L,
-                                  int F, int Wp, int tile_rows, int tile_cols,
-                                  const BandedOffsets& offs,
+template <typename T, bool WEIGHTED>
+static int banded_window_launch_t(const void* x, const float* w, void* out,
+                                  int m, int L, int F, int Wp, int tile_rows,
+                                  int tile_cols, const BandedOffsets& offs,
                                   cudaStream_t stream) {
-  const size_t smem = (size_t)(tile_rows + 2 * Wp) * tile_cols * sizeof(T);
+  const size_t smem =
+      WEIGHTED ? banded_window_bytes(tile_rows, Wp, tile_cols, sizeof(T)) +
+                     (size_t)tile_rows * offs.n * sizeof(float)
+               : (size_t)(tile_rows + 2 * Wp) * tile_cols * sizeof(T);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        banded_window_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        banded_window_kernel<T, WEIGHTED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((m + tile_rows - 1) / tile_rows, (L + tile_cols - 1) / tile_cols);
-  banded_window_kernel<T><<<grid, BANDED_THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), m, L, F, Wp, tile_rows,
-      tile_cols, offs);
+  banded_window_kernel<T, WEIGHTED><<<grid, BANDED_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), w, static_cast<T*>(out), m, L, F, Wp,
+      tile_rows, tile_cols, offs);
   return (int)cudaGetLastError();
 }
 
-// Plain C entry point, bound with ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the cudaError_t of the launch (0 on success).  The caller checks
-// shapes: |o_k| <= Wp, 2*Wp <= m, 1 <= F <= L, tile_cols <= L.
+static int banded_offsets(const int* offsets, int n_offsets, int Wp,
+                          BandedOffsets* offs) {
+  if (n_offsets < 1 || n_offsets > BANDED_MAX_OFFSETS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  offs->n = n_offsets;
+  for (int k = 0; k < n_offsets; ++k) {
+    if (offsets[k] > Wp || offsets[k] < -Wp) return (int)cudaErrorInvalidValue;
+    offs->o[k] = offsets[k];
+  }
+  return 0;
+}
+
+// Plain C entry point of the unit kernel (K2, K3), bound with ctypes.
+// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch
+// (0 on success).  The caller checks shapes: |o_k| <= Wp, 2*Wp <= m,
+// 1 <= F <= L, tile_cols <= L.
 extern "C" int banded_window_launch(const void* x, void* out, int m, int L,
                                     int F, const int* offsets, int n_offsets,
                                     int Wp, int dtype, int tile_rows,
                                     int tile_cols, void* stream) {
-  if (n_offsets < 1 || n_offsets > BANDED_MAX_OFFSETS || m < 1 || L < 1 ||
-      F < 1 || F > L || tile_rows < 1 || tile_cols < 1 || 2 * Wp > m) {
+  if (m < 1 || L < 1 || F < 1 || F > L || tile_rows < 1 || tile_cols < 1 ||
+      2 * Wp > m) {
     return (int)cudaErrorInvalidValue;
   }
   BandedOffsets offs;
-  offs.n = n_offsets;
-  for (int k = 0; k < n_offsets; ++k) {
-    if (offsets[k] > Wp || offsets[k] < -Wp) return (int)cudaErrorInvalidValue;
-    offs.o[k] = offsets[k];
-  }
+  const int bad = banded_offsets(offsets, n_offsets, Wp, &offs);
+  if (bad) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return banded_window_launch_t<float>(x, out, m, L, F, Wp, tile_rows,
-                                         tile_cols, offs, s);
+    return banded_window_launch_t<float, false>(x, nullptr, out, m, L, F, Wp,
+                                                tile_rows, tile_cols, offs, s);
   }
   if (dtype == 1) {
-    return banded_window_launch_t<__nv_bfloat16>(x, out, m, L, F, Wp,
-                                                 tile_rows, tile_cols, offs, s);
+    return banded_window_launch_t<__nv_bfloat16, false>(
+        x, nullptr, out, m, L, F, Wp, tile_rows, tile_cols, offs, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Plain C entry point of the weighted kernel (K4): x and out float32 [n, F],
+// w float32 [n, n_offsets], all contiguous.  Same checks and return value.
+extern "C" int banded_window_weighted_launch(const void* x, const void* w,
+                                             void* out, int n, int F,
+                                             const int* offsets,
+                                             int n_offsets, int Wp,
+                                             int tile_rows, int tile_cols,
+                                             void* stream) {
+  if (n < 1 || F < 1 || tile_rows < 1 || tile_cols < 1 || 2 * Wp > n) {
+    return (int)cudaErrorInvalidValue;
+  }
+  BandedOffsets offs;
+  const int bad = banded_offsets(offsets, n_offsets, Wp, &offs);
+  if (bad) return bad;
+  return banded_window_launch_t<float, true>(
+      x, static_cast<const float*>(w), out, n, F, F, Wp, tile_rows, tile_cols,
+      offs, static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,8 @@ Port of ``gcn_maxcut_tpu/data/generate.py`` (host side).  The samplers are
 pure numpy with one ``numpy.random.Generator`` per call, so the same seed
 gives the same edges as the JAX package.  The JAX package switches to its
 native C++ regular sampler for n ≥ 20,000; this port keeps the numpy
-pairing model at every size for now.
+pairing model at every size for now.  ``regular_graph_on_device`` builds the
+circulant benchmark graph with torch on a given device.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -162,3 +164,27 @@ def generate_graph_dataset(
             f"generated only {i}/{num_graphs} graphs in {max_attempts} attempts"
         )
     return graphs, terminals
+
+
+def regular_graph_on_device(
+    n: int, d: int, generator: torch.Generator, device: str | torch.device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exactly d-regular circulant graph built on ``device``: d/2 distinct
+    shifts o_k drawn from [1, n/2) with ``generator``, edges
+    (i, (i + o_k) mod n) in both directions.  Returns directed COO
+    ``(senders, receivers)``, int32 [n·d].  Port of the JAX package's
+    generator of the same name; the shifts differ (another RNG), the
+    structure is the same: no self-loops, no multi-edges.
+    """
+    if d % 2 != 0:
+        raise ValueError("on-device generator requires even d")
+    half = n // 2 - 1 if n % 2 == 0 else n // 2
+    if d // 2 > half:
+        raise ValueError(f"d={d} too large for distinct shifts with n={n}")
+    shifts = 1 + torch.randperm(half, generator=generator, device=generator.device)[: d // 2]
+    nodes = torch.arange(n, dtype=torch.int64, device=device)
+    src = nodes.repeat(d // 2)
+    dst = torch.cat([(nodes + int(s)) % n for s in shifts.tolist()])
+    senders = torch.cat([src, dst]).to(torch.int32)
+    receivers = torch.cat([dst, src]).to(torch.int32)
+    return senders, receivers

@@ -1,20 +1,25 @@
-"""Unit-weight banded (circulant) SpMM: the hand-written CUDA kernel and its
-plain PyTorch version.
+"""Banded (circulant) SpMM: the hand-written CUDA kernel and its plain
+PyTorch versions.
 
-Port of ``gcn_maxcut_tpu/ops/pallas_banded.py`` (unit-weight paths only):
+Port of ``gcn_maxcut_tpu/ops/pallas_banded.py``:
 
   * ``banded_spmm_unit`` (K2): y[i] = Σ_k x[(i + o_k) mod n];
+  * ``banded_spmm`` (K4): y[i] = Σ_k w[i, k]·x[(i + o_k) mod n], float32
+    x [n, F] and w [n, D] only (the JAX contract), differentiable in x and
+    w; the "mxu" and "vpu" modes both compute exact float32 here.  Its dx
+    is the kernel on dy with negated offsets and each w_k rolled by +o_k;
+    its dw stays PyTorch ops, as it was XLA outside the Pallas kernel;
   * ``banded_spmm_unit_packed`` (K3): the same sum on arrays stored in the
     interleaved node order (``pack_interleaved``: node u·m + j at position
     j·r + u), where every node shift is a row shift of the [m, r·F] view
     and only the wrap rows rotate their lane groups by F.
 
-Both run ``csrc/banded_window.cu`` on CUDA tensors (K2 is the kernel at
-r = 1) and their plain versions on CPU tensors; a tensor on any other device
-raises.  Inputs may be float32 or bfloat16; sums are taken in float32 and the
-output has the input's dtype.  Both ops are differentiable: the adjoint of a
-circulant shift set is the negated set, so the backward is the same kernel
-with negated offsets.
+All run ``csrc/banded_window.cu`` on CUDA tensors (K2 is the unit kernel
+at r = 1, K4 its weighted sibling) and their plain versions on CPU tensors;
+a tensor on any other device raises.  The unit ops take float32 or
+bfloat16; sums are taken in float32 and the output has the input's dtype.
+The unit ops are differentiable: the adjoint of a circulant shift set is
+the negated set, so the backward is the same kernel with negated offsets.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 from gcn_maxcut_tpu_torch import build
 
 # Launches of the CUDA kernel made by each op, counted where it launches.
-LAUNCHES = {"banded_spmm_unit": 0, "banded_spmm_unit_packed": 0}
+LAUNCHES = {"banded_spmm_unit": 0, "banded_spmm_unit_packed": 0, "banded_spmm": 0}
 
 MAX_OFFSETS = 32            # csrc/banded_window.cu BANDED_MAX_OFFSETS
 _TILE_BYTES = 96 * 1024     # shared memory for one block's window
@@ -48,11 +53,13 @@ def padded_bandwidth(offsets: Sequence[int]) -> int:
     return (w + 7) // 8 * 8
 
 
-def tile_shape(L: int, wp: int, elsize: int) -> tuple[int, int]:
+def tile_shape(L: int, wp: int, elsize: int, row_bytes: int = 0) -> tuple[int, int]:
     """(rows, cols) of one block's output tile; the staged window is
-    (rows + 2·wp) × cols elements and fits ``_TILE_BYTES``."""
+    (rows + 2·wp) × cols elements and, with ``row_bytes`` more for each
+    row (K4's weights, after a 16-byte alignment), fits ``_TILE_BYTES``."""
     cols = min(L, _TILE_COLS_MAX)
-    fit = _TILE_BYTES // (cols * elsize) - 2 * wp
+    slack = 16 if row_bytes else 0
+    fit = (_TILE_BYTES - slack - 2 * wp * cols * elsize) // (cols * elsize + row_bytes)
     rows = min(_TILE_ROWS_MAX, fit // 32 * 32)
     if rows < 32:
         raise ValueError(f"bandwidth {wp} too wide for the kernel's window")
@@ -72,12 +79,35 @@ def _kernel():
     return fn
 
 
-def _launch(x: torch.Tensor, offsets: Sequence[int], F: int) -> torch.Tensor:
-    """Run ``banded_window_launch`` on a contiguous [m, L] CUDA tensor."""
+@functools.cache
+def _weighted_kernel():
+    fn = build.load("banded_window").banded_window_weighted_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(
+    x: torch.Tensor, offsets: Sequence[int], F: int, w: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Run ``banded_window_launch`` on a contiguous [m, L] CUDA tensor, or
+    with a [m, D] weight table ``banded_window_weighted_launch`` (float32,
+    L = F)."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {x.dtype}")
+    if w is not None and (
+        x.dtype != torch.float32 or w.dtype != torch.float32 or w.device != x.device
+        or not w.is_contiguous() or tuple(w.shape) != (x.shape[0], len(offsets))
+        or x.shape[1] != F
+    ):
+        raise ValueError("weighted kernel takes float32 x [n, F] and w [n, len(offsets)] "
+                         "on one device")
     if not x.is_contiguous() or x.dim() != 2:
         raise ValueError("kernel needs a contiguous 2-D tensor")
     m, L = x.shape
@@ -88,15 +118,21 @@ def _launch(x: torch.Tensor, offsets: Sequence[int], F: int) -> torch.Tensor:
     wp = padded_bandwidth(offsets)
     if 2 * wp > m:
         raise ValueError(f"2*Wp = {2 * wp} exceeds the {m} rows")
-    rows, cols = tile_shape(L, wp, x.element_size())
+    rows, cols = tile_shape(L, wp, x.element_size(), 0 if w is None else 4 * len(offsets))
     out = torch.empty_like(x)
     offs = (ctypes.c_int * len(offsets))(*[int(o) for o in offsets])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(
-            x.data_ptr(), out.data_ptr(), m, L, F, offs, len(offsets), wp,
-            _DTYPE_CODES[x.dtype], rows, cols, stream,
-        )
+        if w is None:
+            err = _kernel()(
+                x.data_ptr(), out.data_ptr(), m, L, F, offs, len(offsets), wp,
+                _DTYPE_CODES[x.dtype], rows, cols, stream,
+            )
+        else:
+            err = _weighted_kernel()(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), m, F, offs,
+                len(offsets), wp, rows, cols, stream,
+            )
     if err != 0:
         raise RuntimeError(f"banded_window_launch failed: CUDA error {err}")
     return out
@@ -112,6 +148,16 @@ def banded_spmm_unit_plain(x: torch.Tensor, offsets: Sequence[int]) -> torch.Ten
     for o in offsets:
         out = out + torch.roll(xf, -int(o), dims=0)
     return out.to(x.dtype)
+
+
+def banded_spmm_plain(
+    x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int]
+) -> torch.Tensor:
+    """Σ_k w[:, k]·roll(x, -o_k) along rows, summed in offset order."""
+    out = torch.zeros_like(x)
+    for k, o in enumerate(offsets):
+        out = out + w[:, k : k + 1] * torch.roll(x, -int(o), dims=0)
+    return out
 
 
 def pack_interleaved(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -160,6 +206,14 @@ def _packed_raw(x: torch.Tensor, offsets: tuple[int, ...], r: int) -> torch.Tens
     return out.view(n, F)
 
 
+def _weighted_raw(x: torch.Tensor, w: torch.Tensor, offsets: tuple[int, ...]) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return banded_spmm_plain(x, w, offsets)
+    out = _launch(x.contiguous(), offsets, x.shape[1], w.contiguous())
+    LAUNCHES["banded_spmm"] += 1
+    return out
+
+
 class _BandedUnit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, offsets):
@@ -181,6 +235,59 @@ class _BandedUnitPacked(torch.autograd.Function):
     def backward(ctx, dy):
         neg = tuple(-o for o in ctx.offsets)
         return _packed_raw(dy, neg, ctx.r), None, None
+
+
+class _Banded(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, offsets):
+        ctx.save_for_backward(x, w)
+        ctx.offsets = offsets
+        return _weighted_raw(x, w, offsets)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        offsets = ctx.offsets
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # Aᵀ = Σ_k S_{-o_k} diag(w_k): negated offsets, w_k rolled by +o_k
+            w_t = torch.stack([torch.roll(w[:, k], o) for k, o in enumerate(offsets)], dim=1)
+            dx = _weighted_raw(dy.contiguous(), w_t, tuple(-o for o in offsets))
+        if ctx.needs_input_grad[1]:
+            # dL/dw[i, k] = <dy[i], x[(i + o_k) mod n]>
+            dw = torch.stack(
+                [torch.sum(dy * torch.roll(x, -o, dims=0), dim=1) for o in offsets], dim=1
+            )
+        return dx, dw, None
+
+
+def banded_spmm(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    offsets: Sequence[int],
+    block: int | None = None,
+    mode: str = "mxu",
+) -> torch.Tensor:
+    """y[i] = Σ_k w[i, k]·x[(i + o_k) mod n] on float32 x [n, F] and
+    w [n, D]; differentiable in x and w.
+
+    Replaces ``pallas_banded.banded_spmm``.  ``block`` is checked as the JAX
+    package checks it (n % block == 0, max |o| ≤ block) and otherwise
+    unused: the kernel tiles rows itself.  CUDA tensors need 2·Wp ≤ n.
+    """
+    if mode not in ("mxu", "vpu"):
+        raise ValueError(f"mode must be 'mxu' or 'vpu', got {mode!r}")
+    if x.dtype != torch.float32:
+        raise ValueError("weighted banded_spmm requires float32 features")
+    n = x.shape[0]
+    W = max(abs(int(o)) for o in offsets)
+    if block is not None and n % block:
+        raise ValueError(f"n={n} must be a multiple of block={block}")
+    if W > n:
+        raise ValueError(f"bandwidth {W} exceeds n={n}")
+    if block is not None and W > block:
+        raise ValueError(f"bandwidth {W} must be <= block={block}")
+    return _Banded.apply(x, w, tuple(int(o) for o in offsets))
 
 
 def banded_spmm_unit(x: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:

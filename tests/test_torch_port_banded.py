@@ -139,3 +139,52 @@ def test_plain_giant_trainer_matches_jax():
     rt = tgiant.train_banded_giant(n=2048, bandwidth=31, epochs=4, params=params, device="cpu")
     np.testing.assert_allclose(rt["initial_cut"], rj["initial_cut"], rtol=1e-3)
     np.testing.assert_allclose(rt["final_cut"], rj["final_cut"], rtol=1e-3)
+
+
+WEIGHTED_CASES = [
+    (4096, 16, (1, -1, 5, -5, 63, -63)),
+    (2048, 3, (2, -7, 9)),                 # narrow class width, one-sided offsets
+]
+
+
+@pytest.mark.parametrize("n,F,offsets", WEIGHTED_CASES)
+def test_weighted_plain_version_matches_jax_interpret(n, F, offsets):
+    """K4's plain version against the JAX ``banded_spmm`` in interpret mode:
+    values and both gradients (dx through the kernel with negated offsets
+    and rolled weights, dw through PyTorch ops), rtol = atol = 1e-5."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(n, F)).astype(np.float32)
+    w = (rng.random((n, len(offsets))) + 0.5).astype(np.float32)
+    dy = rng.normal(size=(n, F)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        yj, vjp = jax.vjp(lambda a, b: jb.banded_spmm(a, b, offsets), jnp.asarray(x),
+                          jnp.asarray(w))
+        dxj, dwj = vjp(jnp.asarray(dy))
+    xt = torch.tensor(x, requires_grad=True)
+    wt = torch.tensor(w, requires_grad=True)
+    yt = tb.banded_spmm(xt, wt, offsets)
+    yt.backward(torch.tensor(dy))
+    for got, ref in ((yt.detach(), yj), (xt.grad, dxj), (wt.grad, dwj)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(
+        tb.banded_spmm_plain(torch.tensor(x), torch.tensor(w), offsets), yt.detach(),
+        rtol=0, atol=0)
+
+
+def test_weighted_rejects_what_jax_rejects():
+    x = torch.zeros(64, 4)
+    w = torch.ones(64, 2)
+    with pytest.raises(ValueError, match="float32"):
+        tb.banded_spmm(x.to(torch.bfloat16), w, (1, -1))
+    with pytest.raises(ValueError, match="multiple"):
+        tb.banded_spmm(x, w, (1, -1), block=48)
+    with pytest.raises(ValueError, match="block"):
+        tb.banded_spmm(x, w, (9, -1), block=8)
+    with pytest.raises(ValueError, match="mode"):
+        tb.banded_spmm(x, w, (1, -1), mode="fast")
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.banded_spmm(torch.empty(64, 4, device="meta"), torch.empty(64, 2, device="meta"),
+                       (1, -1))
+    rows, cols = tb.tile_shape(128, 64, 4, row_bytes=4 * 8)
+    assert rows % 32 == 0 and (rows + 128) * cols * 4 + 16 + rows * 32 <= 96 * 1024
+    assert tb.tile_shape(16, 64, 4) == tb.tile_shape(16, 64, 4, row_bytes=0)

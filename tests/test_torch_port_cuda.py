@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -17,7 +17,10 @@ import pytest
 import torch
 
 from gcn_maxcut_tpu_torch.bench import giant_demo as tgiant
+from gcn_maxcut_tpu_torch.core.graph import graph_from_dense, graph_from_edges
 from gcn_maxcut_tpu_torch.ops import banded as tb
+from gcn_maxcut_tpu_torch.ops import block_ell as tbell
+from gcn_maxcut_tpu_torch.ops.segment import spmm
 
 CASES = [
     (4096, 16, 8, (1, -1, 5, -5)),
@@ -74,6 +77,28 @@ def test_cuda_kernel_matches_plain(cuda_device, packed, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [4096, 131072])
+def test_cuda_unit_kernel_at_bench_width(cuda_device, n, dtype):
+    """K2 at the width and offsets of ``bench --what banded`` (F = 128)."""
+    offsets = (17, -17, 32, -32, 52, -52, 39, -39)
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=(n, 128)).astype(np.float32)).to(dtype)
+    dy = torch.tensor(rng.normal(size=(n, 128)).astype(np.float32)).to(dtype)
+    before = tb.LAUNCHES["banded_spmm_unit"]
+    xc = x.to(cuda_device).requires_grad_(True)
+    yc = tb.banded_spmm_unit(xc, offsets)
+    yc.backward(dy.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES["banded_spmm_unit"] == before + 2
+    xp = x.clone().requires_grad_(True)
+    yp = tb.banded_spmm_unit(xp, offsets)
+    yp.backward(dy)
+    assert_kernel_close(yc.detach().cpu(), yp.detach())
+    assert_kernel_close(xc.grad.cpu(), xp.grad)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
     x = torch.zeros(64, 4, device=cuda_device)
     with pytest.raises(ValueError, match="exceeds"):
@@ -91,3 +116,113 @@ def test_cuda_packed_trainer_matches_cpu(cuda_device):
     rp = tgiant.train_banded_giant_packed(params=params, device="cpu", **kw)
     np.testing.assert_allclose(rc["history"], rp["history"], rtol=1e-3)
     assert np.mean(rc["assignment"] == rp["assignment"]) >= 0.999
+
+
+def _banded_edges(n, per_node, w, seed, long_edges=()):
+    rng = np.random.default_rng(seed)
+    i = np.repeat(np.arange(n), per_node)
+    j = (i + rng.integers(-w, w + 1, size=i.shape[0])) % n
+    keep = i != j
+    return np.concatenate([np.stack([i[keep], j[keep]], axis=1),
+                           np.asarray(long_edges, dtype=np.int64).reshape(-1, 2)])
+
+
+# (n, per_node, w, long edges, F): wrap edges at both ends in every case
+BLOCK_ELL_CASES = [
+    (2048, 3, 50, [(0, 1000), (5, 1500)], 128),
+    (2048, 3, 50, [(3, 1200)], 3),
+    (1200, 2, 20, [(1, 600)], 16),            # B = 240 is no multiple of 128: R0 = B
+    (4096, 5, 200, [], 64),                   # wider window, degree spills
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BLOCK_ELL_CASES, ids=range(len(BLOCK_ELL_CASES)))
+def test_cuda_block_ell_matches_plain(cuda_device, case):
+    n, per_node, w, long_edges, F = case
+    rng = np.random.default_rng(5)
+    edges = _banded_edges(n, per_node, w, 1, long_edges)
+    wts = (rng.random(edges.shape[0]) + 0.5).astype(np.float32)
+    g = graph_from_edges(edges, n, weights=wts, block_ell=True)
+    assert g.bell_block is not None
+    x = torch.tensor(rng.normal(size=(g.n_pad, F)).astype(np.float32))
+    dy = torch.tensor(rng.normal(size=(g.n_pad, F)).astype(np.float32))
+    gc = g.to(cuda_device)
+    for ew in (None, "weights"):
+        before = tbell.LAUNCHES["block_ell_spmm"]
+        xc = x.to(cuda_device).requires_grad_(True)
+        yc = spmm(gc, xc, None if ew is None else gc.weights)
+        yc.backward(dy.to(cuda_device))
+        torch.cuda.synchronize()
+        assert tbell.LAUNCHES["block_ell_spmm"] == before + 2     # forward + backward
+        xp = x.clone().requires_grad_(True)
+        yp = spmm(g, xp, None if ew is None else g.weights)
+        yp.backward(dy)
+        assert_kernel_close(yc.detach().cpu(), yp.detach())
+        assert_kernel_close(xc.grad.cpu(), xp.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_block_ell_asymmetric_runs_transpose_plan(cuda_device):
+    n = 2048
+    rng = np.random.default_rng(11)
+    adj = np.zeros((n, n), np.float32)
+    edges = _banded_edges(n, 3, 40, 2, [(3, 1500), (700, 10)])
+    adj[edges[:, 0], edges[:, 1]] = rng.random(edges.shape[0]) + 0.5
+    g = graph_from_dense(adj, block_ell=True)
+    assert not g.symmetric and g.bell_t_block is not None
+    x = torch.tensor(rng.normal(size=(n, 8)).astype(np.float32))
+    dy = torch.tensor(rng.normal(size=(n, 8)).astype(np.float32))
+    gc = g.to(cuda_device)
+    xc = x.to(cuda_device).requires_grad_(True)
+    yc = spmm(gc, xc, gc.weights)
+    yc.backward(dy.to(cuda_device))
+    xp = x.clone().requires_grad_(True)
+    yp = spmm(g, xp, g.weights)
+    yp.backward(dy)
+    assert_kernel_close(yc.detach().cpu(), yp.detach())
+    assert_kernel_close(xc.grad.cpu(), xp.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_block_ell_rejects_what_it_does_not_take(cuda_device):
+    g = graph_from_edges(_banded_edges(2048, 3, 50, 1), 2048, block_ell=True).to(cuda_device)
+    ops = (g.bell_senders, g.bell_mask, g.bell_out_senders, g.bell_out_receivers,
+           g.bell_out_mask)
+    with pytest.raises(ValueError, match="float32"):
+        tbell.block_ell_spmm(torch.zeros(2048, 4, device=cuda_device).double(), *ops,
+                             2048, g.bell_block, g.bell_wp)
+    with pytest.raises(ValueError, match="geometry"):
+        tbell.block_ell_spmm(torch.zeros(2048, 4, device=cuda_device), *ops, 2048,
+                             g.bell_block + 8, g.bell_wp)
+
+
+WEIGHTED_CASES = [
+    (4096, 16, (1, -1, 5, -5, 63, -63)),
+    (2048, 3, (2, -7, 9)),
+    (131072, 128, (17, -17, 32, -32, 52, -52, 39, -39)),
+    (296, 20, (1, -1, 7, -7)),            # small, odd row count
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,F,offsets", WEIGHTED_CASES)
+def test_cuda_weighted_banded_matches_plain(cuda_device, n, F, offsets):
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
+    w = torch.tensor((rng.random((n, len(offsets))) + 0.5).astype(np.float32))
+    dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
+    before = tb.LAUNCHES["banded_spmm"]
+    xc = x.to(cuda_device).requires_grad_(True)
+    wc = w.to(cuda_device).requires_grad_(True)
+    yc = tb.banded_spmm(xc, wc, offsets)
+    yc.backward(dy.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES["banded_spmm"] == before + 2
+    xp = x.clone().requires_grad_(True)
+    wp = w.clone().requires_grad_(True)
+    yp = tb.banded_spmm(xp, wp, offsets)
+    yp.backward(dy)
+    assert_kernel_close(yc.detach().cpu(), yp.detach())
+    assert_kernel_close(xc.grad.cpu(), xp.grad)
+    torch.testing.assert_close(wc.grad.cpu(), wp.grad, rtol=1e-4, atol=1e-4)

@@ -105,8 +105,13 @@ def test_graph_from_dense_and_edges_options_same_as_jax():
     gt = tgraph.graph_from_edges(edges, 20, **kw)
     assert_graph_equal(jgraph.graph_from_edges(edges, 20, **kw), gt)
     assert not gt.symmetric
-    with pytest.raises(NotImplementedError):
-        tgraph.graph_from_edges(edges, 20, reorder="rcm")
+    gr = tgraph.graph_from_edges(edges, 20, reorder="rcm")
+    assert_graph_equal(jgraph.graph_from_edges(edges, 20, reorder="rcm"), gr)
+    np.testing.assert_array_equal(
+        gr.reorder_perm.numpy(),
+        np.asarray(jgraph.graph_from_edges(edges, 20, reorder="rcm").reorder_perm))
+    with pytest.raises(ValueError, match="reorder"):
+        tgraph.graph_from_edges(edges, 20, reorder="metis")
     with pytest.raises(ValueError, match="ell_width"):
         tgraph.graph_from_edges(edges, 20, ell_width=2)
     assert isinstance(gt.to("cpu").senders, torch.Tensor)

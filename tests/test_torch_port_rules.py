@@ -8,6 +8,8 @@ import torch
 
 from gcn_maxcut_tpu_torch import device as tdevice
 from gcn_maxcut_tpu_torch.bench.giant_demo import train_banded_giant_packed
+from gcn_maxcut_tpu_torch.bench.locality import train_locality
+from gcn_maxcut_tpu_torch.bench.microbench import bench_spmm, bench_spmm_banded
 from gcn_maxcut_tpu_torch.convert import params_from_jax
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -45,3 +47,6 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
         params_from_jax({"w": [[1.0]]})
     with pytest.raises(RuntimeError):
         train_banded_giant_packed(n=4096, epochs=1)
+    for entry in (train_locality, bench_spmm, bench_spmm_banded):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(n=4096)
