@@ -6,7 +6,7 @@
 Phases; any failure ends the run with a non-zero exit code:
 
   1. build      compile every ``gcn_maxcut_tpu_torch/csrc/*.cu``
-                (``banded_window.cu``: K2, K3, K4; ``block_ell_window.cu``:
+                (``banded_window.cu``: K2, K3, K4, K5, K6; ``block_ell_window.cu``:
                 K1) with nvcc for sm_90a, one nvcc per source, started
                 together, and print the card's name and power limit;
   2. kernels    hold K1 (``block_ell_spmm``: the microbenchmark's plan at
@@ -18,10 +18,24 @@ Phases; any failure ends the run with a non-zero exit code:
                 F = 3) against their plain PyTorch versions on the card,
                 forward and gradient; time each beside its bound, its plain
                 version and one PyTorch library call where there is one;
+     halo       hold K5 (``halo_banded_spmm``: n = 131,072 at F = 128,
+                weighted, and the plain halo trainer's 262,144-row shards at
+                F = 128 and 3, unit weights) and K6
+                (``halo_banded_spmm_unit_packed``: the packed halo trainer's
+                10,002,432 × 16 at r = 8) against their plain versions on
+                rings of 1, 2 and 4 shards on the card, forward and gradient,
+                and in float32 bit for bit against K4/K2 and K3 on the
+                gathered array; time one shard's launch and the ring op;
   3. giant      the packed giant trainer at its defaults (n = 10,002,432,
                 d = 8, bandwidth 63, bf16 aggregation and first moment, 40
                 epochs) through K3, after a small run held against the CPU;
                 then the plain-layout trainer at n = 1,048,576 through K2;
+     halo       the node-sharded trainers on a ring of 4 shards on the card:
+                a small packed run held against a CPU ring, a 1-shard ring
+                against the single-chip packed trainer, then the packed halo
+                trainer at its defaults (n = 10,002,432, 40 epochs) through
+                K6, held to the giant phase's cut, and the plain halo trainer
+                (emb 128, hidden 128, n = 1,048,576, 10 epochs) through K5;
   4. recipe     the ``pipeline`` flow: 20 graphs of n = 500, d in [6, 8],
                 padded to 1000, GCNSoftmax 1000-500-3, 300 epochs, decoded
                 with 200 rollouts and held against the JAX pipeline's cut;
@@ -62,6 +76,11 @@ GIANT_N = 10_002_432
 GIANT_EPOCHS = 40
 PLAIN_N = 1_048_576
 PLAIN_EPOCHS = 10
+HALO_SHARDS = 4                 # the virtual ring of the halo trainers
+HALO_K5_N = 131_072             # K5 at the banded microbenchmark's n
+HALO_PLAIN_SHARD = 262_144      # plain halo trainer: n = 1,048,576 on 4 shards
+HALO_PLAIN_EPOCHS = 10
+HALO_PACKED_SHARD = GIANT_N // HALO_SHARDS
 SMALL_CASES = [                 # (n, F, r, offsets): odd shapes and wrap edges
     (296, 3, 8, (1, -1, 7, -7)),
     (400, 20, 8, (2, -5, 6)),
@@ -399,6 +418,160 @@ def phase_kernels_weighted(torch, tb, offsets) -> dict:
     return {"max_abs_err": err, "timings": timings}
 
 
+def halo_bound(n_shard: int, L: int, d: int, wp: int, elsize: int,
+               weighted: bool) -> tuple[float, str]:
+    """Least time (ms) for one shard's launch: read the shard and its two
+    Wp-row tiles once (and the [n_shard, d] float32 weights), write the
+    shard once, against n_shard·L·d adds (2·n_shard·L·d operations
+    weighted)."""
+    nbytes = 2 * n_shard * L * elsize + 2 * wp * L * elsize + (n_shard * d * 4 if weighted else 0)
+    ops = n_shard * L * d * (2 if weighted else 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_ring(torch, th, tb, mesh, name, x, offsets, gen, w=None, r=None) -> float:
+    """A ring op against its plain version (forward, and the gradient of the
+    unit op) and, for the same rows, against the circulant kernel on the
+    gathered array: bit for bit in float32, within one ulp in bfloat16."""
+    D = mesh.size
+    shard = x.shape[0] // D
+    xs = list(x.split(shard))
+    dys = list(torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype).split(shard))
+    if r is None:
+        op = lambda t: th.halo_banded_spmm_unit(t, offsets, mesh)  # noqa: E731
+        circulant = tb.banded_spmm_unit(x, offsets)
+    else:
+        op = lambda t: th.halo_banded_spmm_unit_packed(t, offsets, r, mesh)  # noqa: E731
+        circulant = tb.banded_spmm_unit_packed(x, offsets, r)
+    xk = [t.clone().requires_grad_(True) for t in xs]
+    yk = op(xk)
+    torch.autograd.backward(yk, dys)
+    # The plain version and its gradient in float32, rounded once.  In
+    # bfloat16 the gradient is the plain version of the adjoint (negated
+    # offsets), which sums in the kernel's order: autograd sums the shifted
+    # cotangents in another order, and after cancellation the float32
+    # results round to bfloat16 values more than one ulp apart.
+    xp = [t.detach().float().requires_grad_(True) for t in xs]
+    yp = th.halo_ring_plain(xp, offsets, mesh, r=r)
+    torch.autograd.backward(yp, [d.float() for d in dys])
+    gp = torch.cat([t.grad for t in xp])
+    if x.dtype != torch.float32:
+        gp = torch.cat(th.halo_ring_plain([d.float() for d in dys], [-o for o in offsets],
+                                          mesh, r=r)).to(x.dtype)
+    torch.cuda.synchronize()
+    y = torch.cat(yk).detach()
+    err = max(max_err_within_tolerance(torch, y, torch.cat(yp).detach().to(x.dtype)),
+              max_err_within_tolerance(torch, torch.cat([t.grad for t in xk]), gp))
+    exact = {"y": bool(torch.equal(y, circulant))}
+    if x.dtype == torch.float32:
+        check(exact["y"], f"{name} on {D} shards equals the circulant kernel bit for bit")
+    else:
+        max_err_within_tolerance(torch, y, circulant)
+    if w is not None:
+        ws = list(w.split(shard))
+        yw = torch.cat(th.halo_banded_spmm(xs, ws, offsets, mesh))
+        err = max(err, max_err_within_tolerance(
+            torch, yw, torch.cat(th.halo_ring_plain(xs, offsets, mesh, ws=ws))))
+        if x.dtype == torch.float32:
+            exact["weighted"] = bool(torch.equal(yw, tb.banded_spmm(x, w, offsets)))
+            check(exact["weighted"], f"weighted {name} on {D} shards equals K4 bit for bit")
+    return err
+
+
+def time_ring(torch, th, mesh, name, x, offsets, w=None, r=None) -> dict:
+    """One shard's launch (shard 0, its tiles staged), the whole ring op,
+    one shard's plain version, and for float32 K5 ``torch.sparse.mm`` of
+    the shard's CSR operator [n_shard, n_shard + 2·Wp] on cat([pre, x,
+    post]), the concat counted."""
+    D, d = mesh.size, len(offsets)
+    wp = th.padded_bandwidth(offsets)
+    shard = x.shape[0] // D
+    xs = list(x.split(shard))
+    ws = None if w is None else list(w.split(shard))
+    F = x.shape[1]
+    views = xs if r is None else [t.view(shard // r, r * F) for t in xs]
+    pre, post = th.halo_exchange(views, wp, mesh, None if r is None else F)[0]
+    v0, w0 = views[0], None if ws is None else ws[0]
+    m, L = v0.shape
+    row = {"name": name, "shards": D, "n_shard": shard, "F": F, "r": r or 1, "L": L,
+           "wp": wp, "weighted": w is not None, "dtype": str(x.dtype)[6:]}
+    with torch.no_grad():
+        row["ms"] = best_ms(torch, lambda: th._launch(v0, pre, post, offsets, w0))
+        if w is not None:
+            ring_op = lambda: th.halo_banded_spmm(xs, ws, offsets, mesh)  # noqa: E731
+        elif r is None:
+            ring_op = lambda: th.halo_banded_spmm_unit(xs, offsets, mesh)  # noqa: E731
+        else:
+            ring_op = lambda: th.halo_banded_spmm_unit_packed(xs, offsets, r, mesh)  # noqa: E731
+        row["op_ms"] = best_ms(torch, ring_op)
+        row["plain_ms"] = best_ms(
+            torch, lambda: th.halo_banded_spmm_plain(v0, w0, pre, post, offsets))
+        row["library_ms"] = row["library_max_abs_err"] = None
+        if r is None and x.dtype == torch.float32:
+            rows = torch.arange(m, device=x.device).repeat_interleave(d)
+            cols = rows.view(m, d) + wp + torch.tensor(offsets, device=x.device)
+            vals = torch.ones(m * d, device=x.device) if w0 is None else w0.reshape(-1)
+            coo = torch.sparse_coo_tensor(torch.stack([rows, cols.reshape(-1)]), vals,
+                                          (m, m + 2 * wp))
+            csr = coo.coalesce().to_sparse_csr()
+            lib = lambda: torch.sparse.mm(csr, torch.cat([pre, v0, post]))  # noqa: E731
+            row["library_max_abs_err"] = float((lib() - th._launch(v0, pre, post, offsets, w0))
+                                               .abs().max())
+            row["library_ms"] = best_ms(torch, lib)
+            del csr, coo, rows, cols, vals
+    row["bound_ms"], row["bound_by"] = halo_bound(m, L, d, wp, x.element_size(), w is not None)
+    log(f"  {name} {D} shards of [{m}, {L}] {row['dtype']}{' weighted' if w is not None else ''}:"
+        f" shard launch {row['ms']:.4f} ms, ring op {row['op_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def phase_kernels_halo(torch, th, tb, make_mesh, offsets, bench_offsets) -> dict:
+    """K5 and K6 on rings of 1, 2 and 4 shards on the card."""
+    log("== kernels: K5 halo_banded_spmm, K6 halo_banded_spmm_unit_packed")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errors = {"K5": 0.0, "K6": 0.0}
+    for D in (1, 2, 4):
+        mesh = make_mesh(devices=["cuda:0"] * D)
+        cases = [("K5", HALO_K5_N, 128, bench_offsets, True, None),
+                 ("K5", HALO_PLAIN_SHARD * D, 128, offsets, False, None),
+                 ("K5", HALO_PLAIN_SHARD * D, 3, offsets, False, None),
+                 ("K6", GIANT_N, 16, offsets, False, 8)]
+        for name, n, F, offs, weighted, r in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(n, F, generator=gen, device=dev).to(dtype)
+                w = (torch.rand(n, len(offs), generator=gen, device=dev) + 0.5
+                     if weighted else None)
+                err = check_ring(torch, th, tb, mesh, name, x, offs, gen, w=w, r=r)
+                errors[name] = max(errors[name], err)
+                log(f"  {name} {D} shards n={n} F={F} r={r or 1} {str(dtype)[6:]}"
+                    f"{' weighted' if weighted else ''}: fwd+grad max |err| {err:.3g}, "
+                    f"{'equals' if dtype == torch.float32 else 'within one ulp of'} "
+                    f"{'K3' if r else 'K2'}{' and K4' if weighted else ''} on the gathered array")
+                del x, w
+        torch.cuda.empty_cache()
+    mesh = make_mesh(devices=["cuda:0"] * HALO_SHARDS)
+    timings = []
+    for name, n, F, offs, weighted, r, dtype in [
+        ("K5", HALO_K5_N, 128, bench_offsets, True, None, torch.float32),
+        ("K5", HALO_K5_N, 128, bench_offsets, True, None, torch.bfloat16),
+        ("K5", HALO_PLAIN_SHARD * HALO_SHARDS, 128, offsets, False, None, torch.float32),
+        ("K5", HALO_PLAIN_SHARD * HALO_SHARDS, 3, offsets, False, None, torch.float32),
+        ("K6", GIANT_N, 16, offsets, False, 8, torch.bfloat16),
+        ("K6", GIANT_N, 16, offsets, False, 8, torch.float32),
+    ]:
+        x = torch.randn(n, F, generator=gen, device=dev).to(dtype)
+        w = torch.rand(n, len(offs), generator=gen, device=dev) + 0.5 if weighted else None
+        timings.append(time_ring(torch, th, mesh, name, x, offs, w=w, r=r))
+        del x, w
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errors, "timings": timings}
+
+
 def circulant_cut(torch, assignment, offsets) -> int:
     """Cut of a node-order assignment on the circulant graph: each positive
     offset s contributes the edges (i, i + s mod n)."""
@@ -459,6 +632,79 @@ def phase_giant(torch, tb, giant) -> dict:
                        "peak_memory_gb": peak_gb, "launches": launches},
             "plain": {**plain, "launches": plain_launches},
             "small_agreement": agree}
+
+
+def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> dict:
+    """The node-sharded trainers on a ring of 4 shards on the card."""
+    log("== halo")
+    ring = make_mesh(devices=["cuda:0"] * HALO_SHARDS)
+    small = tgb.PackedHaloGiantConfig(bandwidth=31, epochs=4, agg_dtype=None, mu_dtype=None)
+    p0 = giant.packed_params(4096, seed=0, device="cpu")
+    on_card = tgb.train_halo_giant_packed(1024, small, ring, params=p0, return_assignment=True)
+    on_cpu = tgb.train_halo_giant_packed(1024, small, make_mesh(devices=["cpu"] * HALO_SHARDS),
+                                         params=p0, return_assignment=True)
+    agree = float((on_card["assignment"] == on_cpu["assignment"]).mean())
+    log(f"  small packed run on 4 shards, card vs CPU ring: history {on_card['history']} vs "
+        f"{on_cpu['history']}, assignments agree on {agree:.6f}")
+    torch.testing.assert_close(torch.tensor(on_card["history"]),
+                               torch.tensor(on_cpu["history"]), rtol=1e-3, atol=0)
+    check(agree >= 0.999, "small packed halo run: card and CPU assignments agree")
+    one = tgb.train_halo_giant_packed(4096, small, make_mesh(devices=["cuda:0"]), params=p0)
+    single = giant.train_banded_giant_packed(n=4096, bandwidth=31, epochs=4, agg_dtype=None,
+                                             mu_dtype=None, params=p0, device="cuda")
+    one_rel = max(abs(a - b) / abs(b) for a, b in zip(one["history"], single["history"]))
+    log(f"  1-shard ring vs the single-chip packed trainer: history {one['history']} vs "
+        f"{single['history']}, largest relative difference {one_rel:.3g}")
+    torch.testing.assert_close(torch.tensor(one["history"]), torch.tensor(single["history"]),
+                               rtol=1e-3, atol=0)
+
+    torch.cuda.reset_peak_memory_stats()
+    tb.reset_launches()
+    th.reset_launches()
+    res = tgb.train_halo_giant_packed(HALO_PACKED_SHARD, tgb.PackedHaloGiantConfig(epochs=GIANT_EPOCHS),
+                                      ring, return_assignment=True)
+    launches = {**tb.LAUNCHES, **th.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cut = circulant_cut(torch, res["assignment"], res["offsets"])
+    m = res["n"] // 8
+    log(f"  packed halo n={res['n']} on {res['num_devices']} shards: epoch "
+        f"{res['epoch_time_s'] * 1e3:.3f} ms (first {res['first_epoch_s']:.3f} s), "
+        f"{res['edges_per_s_per_epoch']:.4g} edges/s, cut fraction {res['cut_fraction']:.5f} "
+        f"(decoded {cut / res['edges']:.5f}; single-chip {single_fraction:.5f}), peak "
+        f"{peak_gb:.2f} GB, launches {launches}")
+    check(launches["halo_banded_spmm_unit_packed"] == 6 * HALO_SHARDS * GIANT_EPOCHS + 2 * HALO_SHARDS,
+          "K6 launched 6 times an epoch on each shard, plus 2 each for the decode")
+    check(all(v == 0 for k, v in launches.items() if k != "halo_banded_spmm_unit_packed"),
+          "the packed halo trainer runs no K2, K3, K4 or K5")
+    check(all(map(math.isfinite, res["history"])), "finite loss history")
+    check(res["cut_fraction"] >= 0.90, "packed halo cut fraction >= 0.90")
+    check(cut / res["edges"] >= 0.90, "decoded assignment cuts >= 0.90 of the edges")
+    check(list(res["assignment"][[0, m, 2 * m]]) == [0, 1, 2], "terminals keep their classes")
+    check(abs(res["cut_fraction"] - single_fraction) <= 0.005,
+          "packed halo cut within 0.005 of the single-chip packed trainer's")
+
+    tb.reset_launches()
+    th.reset_launches()
+    plain = tgb.train_halo_giant(HALO_PLAIN_SHARD, tgb.HaloGiantConfig(epochs=HALO_PLAIN_EPOCHS),
+                                 ring)
+    plain_launches = {**tb.LAUNCHES, **th.LAUNCHES}
+    log(f"  plain halo n={plain['n']} on {plain['num_devices']} shards: epoch "
+        f"{plain['epoch_time_s'] * 1e3:.3f} ms, cut {plain['initial_cut']:.0f} -> "
+        f"{plain['final_cut']:.0f} (fraction {plain['cut_fraction']:.5f}), launches {plain_launches}")
+    check(plain_launches["halo_banded_spmm"] == 6 * HALO_SHARDS * HALO_PLAIN_EPOCHS,
+          "K5 launched 6 times an epoch on each shard")
+    check(all(v == 0 for k, v in plain_launches.items() if k != "halo_banded_spmm"),
+          "the plain halo trainer runs no other kernel")
+    check(all(map(math.isfinite, plain["history"])), "finite loss history")
+    check(plain["final_cut"] > plain["initial_cut"], "plain halo trainer improves the cut")
+    for r in (res, plain):
+        r.pop("history")
+        r.pop("assignment", None)
+    torch.cuda.empty_cache()
+    return {"packed": {**res, "decoded_cut_fraction": cut / res["edges"], "peak_memory_gb": peak_gb,
+                       "launches": launches, "single_chip_cut_fraction": single_fraction},
+            "plain": {**plain, "launches": plain_launches},
+            "small_agreement": agree, "one_shard_max_rel_diff": one_rel}
 
 
 def phase_recipe(tb, run_pipeline) -> dict:
@@ -601,7 +847,10 @@ def main() -> int:
     from gcn_maxcut_tpu_torch.device import resolve_device
     from gcn_maxcut_tpu_torch.ops import banded as tb
     from gcn_maxcut_tpu_torch.ops import block_ell as tbell
+    from gcn_maxcut_tpu_torch.ops import halo as th
     from gcn_maxcut_tpu_torch.ops import segment as seg
+    from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
+    from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
 
     resolve_device()                      # turns TF32 off
     OUT_DIR.mkdir(exist_ok=True)
@@ -611,7 +860,12 @@ def main() -> int:
                                       micro.banded_offsets(8, 63))
     report["kernels_k1"] = phase_kernels_block_ell(torch, np, tbell, seg, tgraph, micro, loc)
     report["kernels_k4"] = phase_kernels_weighted(torch, tb, micro.banded_offsets(8, 63))
+    report["kernels_halo"] = phase_kernels_halo(torch, th, tb, make_mesh,
+                                                giant.circulant_offsets(8, 63, 0),
+                                                micro.banded_offsets(8, 63))
     report["giant"] = phase_giant(torch, tb, giant)
+    report["halo"] = phase_halo(torch, tb, th, tgb, giant, make_mesh,
+                                report["giant"]["packed"]["cut_fraction"])
     report["recipe"] = phase_recipe(tb, run_pipeline)
     report["locality"] = phase_locality(torch, np, tbell, tb, loc)
     report["microbench"] = phase_microbench(tbell, tb, micro)
@@ -625,18 +879,30 @@ def main() -> int:
                       if (t["case"], t["F"]) == ("locality", 64))
     rows["K4"] = next(t for t in report["kernels_k4"]["timings"]
                       if (t["n"], t["F"]) == (BANDED_N, 128))
+    rows["K5"] = next(t for t in report["kernels_halo"]["timings"]
+                      if (t["name"], t["n_shard"] * t["shards"], t["dtype"])
+                      == ("K5", HALO_K5_N, "float32"))
+    rows["K6"] = next(t for t in report["kernels_halo"]["timings"]
+                      if (t["name"], t["dtype"]) == ("K6", "bfloat16"))
+    for name in ("K5", "K6"):
+        rows[name]["n"] = rows[name]["n_shard"]
     launches = {"K1": report["locality"]["launches"]["block_ell_spmm"],
                 "K2": report["giant"]["plain"]["launches"]["banded_spmm_unit"],
                 "K3": report["giant"]["packed"]["launches"]["banded_spmm_unit_packed"],
-                "K4": report["microbench"]["banded"]["launches"]["banded_spmm"]}
+                "K4": report["microbench"]["banded"]["launches"]["banded_spmm"],
+                "K5": report["halo"]["plain"]["launches"]["halo_banded_spmm"],
+                "K6": report["halo"]["packed"]["launches"]["halo_banded_spmm_unit_packed"]}
     errors = {**report["kernels"]["max_abs_err"], "K1": report["kernels_k1"]["max_abs_err"],
-              "K4": report["kernels_k4"]["max_abs_err"]}
+              "K4": report["kernels_k4"]["max_abs_err"], **report["kernels_halo"]["max_abs_err"]}
     names = {"K1": "block_ell_spmm", "K2": "banded_spmm_unit",
-             "K3": "banded_spmm_unit_packed", "K4": "banded_spmm"}
+             "K3": "banded_spmm_unit_packed", "K4": "banded_spmm",
+             "K5": "halo_banded_spmm", "K6": "halo_banded_spmm_unit_packed"}
     replaces = {"K1": "gcn_maxcut_tpu/ops/pallas_block_ell.py:146",
                 "K2": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
                 "K3": "gcn_maxcut_tpu/ops/pallas_banded.py:529",
-                "K4": "gcn_maxcut_tpu/ops/pallas_banded.py:257"}
+                "K4": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
+                "K5": "gcn_maxcut_tpu/ops/pallas_halo.py:162",
+                "K6": "gcn_maxcut_tpu/ops/pallas_halo.py:409"}
     kernels = [{
         "name": f"{name} {names[name]}", "route": "cuda",
         "source": BLOCK_ELL_SOURCE if name == "K1" else KERNEL_SOURCE,
@@ -645,7 +911,9 @@ def main() -> int:
         "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
         "library_ms": rows[name]["library_ms"],
         "shape": [rows[name]["n"], rows[name]["F"]], "dtype": rows[name]["dtype"],
-    } for name in ("K1", "K2", "K3", "K4")]
+        **({"shards": rows[name]["shards"], "op_ms": rows[name]["op_ms"]}
+           if name in ("K5", "K6") else {}),
+    } for name in ("K1", "K2", "K3", "K4", "K5", "K6")]
     log(f"total {report['seconds']:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -15,12 +15,14 @@ So far the port holds:
                block-ELL plans, locality relabeling)
   data/        seeded regular / G(n,p) graphs, terminal normalisation, RCM
   ops/         block-ELL / ELL / COO SpMM, SDDMM, STE ops; the banded SpMM
-               kernels (K2, K3, weighted K4) and the block-ELL kernel (K1)
+               kernels (K2, K3, weighted K4), the block-ELL kernel (K1) and
+               the sharded halo kernels over a device ring (K5, K6)
   models/      GraphConv (norm='both') and the GCNSoftmax module
   objectives/  edge-form cut loss and hard cut value
   train/       TrainingConfig, per-graph Adam loop with early stopping
   eval/        argmax and sampled decoders
   baselines/   randomized k-way max-cut
+  parallel/    device rings (meshes) and the node-sharded giant trainers
   bench/       giant banded trainers, the locality trainer, SpMM
                microbenchmarks and the H100 roofline
   cli.py       ``pipeline`` and ``bench --what giant|locality|spmm|banded``

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -91,42 +91,77 @@ def packed_params(
     )
 
 
+def group_softmax(h: torch.Tensor, class_ok: torch.Tensor) -> torch.Tensor:
+    """Softmax over the real classes (``class_ok`` lanes) of each 16-lane
+    row; the max is a shift and carries no gradient."""
+    gmax = (h + (class_ok - 1.0) * 1e9).amax(dim=-1, keepdim=True).detach()
+    e = torch.exp(h - gmax) * class_ok
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def pin_group_head(probs: torch.Tensor, term_onehot: torch.Tensor) -> torch.Tensor:
+    """Rows 0..k-1 (the terminals) pinned to ``term_onehot``, identity
+    gradient."""
+    head = probs[: term_onehot.shape[0]]
+    return torch.cat([(term_onehot - head).detach() + head, probs[term_onehot.shape[0]:]])
+
+
+def group_onehot(pinned: torch.Tensor, class_ok: torch.Tensor) -> torch.Tensor:
+    """Straight-through group argmax: every lane equal to the row's max is
+    set (ties set several lanes, as in the JAX trainer)."""
+    gmax = pinned.amax(dim=-1, keepdim=True)
+    hard = ((pinned >= gmax).to(pinned.dtype) * class_ok).detach()
+    return (hard - pinned).detach() + pinned
+
+
+def group_argmax(pinned: torch.Tensor, class_ok: torch.Tensor) -> torch.Tensor:
+    """The decoded class of each row, over the real classes."""
+    return torch.argmax(torch.where(class_ok > 0, pinned.float(), -torch.inf), dim=-1)
+
+
 def _leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [params["conv1"]["w"], params["conv1"]["b"],
             params["conv2"]["w"], params["conv2"]["b"], params["embed"]]
 
 
+def _synchronize(devices: Sequence[torch.device]) -> None:
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 def _train(
-    loss_fn: Callable[[Dict[str, Any]], torch.Tensor],
-    params: Dict[str, Any],
+    loss_fn: Callable[[], torch.Tensor],
+    leaves: List[torch.Tensor],
     epochs: int,
     optimizer: Adam,
-    dev: torch.device,
+    devices: Sequence[torch.device],
 ) -> tuple[List[float], float, float]:
-    """Run ``epochs`` Adam steps; returns (loss history, first-epoch
-    seconds, mean seconds of the later epochs)."""
-    leaves = _leaves(params)
+    """Run ``epochs`` Adam steps on ``leaves``; returns (loss history,
+    first-epoch seconds, mean seconds of the later epochs).  The loss lives
+    on ``devices[0]``; every device is synchronised before a time is read."""
 
     def step() -> torch.Tensor:
-        loss = loss_fn(params)
+        loss = loss_fn()
         optimizer.step(torch.autograd.grad(loss, leaves))
         return loss.detach()
 
+    dev = devices[0]
     cuda = dev.type == "cuda"
     t0 = time.perf_counter()
     losses = [step()]
-    if cuda:
-        torch.cuda.synchronize(dev)
+    _synchronize(devices)
     first = time.perf_counter() - t0
     if epochs > 1:
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            start.record()
+            start.record(torch.cuda.current_stream(dev))
         t0 = time.perf_counter()
         losses += [step() for _ in range(epochs - 1)]
         if cuda:
-            end.record()
+            _synchronize(devices)
+            end.record(torch.cuda.current_stream(dev))
             end.synchronize()
             steady = start.elapsed_time(end) / 1e3 / (epochs - 1)
         else:
@@ -202,7 +237,8 @@ def train_banded_giant(
         return -(e_undirected - 0.5 * same)
 
     optimizer = Adam(_leaves(params), learning_rate)
-    history, first, steady = _train(loss_fn, params, epochs, optimizer, dev)
+    history, first, steady = _train(
+        lambda: loss_fn(params), _leaves(params), epochs, optimizer, [dev])
     return _result(n, d, epochs, history, first, steady, "plain", offsets)
 
 
@@ -270,21 +306,10 @@ def train_banded_giant_packed(
         h = torch.relu(spmm(h) * inv_d + p["conv1"]["b"].to(act))
         h = h @ p["conv2"]["w"].to(act)
         h = spmm(h) * inv_d + p["conv2"]["b"].to(act)
-        # masked softmax over the k real classes of each 16-lane group; the
-        # max is a shift and carries no gradient
-        gmax = (h + (class_ok - 1.0) * 1e9).amax(dim=-1, keepdim=True).detach()
-        e = torch.exp(h - gmax) * class_ok
-        probs = e / e.sum(dim=-1, keepdim=True)
-        head = probs[:num_classes]
-        return torch.cat([(term_onehot - head).detach() + head, probs[num_classes:]])
+        return pin_group_head(group_softmax(h, class_ok), term_onehot)
 
     def loss_fn(p):
-        pinned = pinned_probs(p)
-        # straight-through group argmax: every lane equal to the group max
-        # is set (ties set several lanes, as in the JAX trainer)
-        gmax = pinned.amax(dim=-1, keepdim=True)
-        hard = ((pinned >= gmax).to(act) * class_ok).detach()
-        onehot = (hard - pinned).detach() + pinned
+        onehot = group_onehot(pinned_probs(p), class_ok)
         same = torch.dot(
             onehot.to(torch.float32).reshape(-1),
             spmm(onehot).to(torch.float32).reshape(-1),
@@ -295,13 +320,12 @@ def train_banded_giant_packed(
         _leaves(params), learning_rate,
         mu_dtype=None if mu_dtype is None else getattr(torch, mu_dtype),
     )
-    history, first, steady = _train(loss_fn, params, epochs, optimizer, dev)
+    history, first, steady = _train(
+        lambda: loss_fn(params), _leaves(params), epochs, optimizer, [dev])
     res = _result(n, d, epochs, history, first, steady, "packed", offsets)
     if return_assignment:
         with torch.no_grad():
-            pinned = pinned_probs(params).float()
-            masked = torch.where(class_ok > 0, pinned, -torch.inf)
-            cls = torch.argmax(masked, dim=-1)                  # position order
+            cls = group_argmax(pinned_probs(params), class_ok)   # position order
             res["assignment"] = (
                 cls.view(m, r).T.reshape(n).to(torch.int32).cpu().numpy()
             )

@@ -20,7 +20,10 @@ from gcn_maxcut_tpu_torch.bench import giant_demo as tgiant
 from gcn_maxcut_tpu_torch.core.graph import graph_from_dense, graph_from_edges
 from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
+from gcn_maxcut_tpu_torch.ops import halo as th
 from gcn_maxcut_tpu_torch.ops.segment import spmm
+from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
+from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
 
 CASES = [
     (4096, 16, 8, (1, -1, 5, -5)),
@@ -226,3 +229,108 @@ def test_cuda_weighted_banded_matches_plain(cuda_device, n, F, offsets):
     assert_kernel_close(yc.detach().cpu(), yp.detach())
     assert_kernel_close(xc.grad.cpu(), xp.grad)
     torch.testing.assert_close(wc.grad.cpu(), wp.grad, rtol=1e-4, atol=1e-4)
+
+
+BENCH_OFFSETS = (17, -17, 32, -32, 52, -52, 39, -39)
+# K5: (D, n_shard, F, offsets, block) on a ring of D shards on one card
+HALO_K5_CASES = [
+    (1, 4096, 128, BENCH_OFFSETS, 1024),
+    (2, 4096, 16, (1, -1, 5, -5, 63, -63), 1024),
+    (4, 2048, 3, BENCH_OFFSETS, 1024),        # the class width
+    (4, 64, 20, (1, -1, 7, -7, 60, -60), 64),  # one block per shard, Wp = n_shard
+]
+# K6: (D, n_loc, F, r, offsets)
+HALO_K6_CASES = [
+    (1, 4096, 16, 8, (63, -63, 1, -1)),
+    (2, 8192, 16, 8, (9, -9, 2, -2, 33, -33)),
+    (4, 512, 16, 8, (63, -63, 1, -1)),         # Wp = m_loc = 64
+    (4, 384, 8, 3, (2, -2, 9, -9)),            # L = 24
+]
+
+
+def _ring(cuda_device, n_dev):
+    return make_mesh(devices=[cuda_device] * n_dev)
+
+
+def _plain_ring_and_grad(xs, dy, mesh, offsets, r=None):
+    """The plain ring op and its gradient, taken in float32 and rounded
+    once to the shards' dtype.  The float32 gradient is autograd's; the
+    bfloat16 one is the plain version of the adjoint (negated offsets),
+    which sums in the kernel's order (autograd sums in another, and after
+    cancellation two float32 sums can round to bfloat16 values more than
+    one ulp apart)."""
+    xp = [t.detach().float().requires_grad_(True) for t in xs]
+    dys = list(dy.float().split(xs[0].shape[0]))
+    yp = th.halo_ring_plain(xp, offsets, mesh, r=r)
+    torch.autograd.backward(yp, dys)
+    dtype = xs[0].dtype
+    if dtype == torch.float32:
+        return torch.cat(yp).detach(), torch.cat([t.grad for t in xp])
+    adjoint = th.halo_ring_plain(dys, [-o for o in offsets], mesh, r=r)
+    return torch.cat(yp).detach().to(dtype), torch.cat(adjoint).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", HALO_K5_CASES, ids=range(len(HALO_K5_CASES)))
+def test_cuda_halo_k5_matches_plain(cuda_device, case, dtype):
+    n_dev, n_shard, F, offsets, block = case
+    mesh = _ring(cuda_device, n_dev)
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.normal(size=(n_dev * n_shard, F)).astype(np.float32))
+    w = torch.tensor((rng.random((n_dev * n_shard, len(offsets))) + 0.5).astype(np.float32))
+    dy = torch.tensor(rng.normal(size=x.shape).astype(np.float32)).to(dtype)
+    xs = list(x.to(cuda_device, dtype).split(n_shard))
+    ws = list(w.to(cuda_device).split(n_shard))
+    before = th.LAUNCHES["halo_banded_spmm"]
+    yw = th.halo_banded_spmm(xs, ws, offsets, mesh, block)
+    xk = [t.clone().requires_grad_(True) for t in xs]
+    yk = th.halo_banded_spmm_unit(xk, offsets, mesh, block)
+    torch.autograd.backward(yk, list(dy.to(cuda_device).split(n_shard)))
+    torch.cuda.synchronize()
+    assert th.LAUNCHES["halo_banded_spmm"] == before + 3 * n_dev
+    yp, gp = _plain_ring_and_grad(xs, dy.to(cuda_device), mesh, offsets)
+    assert_kernel_close(torch.cat(yw), torch.cat(th.halo_ring_plain(xs, offsets, mesh, ws=ws)))
+    assert_kernel_close(torch.cat(yk).detach(), yp)
+    assert_kernel_close(torch.cat([t.grad for t in xk]), gp)
+    if dtype == torch.float32 and 2 * tb.padded_bandwidth(offsets) <= x.shape[0]:
+        # the same rows through the circulant kernels on the gathered array
+        xg, wg = x.to(cuda_device), w.to(cuda_device)
+        assert torch.equal(torch.cat(yw), tb.banded_spmm(xg, wg, offsets))
+        assert torch.equal(torch.cat(yk).detach(), tb.banded_spmm_unit(xg, offsets))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", HALO_K6_CASES, ids=range(len(HALO_K6_CASES)))
+def test_cuda_halo_k6_matches_plain(cuda_device, case, dtype):
+    n_dev, n_loc, F, r, offsets = case
+    mesh = _ring(cuda_device, n_dev)
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.normal(size=(n_dev * n_loc, F)).astype(np.float32))
+    dy = torch.tensor(rng.normal(size=x.shape).astype(np.float32)).to(dtype)
+    xs = list(x.to(cuda_device, dtype).split(n_loc))
+    before = th.LAUNCHES["halo_banded_spmm_unit_packed"]
+    xk = [t.clone().requires_grad_(True) for t in xs]
+    yk = th.halo_banded_spmm_unit_packed(xk, offsets, r, mesh)
+    torch.autograd.backward(yk, list(dy.to(cuda_device).split(n_loc)))
+    torch.cuda.synchronize()
+    assert th.LAUNCHES["halo_banded_spmm_unit_packed"] == before + 2 * n_dev
+    yp, gp = _plain_ring_and_grad(xs, dy.to(cuda_device), mesh, offsets, r)
+    assert_kernel_close(torch.cat(yk).detach(), yp)
+    assert_kernel_close(torch.cat([t.grad for t in xk]), gp)
+    if dtype == torch.float32 and 2 * tb.padded_bandwidth(offsets) <= x.shape[0] // r:
+        assert torch.equal(torch.cat(yk).detach(),
+                           tb.banded_spmm_unit_packed(x.to(cuda_device), offsets, r))
+
+
+@pytest.mark.cuda
+def test_cuda_halo_trainer_matches_cpu_ring(cuda_device):
+    cfg = tgb.PackedHaloGiantConfig(d=8, bandwidth=31, epochs=4, agg_dtype=None, mu_dtype=None)
+    p0 = tgiant.packed_params(4096, seed=0, device="cpu")
+    rc = tgb.train_halo_giant_packed(1024, cfg, _ring(cuda_device, 4), params=p0,
+                                     return_assignment=True)
+    rp = tgb.train_halo_giant_packed(1024, cfg, make_mesh(devices=["cpu"] * 4), params=p0,
+                                     return_assignment=True)
+    np.testing.assert_allclose(rc["history"], rp["history"], rtol=1e-3)
+    assert np.mean(rc["assignment"] == rp["assignment"]) >= 0.999
