@@ -7,8 +7,10 @@ Phases; any failure ends the run with a non-zero exit code:
 
   1. build      compile every ``gcn_maxcut_tpu_torch/csrc/*.cu``
                 (``banded_window.cu``: K2, K3, K4, K5, K6; ``block_ell_window.cu``:
-                K1) with nvcc for sm_90a, one nvcc per source, started
-                together, and print the card's name and power limit;
+                K1; ``probe_kernels.cu``: the probes' window_gather,
+                panel_ell_spmm and banded_spmm_cols) with nvcc for sm_90a,
+                one nvcc per source, started together, and print the card's
+                name and power limit;
   2. kernels    hold K1 (``block_ell_spmm``: the microbenchmark's plan at
                 F = 128, the locality trainer's at F = 64 and 3, and small
                 odd plans), K2 (``banded_spmm_unit``, r = 1, F = 16 and 3;
@@ -26,6 +28,15 @@ Phases; any failure ends the run with a non-zero exit code:
                 rings of 1, 2 and 4 shards on the card, forward and gradient,
                 and in float32 bit for bit against K4/K2 and K3 on the
                 gathered array; time one shard's launch and the ring op;
+     probes     hold the design probes' kernels against their plain versions
+                at the probes' sizes (``window_gather`` at every P1 (W, B),
+                float32 and bf16 x, and P2's d = 16; ``subblock_spmm`` on
+                K1's kernel at both P3 configurations; ``panel_ell_spmm`` at
+                every P4 (W, W_P) the 5% rule keeps; ``banded_spmm_cols``
+                and K4 on every P5 variant's weights), time each beside its
+                bound, its plain version and ``torch.sparse.mm``; then run
+                the five probe entry points (``gcn_maxcut_tpu_torch.experiments``)
+                and check their launch counts and errors;
   3. giant      the packed giant trainer at its defaults (n = 10,002,432,
                 d = 8, bandwidth 63, bf16 aggregation and first moment, 40
                 epochs) through K3, after a small run held against the CPU;
@@ -71,6 +82,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = "gcn_maxcut_tpu_torch/csrc/banded_window.cu"
 BLOCK_ELL_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_window.cu"
+PROBE_SOURCE = "gcn_maxcut_tpu_torch/csrc/probe_kernels.cu"
+PROBE_ITERS = 10                # timed calls of each probe case (plus 2 warm-up)
 
 GIANT_N = 10_002_432
 GIANT_EPOCHS = 40
@@ -308,10 +321,15 @@ def check_block_ell(torch, tbell, seg, g, F: int, gen, mode: str = "mask") -> fl
                max_err_within_tolerance(torch, xk.grad, xp.grad))
 
 
-def csr_of(torch, rows, cols, vals, n: int):
-    """float32 CSR matrix with entries (rows, cols) = vals."""
-    coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]), vals, (n, n))
+def csr_rect(torch, rows, cols, vals, shape):
+    """float32 CSR matrix of ``shape`` with entries (rows, cols) = vals."""
+    coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]), vals, shape)
     return coo.coalesce().to_sparse_csr()
+
+
+def csr_of(torch, rows, cols, vals, n: int):
+    """float32 CSR matrix [n, n] with entries (rows, cols) = vals."""
+    return csr_rect(torch, rows, cols, vals, (n, n))
 
 
 def time_block_ell(torch, tbell, g, F: int, gen, label: str) -> dict:
@@ -570,6 +588,230 @@ def phase_kernels_halo(torch, th, tb, make_mesh, offsets, bench_offsets) -> dict
         del x, w
     torch.cuda.empty_cache()
     return {"max_abs_err": errors, "timings": timings}
+
+
+def probe_timing(torch, name: str, case: str, kernel, plain, csr, rhs,
+                 nbytes: float, ops: float) -> dict:
+    """One probe kernel's row: the kernel, its plain version and
+    ``torch.sparse.mm`` of the same operator (``csr`` on the float32
+    ``rhs``) in ms, and the bound: the larger of bytes / 3.35 TB/s and
+    operations / 67 TFLOP/s."""
+    with torch.no_grad():
+        row = {"name": name, "case": case, "ms": best_ms(torch, kernel),
+               "plain_ms": best_ms(torch, plain)}
+        row["library_max_abs_err"] = float((torch.sparse.mm(csr, rhs) - plain()).abs().max())
+        row["library_ms"] = best_ms(torch, lambda: torch.sparse.mm(csr, rhs))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    row["bound_ms"] = max(bytes_ms, ops_ms)
+    row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"  {name} {case}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"sparse.mm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
+
+
+def check_probe(torch, got, ref, errors: dict, name: str) -> float:
+    """A probe kernel against its plain version (float32, rtol = atol =
+    1e-5); keeps the largest error under ``name``."""
+    torch.cuda.synchronize()
+    err = max_err_within_tolerance(torch, got, ref)
+    errors[name] = max(errors.get(name, 0.0), err)
+    return err
+
+
+def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> dict:
+    """The probes' kernels against their plain versions at the probes'
+    sizes, forward only, each timed at every shape.  bf16 x is held against
+    the plain version on the same values widened to float32."""
+    log("== kernels: probes P1-P5")
+    gp, gp2, sp, pp, wpr = (probes[k] for k in ("gather_probe", "gather_probe2",
+                                                "subblock_probe", "panel_ell_probe",
+                                                "weighted_probe"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    F = gp.F
+    errors, timings = {}, []
+
+    # P1 at every (W, B), float32 and bf16 x; P2's d = 16 case
+    tables = [(W, B, gp.block_table(W, B)) for W, B in gp.CONFIGS]
+    tables.append((255, 256, gp2.block_table(255, 256, d=16)))
+    for W, B, (_, lidx, n_use, Wp) in tables:
+        d = lidx.shape[1]
+        x = torch.randn(n_use, F, generator=gen, device=dev)
+        li = torch.from_numpy(lidx).to(dev)
+        w = torch.rand(n_use, d, generator=gen, device=dev) + 0.5
+        rows = torch.arange(n_use, device=dev).repeat_interleave(d)
+        cols = (torch.arange(n_use, device=dev) // B * B)[:, None] + li.long()
+        csr = csr_rect(torch, rows, cols.reshape(-1), w.reshape(-1), (n_use, n_use + 2 * Wp))
+        for dtype in (torch.float32, torch.bfloat16):
+            xpad = gp.pad_rows(x, Wp).to(dtype)
+            xf = xpad.float()
+            y = tpk.window_gather(xpad, li, w, B, Wp)
+            err = check_probe(torch, y, tpk.window_gather_plain(xf, li, w, B, Wp), errors,
+                              "window_gather")
+            case = f"W={W} B={B} d={d} {str(dtype)[6:]} x"
+            log(f"  window_gather n={n_use} F={F} {case}: max |err| {err:.3g}")
+            nbytes = (n_use + 2 * Wp) * F * xpad.element_size() + n_use * F * 4 + n_use * d * 8
+            row = probe_timing(torch, "window_gather", case,
+                               lambda: tpk.window_gather(xpad, li, w, B, Wp),
+                               lambda: tpk.window_gather_plain(xpad, li, w, B, Wp),
+                               csr, xf, nbytes, 2 * n_use * d * F)
+            timings.append({**row, "W": W, "B": B, "d": d, "n": n_use, "F": F,
+                            "dtype": str(dtype)[6:]})
+        del x, li, w, csr, rows, cols, xpad, xf, y
+
+    # P3 on K1's kernel and P4 on the panel tables, on the probes' two graphs
+    n, d = MICRO_N, 8
+    n_pad = tgraph.round_up(n, 2048)
+    graphs = {W: micro._banded_regular_graph(n, d, W, n_pad=n_pad) for W, _ in pp.CONFIGS}
+    for W, B, wp in sp.CONFIGS:
+        sidx, w0, _, _ = sp.subblock_table(graphs[W], n, d)
+        x = torch.randn(n_pad, F, generator=gen, device=dev)
+        si = torch.from_numpy(sidx).to(dev)
+        w = torch.from_numpy(w0).to(dev) * (torch.rand(n_pad, d, generator=gen, device=dev) + 0.5)
+        y = tpk.subblock_spmm(x, si, w, n_pad, B, wp)
+        err = check_probe(torch, y, tpk.subblock_spmm_plain(x, si, w, n_pad, B, wp), errors,
+                          "subblock_spmm")
+        log(f"  subblock_spmm n={n_pad} F={F} W={W} B={B} Wp={wp}: max |err| {err:.3g}")
+        r0 = tbell.sub_block_rows(B)
+        start = (torch.arange(n_pad, device=dev) // r0 * r0)[:, None]
+        valid = (si.long() - start + wp) % n_pad < r0 + 2 * wp
+        rows = torch.arange(n_pad, device=dev).repeat_interleave(d)
+        csr = csr_rect(torch, rows, si.reshape(-1), (w * valid).reshape(-1), (n_pad, n_pad))
+        row = probe_timing(torch, "subblock_spmm", f"W={W} B={B} Wp={wp}",
+                           lambda: tpk.subblock_spmm(x, si, w, n_pad, B, wp),
+                           lambda: tpk.subblock_spmm_plain(x, si, w, n_pad, B, wp),
+                           csr, x, 2 * n_pad * F * 4 + n_pad * d * 8,
+                           2 * int(valid.sum()) * F)
+        timings.append({**row, "W": W, "B": B, "wp": wp, "n": n_pad, "F": F, "dtype": "float32"})
+        del x, si, w, y, csr, rows, valid, start
+
+    panel_ran = {W: 0 for W, _ in pp.CONFIGS}
+    for W, wp in pp.CONFIGS:
+        g = graphs[W]
+        s = g.senders.numpy()[: int(g.n_edges)].astype(np.int64)
+        r = g.receivers.numpy()[: int(g.n_edges)].astype(np.int64)
+        B = pp.panel_block(g.bell_block)
+        for W_P in pp.PANEL_SLOTS:
+            idx, wgt, n_drop, _ = pp.build_panel_tables(
+                s, r, np.ones_like(s, np.float32), n_pad, B, wp, W_P)
+            if n_drop > pp.MAX_DROP * n * d:
+                log(f"  panel_ell_spmm W={W} W_P={W_P}: skipped, drops {n_drop} edges")
+                continue
+            panel_ran[W] += 1
+            x = torch.randn(n_pad, F, generator=gen, device=dev)
+            ii = torch.from_numpy(idx).to(dev)
+            wg = torch.from_numpy(wgt).to(dev) * (
+                torch.rand(idx.shape, generator=gen, device=dev) + 0.5)
+            y = tpk.panel_ell_spmm(x, ii, wg, n_pad, B, wp, W_P)
+            err = check_probe(torch, y, tpk.panel_ell_spmm_plain(x, ii, wg, n_pad, B, wp, W_P),
+                              errors, "panel_ell_spmm")
+            log(f"  panel_ell_spmm n={n_pad} F={F} W={W} B={B} Wp={wp} W_P={W_P} "
+                f"({idx.shape[1]} slots, {n_drop} edges dropped): max |err| {err:.3g}")
+            valid = ii >= 0
+            first = (torch.arange(n_pad, device=dev) // B * B - wp)[:, None]
+            base = (torch.arange(idx.shape[1], device=dev) // W_P * tpk.PANEL)[None, :]
+            cols = (first + base + ii) % n_pad
+            rows = torch.arange(n_pad, device=dev)[:, None].expand_as(ii)
+            csr = csr_rect(torch, rows[valid], cols[valid], wg[valid], (n_pad, n_pad))
+            row = probe_timing(torch, "panel_ell_spmm", f"W={W} B={B} Wp={wp} W_P={W_P}",
+                               lambda: tpk.panel_ell_spmm(x, ii, wg, n_pad, B, wp, W_P),
+                               lambda: tpk.panel_ell_spmm_plain(x, ii, wg, n_pad, B, wp, W_P),
+                               csr, x, 2 * n_pad * F * 4 + n_pad * idx.shape[1] * 8,
+                               2 * int(valid.sum()) * F)
+            timings.append({**row, "W": W, "B": B, "wp": wp, "W_P": W_P, "slots": idx.shape[1],
+                            "n": n_pad, "F": F, "dtype": "float32"})
+            del x, ii, wg, y, csr, rows, cols, valid
+    check(all(panel_ran.values()), f"panel_ell_spmm ran at least one W_P for each W: {panel_ran}")
+
+    # P5: banded_spmm_cols, and K4 on every row-major variant's weights
+    offsets = wpr.probe_offsets()
+    n5, D = wpr.N, len(offsets)
+    x = torch.randn(n5, F, generator=gen, device=dev)
+    w = torch.rand(n5, D, generator=gen, device=dev) + 0.5
+    rows = torch.arange(n5, device=dev).repeat_interleave(D)
+    cols = (rows.view(n5, D) + torch.tensor(offsets, device=dev)) % n5
+    csr = csr_rect(torch, rows, cols.reshape(-1), w.reshape(-1), (n5, n5))
+    nbytes, ops = 2 * n5 * F * 4 + n5 * D * 4, 2 * n5 * D * F
+    for variant in wpr.VARIANTS:
+        wv = wpr.variant_weights(w, variant)
+        if variant == "cols":
+            name = "banded_spmm_cols"
+            fns = (lambda: tpk.banded_spmm_cols(x, wv, offsets),
+                   lambda: tpk.banded_spmm_cols_plain(x, wv, offsets))
+        else:
+            name = "banded_spmm (P5b)"
+            fns = (lambda: tb.banded_spmm(x, wv, offsets),
+                   lambda: tb.banded_spmm_plain(x, wv, offsets))
+        with torch.no_grad():
+            err = check_probe(torch, fns[0](), fns[1](), errors, name)
+        log(f"  P5 {variant} n={n5} F={F} D={D}: max |err| {err:.3g}")
+        if variant in ("cols", "blockw"):
+            row = probe_timing(torch, name, f"n={n5} F={F} D={D} {variant}", *fns, csr, x,
+                               nbytes, ops)
+            timings.append({**row, "n": n5, "F": F, "D": D, "dtype": "float32"})
+    del x, w, rows, cols, csr
+    torch.cuda.empty_cache()
+    return {"max_abs_err": errors, "timings": timings, "panel_configs": panel_ran}
+
+
+def phase_probes(torch, tpk, tb, tbell, probes) -> dict:
+    """The five probe entry points at the JAX probes' sizes, each with the
+    launch counters set to 0 just before it and read just after; checks
+    the exact launch counts and each case's error."""
+    log("== probes")
+    calls = PROBE_ITERS + 3        # a correctness call, 2 warm-up calls, the timed calls
+    out = {}
+    for name, mod in probes.items():
+        for counters in (tpk, tb, tbell):
+            counters.reset_launches()
+        t0 = time.perf_counter()
+        res = mod.main(n=mod.N, iters=PROBE_ITERS, device="cuda")
+        torch.cuda.synchronize()
+        launches = {**tpk.LAUNCHES, **tb.LAUNCHES, **tbell.LAUNCHES}
+        res["launches"] = launches
+        res["seconds"] = time.perf_counter() - t0
+        log(f"  {name}: {res['seconds']:.2f} s, launches {launches}")
+        expect = {}
+        if name in ("gather_probe", "gather_probe2"):
+            expect["window_gather"] = len(res["block_ell"]) * calls
+            per_config = len(mod.PRECISIONS) if name == "gather_probe" else 1
+            check(len(res["block_ell"]) == len(mod.CONFIGS) * per_config,
+                  f"{name} ran every configuration")
+            for row in res["block_ell"]:
+                limit = 1e-2 if row["x_dtype"] == "bfloat16" else 1e-6
+                check(row["relerr"] <= limit, f"{name} W={row['W']} B={row['B']} d={row['d']} "
+                      f"{row['x_dtype']} x: relerr {row['relerr']:.3g} <= {limit}")
+        elif name == "subblock_probe":
+            planned = sum(row["shipped_block"] is not None for row in res["configs"])
+            expect.update(subblock_spmm=len(mod.CONFIGS) * calls,
+                          window_gather=len(mod.CONFIGS) * calls,
+                          block_ell_spmm=planned * calls)
+            for row in res["configs"]:
+                for design in ("sub-blocked", "whole window"):
+                    check(row[design]["relerr"] <= 1e-5,
+                          f"P3 W={row['W']} {design}: relerr {row[design]['relerr']:.3g}")
+        elif name == "panel_ell_probe":
+            panel = [row for row in res["rows"] if row["design"] == "panel-ELL"]
+            shipped = [row for row in res["rows"] if row["design"] == "shipped"]
+            check({row["W"] for row in panel} == {W for W, _ in mod.CONFIGS},
+                  "P4 ran at least one W_P for each W")
+            expect.update(panel_ell_spmm=len(panel) * calls, block_ell_spmm=len(shipped) * calls)
+            for row in panel:
+                check(row["relerr"] <= 1e-5, f"P4 W={row['W']} W_P={row['W_P']}: relerr "
+                      f"{row['relerr']:.3g}")
+        else:
+            expect.update(banded_spmm_cols=calls, banded_spmm=(len(mod.VARIANTS) - 1) * calls,
+                          banded_spmm_unit=PROBE_ITERS + 2)
+            limits = {"mxu1": 1e-2, "mxuallbf16": 1e-2, "mxu2": 1e-4, "mxuall": 1e-4}
+            for variant, row in res["variants"].items():
+                limit = limits.get(variant, 1e-4 if variant.startswith("hybrid") else 1e-6)
+                check(row["rel_err"] <= limit,
+                      f"P5 {variant}: rel_err {row['rel_err']:.3g} <= {limit}")
+        check(launches == {k: expect.get(k, 0) for k in launches},
+              f"{name} launched {launches}, expected {expect} and nothing else")
+        out[name] = res
+    return out
 
 
 def circulant_cut(torch, assignment, offsets) -> int:
@@ -845,9 +1087,17 @@ def main() -> int:
     from gcn_maxcut_tpu_torch.cli import run_pipeline
     from gcn_maxcut_tpu_torch.core import graph as tgraph
     from gcn_maxcut_tpu_torch.device import resolve_device
+    from gcn_maxcut_tpu_torch.experiments import (
+        gather_probe,
+        gather_probe2,
+        panel_ell_probe,
+        subblock_probe,
+        weighted_probe,
+    )
     from gcn_maxcut_tpu_torch.ops import banded as tb
     from gcn_maxcut_tpu_torch.ops import block_ell as tbell
     from gcn_maxcut_tpu_torch.ops import halo as th
+    from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
     from gcn_maxcut_tpu_torch.ops import segment as seg
     from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
     from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
@@ -863,6 +1113,12 @@ def main() -> int:
     report["kernels_halo"] = phase_kernels_halo(torch, th, tb, make_mesh,
                                                 giant.circulant_offsets(8, 63, 0),
                                                 micro.banded_offsets(8, 63))
+    probes = {"gather_probe": gather_probe, "gather_probe2": gather_probe2,
+              "subblock_probe": subblock_probe, "panel_ell_probe": panel_ell_probe,
+              "weighted_probe": weighted_probe}
+    report["kernels_probes"] = phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph,
+                                                    probes)
+    report["probes"] = phase_probes(torch, tpk, tb, tbell, probes)
     report["giant"] = phase_giant(torch, tb, giant)
     report["halo"] = phase_halo(torch, tb, th, tgb, giant, make_mesh,
                                 report["giant"]["packed"]["cut_fraction"])
@@ -914,6 +1170,34 @@ def main() -> int:
         **({"shards": rows[name]["shards"], "op_ms": rows[name]["op_ms"]}
            if name in ("K5", "K6") else {}),
     } for name in ("K1", "K2", "K3", "K4", "K5", "K6")]
+
+    # the probes' rows: (label, wrapper, source, pallas_call, probe run,
+    # launch counter, error key, timing case)
+    probe_timings = report["kernels_probes"]["timings"]
+    probe_errors = report["kernels_probes"]["max_abs_err"]
+    for label, wrapper, source, replaced, run, counter, err_key, case in [
+        ("P1", "window_gather", PROBE_SOURCE, "experiments/gather_probe.py:169", "gather_probe",
+         "window_gather", "window_gather", "W=255 B=512 d=8 float32 x"),
+        ("P2", "window_gather (bf16 x)", PROBE_SOURCE, "experiments/gather_probe2.py:92",
+         "gather_probe2", "window_gather", "window_gather", "W=255 B=256 d=8 bfloat16 x"),
+        ("P3", "subblock_spmm (K1's kernel)", BLOCK_ELL_SOURCE,
+         "experiments/subblock_probe.py:123", "subblock_probe", "subblock_spmm",
+         "subblock_spmm", "W=255 B=256 Wp=256"),
+        ("P4", "panel_ell_spmm", PROBE_SOURCE, "experiments/panel_ell_probe.py:157",
+         "panel_ell_probe", "panel_ell_spmm", "panel_ell_spmm", "W=255 B=256 Wp=256 W_P=4"),
+        ("P5a", "banded_spmm_cols", PROBE_SOURCE, "experiments/weighted_probe.py:224",
+         "weighted_probe", "banded_spmm_cols", "banded_spmm_cols", f"n={BANDED_N} F=128 D=8 cols"),
+        ("P5b", "banded_spmm (K4 on w')", KERNEL_SOURCE, "experiments/weighted_probe.py:251",
+         "weighted_probe", "banded_spmm", "banded_spmm (P5b)", f"n={BANDED_N} F=128 D=8 blockw"),
+    ]:
+        row = next(t for t in probe_timings if t["case"] == case)
+        kernels.append({
+            "name": f"{label} {wrapper}", "route": "cuda", "source": source,
+            "replaces": replaced, "launches": report["probes"][run]["launches"][counter],
+            "max_abs_err": probe_errors[err_key], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": [row["n"], row["F"]], "dtype": row["dtype"],
+        })
     log(f"total {report['seconds']:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

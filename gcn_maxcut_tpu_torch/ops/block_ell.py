@@ -222,11 +222,11 @@ def sub_block_rows(block: int) -> int:
     return _R0 if block % _R0 == 0 else block
 
 
-def column_tile(F: int, slice_rows: int) -> int:
-    """Columns of one kernel block: all of F when the [slice_rows, F]
-    float32 slice fits the shared-memory budget, else the largest multiple
-    of 8 that fits (at most 128)."""
-    fit = _SMEM_BYTES // (slice_rows * 4)
+def column_tile(F: int, slice_rows: int, elsize: int = 4) -> int:
+    """Columns of one kernel block: all of F when the [slice_rows, F] slice
+    of ``elsize``-byte elements fits the shared-memory budget, else the
+    largest multiple of 8 that fits (at most 128)."""
+    fit = _SMEM_BYTES // (slice_rows * elsize)
     if fit < 1:
         raise ValueError(f"a slice of {slice_rows} rows does not fit the kernel's shared memory")
     if F <= min(fit, _MAX_COLS):

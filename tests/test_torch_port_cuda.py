@@ -21,6 +21,7 @@ from gcn_maxcut_tpu_torch.core.graph import graph_from_dense, graph_from_edges
 from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
 from gcn_maxcut_tpu_torch.ops import halo as th
+from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
 from gcn_maxcut_tpu_torch.ops.segment import spmm
 from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
 from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
@@ -334,3 +335,111 @@ def test_cuda_halo_trainer_matches_cpu_ring(cuda_device):
                                      return_assignment=True)
     np.testing.assert_allclose(rc["history"], rp["history"], rtol=1e-3)
     assert np.mean(rc["assignment"] == rp["assignment"]) >= 0.999
+
+
+# ---- the design probes' kernels (ops/probe_kernels.py), forward only
+
+# (n, F, d, B, Wp): the last has a 3072-row window, so F is cut into
+# column tiles (8 columns in float32, 16 in bfloat16) with a ragged last one
+WINDOW_CASES = [(2048, 16, 8, 256, 64), (600, 20, 5, 200, 24), (2048, 40, 3, 1024, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", WINDOW_CASES, ids=range(len(WINDOW_CASES)))
+def test_cuda_window_gather_matches_plain(cuda_device, case, dtype):
+    n, F, d, B, Wp = case
+    rng = np.random.default_rng(7)
+    xpad = torch.tensor(rng.normal(size=(n + 2 * Wp, F)).astype(np.float32)).to(dtype)
+    # a few slots outside the window, which both versions skip
+    lidx = torch.tensor(rng.integers(-3, B + 2 * Wp + 3, size=(n, d)).astype(np.int32))
+    w = torch.tensor((rng.random((n, d)) + 0.5).astype(np.float32))
+    before = tpk.LAUNCHES["window_gather"]
+    y = tpk.window_gather(xpad.to(cuda_device), lidx.to(cuda_device), w.to(cuda_device), B, Wp)
+    torch.cuda.synchronize()
+    assert tpk.LAUNCHES["window_gather"] == before + 1
+    assert y.dtype == torch.float32
+    assert_kernel_close(y.cpu(), tpk.window_gather_plain(xpad.float(), lidx, w, B, Wp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,F,B,wp", [(2048, 16, 256, 64), (1200, 3, 240, 40)])
+def test_cuda_subblock_spmm_matches_plain(cuda_device, n, F, B, wp):
+    rng = np.random.default_rng(8)
+    i = np.arange(n)[:, None]
+    # senders up to 40 rows beyond the slice, across the wrap at both ends
+    sidx = torch.tensor(((i + rng.integers(-wp - 40, wp + 41, size=(n, 6))) % n).astype(np.int32))
+    w = torch.tensor((rng.random((n, 6)) + 0.5).astype(np.float32))
+    x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
+    before = tpk.LAUNCHES["subblock_spmm"]
+    y = tpk.subblock_spmm(x.to(cuda_device), sidx.to(cuda_device), w.to(cuda_device), n, B, wp)
+    torch.cuda.synchronize()
+    assert tpk.LAUNCHES["subblock_spmm"] == before + 1
+    assert_kernel_close(y.cpu(), tpk.subblock_spmm_plain(x, sidx, w, n, B, wp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,F,B,wp,w_p", [(2048, 16, 256, 64, 2), (1536, 130, 384, 64, 3)])
+def test_cuda_panel_ell_spmm_matches_plain(cuda_device, n, F, B, wp, w_p):
+    from gcn_maxcut_tpu_torch.experiments.panel_ell_probe import build_panel_tables
+
+    rng = np.random.default_rng(9)
+    edges = _banded_edges(n, 4, wp, 3, [(0, n // 2)])
+    s, r = edges[:, 0], edges[:, 1]
+    wts = (rng.random(s.shape[0]) + 0.5).astype(np.float32)
+    idx, wgt, _, _ = build_panel_tables(s, r, wts, n, B, wp, w_p)
+    assert (idx < 0).any() and (idx >= 0).any()
+    x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
+    ii, wg = torch.tensor(idx), torch.tensor(wgt)
+    before = tpk.LAUNCHES["panel_ell_spmm"]
+    y = tpk.panel_ell_spmm(x.to(cuda_device), ii.to(cuda_device), wg.to(cuda_device),
+                           n, B, wp, w_p)
+    torch.cuda.synchronize()
+    assert tpk.LAUNCHES["panel_ell_spmm"] == before + 1
+    assert_kernel_close(y.cpu(), tpk.panel_ell_spmm_plain(x, ii, wg, n, B, wp, w_p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,F,offsets", WEIGHTED_CASES)
+def test_cuda_banded_spmm_cols_matches_plain(cuda_device, n, F, offsets):
+    rng = np.random.default_rng(10)
+    x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
+    wc = torch.tensor((rng.random((len(offsets), n)) + 0.5).astype(np.float32))
+    before = tpk.LAUNCHES["banded_spmm_cols"]
+    y = tpk.banded_spmm_cols(x.to(cuda_device), wc.to(cuda_device), offsets)
+    torch.cuda.synchronize()
+    assert tpk.LAUNCHES["banded_spmm_cols"] == before + 1
+    assert_kernel_close(y.cpu(), tpk.banded_spmm_cols_plain(x, wc, offsets))
+    # bit for bit K4 on the row-major weights
+    assert torch.equal(y, tb.banded_spmm(x.to(cuda_device), wc.t().contiguous().to(cuda_device),
+                                         offsets))
+
+
+@pytest.mark.cuda
+def test_cuda_probe_kernels_reject_what_they_do_not_take(cuda_device):
+    n, F, d, B, Wp = 512, 8, 4, 128, 16
+    xpad = torch.zeros(n + 2 * Wp, F, device=cuda_device)
+    lidx = torch.zeros(n, d, dtype=torch.int32, device=cuda_device)
+    w = torch.ones(n, d, device=cuda_device)
+    with pytest.raises(ValueError, match="lie on"):
+        tpk.window_gather(xpad, lidx.cpu(), w, B, Wp)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tpk.window_gather(xpad.double(), lidx, w, B, Wp)
+    with pytest.raises(ValueError, match="int32"):
+        tpk.window_gather(xpad, lidx.long(), w, B, Wp)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpk.window_gather(xpad.t().contiguous().t(), lidx, w, B, Wp)
+    x = torch.zeros(n, F, device=cuda_device)
+    with pytest.raises(ValueError, match="lie on"):
+        tpk.subblock_spmm(x, lidx.cpu(), w, n, B, Wp)
+    with pytest.raises(ValueError, match="float32"):
+        tpk.subblock_spmm(x.half(), lidx, w, n, B, Wp)
+    idx = torch.full((n, 2 * 2), -1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="lie on"):
+        tpk.panel_ell_spmm(x, idx, torch.zeros(n, 4).cpu(), n, B, 64, 2)
+    with pytest.raises(ValueError, match="float32"):
+        tpk.panel_ell_spmm(x.double(), idx, torch.zeros(n, 4, device=cuda_device), n, B, 64, 2)
+    with pytest.raises(ValueError, match="lie on"):
+        tpk.banded_spmm_cols(x, torch.ones(2, n), (1, -1))
+    with pytest.raises(ValueError, match="float32"):
+        tpk.banded_spmm_cols(x, torch.ones(2, n, device=cuda_device).double(), (1, -1))

@@ -11,6 +11,13 @@ from gcn_maxcut_tpu_torch.bench.giant_demo import train_banded_giant_packed
 from gcn_maxcut_tpu_torch.bench.locality import train_locality
 from gcn_maxcut_tpu_torch.bench.microbench import bench_spmm, bench_spmm_banded
 from gcn_maxcut_tpu_torch.convert import params_from_jax
+from gcn_maxcut_tpu_torch.experiments import (
+    gather_probe,
+    gather_probe2,
+    panel_ell_probe,
+    subblock_probe,
+    weighted_probe,
+)
 from gcn_maxcut_tpu_torch.ops import halo as th
 from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
 from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
@@ -53,6 +60,9 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
     for entry in (train_locality, bench_spmm, bench_spmm_banded):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(n=4096)
+    for probe in (gather_probe, gather_probe2, subblock_probe, panel_ell_probe, weighted_probe):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            probe.main(n=4096)
 
 
 def test_mesh_and_halo_trainers_raise_without_cuda(monkeypatch):
