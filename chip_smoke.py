@@ -6,8 +6,10 @@
 Phases; any failure ends the run with a non-zero exit code:
 
   1. build      compile every ``gcn_maxcut_tpu_torch/csrc/*.cu``
-                (``banded_window.cu``: K2, K3, K4, K5, K6; ``block_ell_window.cu``:
-                K1; ``probe_kernels.cu``: the probes' window_gather,
+                (``banded_stream.cu``: K4; ``block_ell_gather.cu``: K1;
+                ``banded_window.cu``: K2, K3, K5, K6 and K4's earlier body;
+                ``block_ell_window.cu``: P3's kernel, K1's earlier body;
+                ``probe_kernels.cu``: the probes' window_gather,
                 panel_ell_spmm and banded_spmm_cols) with nvcc for sm_90a,
                 one nvcc per source, started together, and print the card's
                 name and power limit;
@@ -19,7 +21,9 @@ Phases; any failure ends the run with a non-zero exit code:
                 (``banded_spmm``, n = 131,072 and 1,250,304 at F = 128, and
                 F = 3) against their plain PyTorch versions on the card,
                 forward and gradient; time each beside its bound, its plain
-                version and one PyTorch library call where there is one;
+                version and one PyTorch library call (K3: ``torch.sparse.mm``
+                on the values widened to float32); K1 and K4 also beside
+                their earlier bodies, timed in turns;
      halo       hold K5 (``halo_banded_spmm``: n = 131,072 at F = 128,
                 weighted, and the plain halo trainer's 262,144-row shards at
                 F = 128 and 3, unit weights) and K6
@@ -27,11 +31,13 @@ Phases; any failure ends the run with a non-zero exit code:
                 10,002,432 × 16 at r = 8) against their plain versions on
                 rings of 1, 2 and 4 shards on the card, forward and gradient,
                 and in float32 bit for bit against K4/K2 and K3 on the
-                gathered array; time one shard's launch and the ring op;
+                gathered array; time one shard's launch, the ring op and
+                ``torch.sparse.mm`` of the shard's row operator (bf16 on the
+                values widened to float32);
      probes     hold the design probes' kernels against their plain versions
                 at the probes' sizes (``window_gather`` at every P1 (W, B),
                 float32 and bf16 x, and P2's d = 16; ``subblock_spmm`` on
-                K1's kernel at both P3 configurations; ``panel_ell_spmm`` at
+                K1's earlier kernel at both P3 configurations; ``panel_ell_spmm`` at
                 every P4 (W, W_P) the 5% rule keeps; ``banded_spmm_cols``
                 and K4 on every P5 variant's weights), time each beside its
                 bound, its plain version and ``torch.sparse.mm``; then run
@@ -69,6 +75,7 @@ the JAX reference computes in full float32.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -82,6 +89,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = "gcn_maxcut_tpu_torch/csrc/banded_window.cu"
 BLOCK_ELL_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_window.cu"
+K4_SOURCE = "gcn_maxcut_tpu_torch/csrc/banded_stream.cu"
+K1_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_gather.cu"
 PROBE_SOURCE = "gcn_maxcut_tpu_torch/csrc/probe_kernels.cu"
 PROBE_ITERS = 10                # timed calls of each probe case (plus 2 warm-up)
 
@@ -131,18 +140,35 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+SLEEP_CYCLES = 10_000_000      # ~5 ms of device clock queued ahead of the timed calls
+
+
 def best_ms(torch, fn, reps: int = 15, warmup: int = 3) -> float:
-    """Best of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+    """Best of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls:
+    device time.  The timed calls are queued behind a device-side sleep, so
+    the device never waits on the host's launch overhead between them."""
     for _ in range(warmup):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     for start, end in pairs:
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return min(s.elapsed_time(e) for s, e in pairs)
+
+
+def ms_in_turns(torch, fns: dict, rounds: int = 2) -> dict:
+    """Best-of-15 times of several functions of one input, taken in turns
+    (each once a round, in order), the best round kept for each."""
+    best = {name: math.inf for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            best[name] = min(best[name], best_ms(torch, fn))
+    return best
 
 
 def bound(n: int, F: int, d: int, elsize: int) -> tuple[float, str]:
@@ -233,6 +259,7 @@ def phase_kernels(torch, tb, offsets: tuple[int, ...], bench_offsets: tuple[int,
                 conv.weight[:, 0, o + wp] += 1
         return conv
 
+    packed = None                 # K3's operator in packed order, built once
     timings = []
     with torch.no_grad():
         for name, n, F, r, dtype in [
@@ -255,14 +282,38 @@ def phase_kernels(torch, tb, offsets: tuple[int, ...], bench_offsets: tuple[int,
                     (lib.float() - plain(x, offsets, r).float()).abs().max())
                 row["library_ms"] = best_ms(torch, lambda: conv(xt))
                 del conv, xt, lib
+            elif name == "K3":
+                packed = packed if packed is not None else packed_csr(torch, n, r, offsets)
+                xf = x.float()
+                row["library_max_abs_err"] = float(
+                    (torch.sparse.mm(packed, xf) - plain(x, offsets, r).float()).abs().max())
+                row["library_ms"] = best_ms(torch, lambda: torch.sparse.mm(packed, xf))
+                del xf
             row["bound_ms"], row["bound_by"] = bound(n, F, d, x.element_size())
             timings.append(row)
             log(f"  {name} n={n} F={F} r={r} {row['dtype']}: kernel {row['ms']:.4f} ms, "
                 f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
             del x
+    del packed
     torch.cuda.empty_cache()
     return {"max_abs_err": errors, "timings": timings}
+
+
+def packed_csr(torch, n: int, r: int, offsets):
+    """K3's function as one float32 CSR matrix [n, n]: the circulant
+    operator in node order, permuted into the packed order (node i at
+    position (i mod m)·r + i // m, m = n / r)."""
+    dev = torch.device("cuda")
+    m = n // r
+    node = torch.arange(n, device=dev)
+
+    def pos(v):
+        return (v % m) * r + v // m
+
+    rows = pos(node).repeat_interleave(len(offsets))
+    cols = pos((node[:, None] + torch.tensor(offsets, device=dev)) % n).reshape(-1)
+    return csr_of(torch, rows, cols, torch.ones(rows.numel(), device=dev), n)
 
 
 def bell_operands(g, mode: str = "mask") -> tuple:
@@ -341,23 +392,42 @@ def time_block_ell(torch, tbell, g, F: int, gen, label: str) -> dict:
     x = torch.randn(n, F, generator=gen, device=dev)
     row = {"name": "K1", "case": label, "n": n, "F": F, "block": B, "wp": wp,
            "width": width, "o_pad": o_pad, "n_outliers": int(ops[4].sum()), "dtype": "float32"}
+    row["vec"], row["blocks"] = tbell.gather_shape(n, F)
     with torch.no_grad():
-        row["ms"] = best_ms(torch, lambda: tbell.block_ell_spmm(x, *ops, n, B, wp))
-        row["kernel_only_ms"] = best_ms(torch, lambda: tbell._launch(x, ops[0], ops[1], n, B, wp))
-        row["plain_ms"] = best_ms(torch, lambda: tbell.block_ell_spmm_plain(x, *ops, n, B, wp))
         real = gc.edge_mask > 0
         csr = csr_of(torch, gc.receivers[real], gc.senders[real], gc.edge_mask[real], n)
         lib = torch.sparse.mm(csr, x)
         row["library_max_abs_err"] = float(
             (lib - tbell.block_ell_spmm_plain(x, *ops, n, B, wp)).abs().max())
-        row["library_ms"] = best_ms(torch, lambda: torch.sparse.mm(csr, x))
+        y = tbell._launch(x, ops[0], ops[1], n, B, wp)
+        check(torch.equal(y, tbell._slice_launch(x, ops[0], ops[1], n, B, wp)),
+              "K1's earlier body equals the kernel bit for bit")
+        del y
+        # the op (kernel + outlier index_add_) and the same op on the earlier
+        # body (block_ell_window.cu), its plain version and sparse.mm, in turns
+        times = ms_in_turns(torch, {
+            "ms": lambda: tbell.block_ell_spmm(x, *ops, n, B, wp),
+            "earlier_ms": lambda: tbell._add_outliers(
+                tbell._slice_launch(x, ops[0], ops[1], n, B, wp), x, *ops[2:]),
+            "plain_ms": lambda: tbell.block_ell_spmm_plain(x, *ops, n, B, wp),
+            "library_ms": lambda: torch.sparse.mm(csr, x),
+        })
+        kernels = ms_in_turns(torch, {
+            "kernel_only_ms": lambda: tbell._launch(x, ops[0], ops[1], n, B, wp),
+            "earlier_kernel_only_ms": lambda: tbell._slice_launch(x, ops[0], ops[1], n, B, wp),
+        })
+        row.update(times, **kernels)
     bytes_ms = (2 * n * F * 4 + n * width * 8 + o_pad * (2 * F * 4 + 12)) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * n * width * F / F32_OPS_PER_S * 1e3
     row["bound_ms"] = max(bytes_ms, ops_ms)
     row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"  K1 {label} n={n} F={F} B={B} Wp={wp} width={width} o_pad={o_pad}: op {row['ms']:.4f} ms "
-        f"(kernel alone {row['kernel_only_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
-        f"sparse.mm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    row["kernel_bound_ms"] = (2 * n * F * 4 + n * width * 8) / HBM_BYTES_PER_S * 1e3
+    log(f"  K1 {label} n={n} F={F} B={B} Wp={wp} width={width} o_pad={o_pad} (vec "
+        f"{row['vec']}): op {row['ms']:.4f} ms, earlier op "
+        f"{row['earlier_ms']:.4f}, plain {row['plain_ms']:.4f}, sparse.mm {row['library_ms']:.4f}, "
+        f"bound {row['bound_ms']:.4f} ({row['bound_by']}); kernel alone {row['kernel_only_ms']:.4f}"
+        f", earlier kernel {row['earlier_kernel_only_ms']:.4f}, kernel bound "
+        f"{row['kernel_bound_ms']:.4f}")
     return row
 
 
@@ -414,23 +484,34 @@ def phase_kernels_weighted(torch, tb, offsets) -> dict:
         del xk, wk, xp, wq, yp, dy
         if n < BANDED_N:
             continue
-        row = {"name": "K4", "n": n, "F": F, "D": d, "dtype": "float32"}
+        geom = tb.stream_shape(n, F, tb.padded_bandwidth(offsets), d)
+        row = {"name": "K4", "n": n, "F": F, "D": d, "dtype": "float32",
+               "geometry": dataclasses.asdict(geom)}
         with torch.no_grad():
-            row["ms"] = best_ms(torch, lambda: tb.banded_spmm(x, w, offsets))
-            row["plain_ms"] = best_ms(torch, lambda: tb.banded_spmm_plain(x, w, offsets))
             rows = torch.arange(n, device=dev).repeat_interleave(d)
             cols = (rows.view(n, d) + torch.tensor(offsets, device=dev)) % n
             csr = csr_of(torch, rows, cols.reshape(-1), w.reshape(-1), n)
             row["library_max_abs_err"] = float((torch.sparse.mm(csr, x) - yk).abs().max())
-            row["library_ms"] = best_ms(torch, lambda: torch.sparse.mm(csr, x))
+            # the kernel, its earlier body (banded_window.cu), the plain
+            # version and sparse.mm in turns
+            row.update(ms_in_turns(torch, {
+                "ms": lambda: tb.banded_spmm(x, w, offsets),
+                "earlier_ms": lambda: tb._launch(x, offsets, F, w),
+                "plain_ms": lambda: tb.banded_spmm_plain(x, w, offsets),
+                "library_ms": lambda: torch.sparse.mm(csr, x),
+            }))
+            check(torch.equal(tb._launch(x, offsets, F, w), yk),
+                  "K4's earlier body equals the kernel bit for bit")
             del csr, rows, cols
         bytes_ms = (2 * n * F * 4 + n * d * 4) / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * n * d * F / F32_OPS_PER_S * 1e3
         row["bound_ms"] = max(bytes_ms, ops_ms)
         row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         timings.append(row)
-        log(f"  K4 n={n} F={F}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"sparse.mm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        log(f"  K4 n={n} F={F} (strip {geom.strip}, {geom.cols} columns, chunk {geom.chunk}, "
+            f"{geom.smem_bytes} B shared): kernel {row['ms']:.4f} ms, earlier body "
+            f"{row['earlier_ms']:.4f}, plain {row['plain_ms']:.4f}, sparse.mm {row['library_ms']:.4f}, "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
         del x, w, yk
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "timings": timings}
@@ -526,19 +607,22 @@ def time_ring(torch, th, mesh, name, x, offsets, w=None, r=None) -> dict:
         row["op_ms"] = best_ms(torch, ring_op)
         row["plain_ms"] = best_ms(
             torch, lambda: th.halo_banded_spmm_plain(v0, w0, pre, post, offsets))
-        row["library_ms"] = row["library_max_abs_err"] = None
-        if r is None and x.dtype == torch.float32:
-            rows = torch.arange(m, device=x.device).repeat_interleave(d)
-            cols = rows.view(m, d) + wp + torch.tensor(offsets, device=x.device)
-            vals = torch.ones(m * d, device=x.device) if w0 is None else w0.reshape(-1)
-            coo = torch.sparse_coo_tensor(torch.stack([rows, cols.reshape(-1)]), vals,
-                                          (m, m + 2 * wp))
-            csr = coo.coalesce().to_sparse_csr()
+        # the shard's row operator [m, m + 2·Wp] (in the [·, L] view for
+        # K6, whose sender has already rotated the wrap tile); float32 x
+        # with the concat counted, bf16 x on the values widened to float32
+        rows = torch.arange(m, device=x.device).repeat_interleave(d)
+        cols = rows.view(m, d) + wp + torch.tensor(offsets, device=x.device)
+        vals = torch.ones(m * d, device=x.device) if w0 is None else w0.reshape(-1)
+        csr = csr_rect(torch, rows, cols.reshape(-1), vals, (m, m + 2 * wp))
+        if x.dtype == torch.float32:
             lib = lambda: torch.sparse.mm(csr, torch.cat([pre, v0, post]))  # noqa: E731
-            row["library_max_abs_err"] = float((lib() - th._launch(v0, pre, post, offsets, w0))
-                                               .abs().max())
-            row["library_ms"] = best_ms(torch, lib)
-            del csr, coo, rows, cols, vals
+        else:
+            win = torch.cat([pre, v0, post]).float()
+            lib = lambda: torch.sparse.mm(csr, win)  # noqa: E731
+        row["library_max_abs_err"] = float(
+            (lib() - th._launch(v0, pre, post, offsets, w0).float()).abs().max())
+        row["library_ms"] = best_ms(torch, lib)
+        del csr, rows, cols, vals, lib
     row["bound_ms"], row["bound_by"] = halo_bound(m, L, d, wp, x.element_size(), w is not None)
     log(f"  {name} {D} shards of [{m}, {L}] {row['dtype']}{' weighted' if w is not None else ''}:"
         f" shard launch {row['ms']:.4f} ms, ring op {row['op_ms']:.4f} ms, plain "
@@ -660,7 +744,7 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
                             "dtype": str(dtype)[6:]})
         del x, li, w, csr, rows, cols, xpad, xf, y
 
-    # P3 on K1's kernel and P4 on the panel tables, on the probes' two graphs
+    # P3 on K1's earlier (slice) kernel and P4 on the panel tables, on the probes' two graphs
     n, d = MICRO_N, 8
     n_pad = tgraph.round_up(n, 2048)
     graphs = {W: micro._banded_regular_graph(n, d, W, n_pad=n_pad) for W, _ in pp.CONFIGS}
@@ -1159,9 +1243,10 @@ def main() -> int:
                 "K4": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
                 "K5": "gcn_maxcut_tpu/ops/pallas_halo.py:162",
                 "K6": "gcn_maxcut_tpu/ops/pallas_halo.py:409"}
+    sources = {"K1": K1_SOURCE, "K4": K4_SOURCE}
     kernels = [{
         "name": f"{name} {names[name]}", "route": "cuda",
-        "source": BLOCK_ELL_SOURCE if name == "K1" else KERNEL_SOURCE,
+        "source": sources.get(name, KERNEL_SOURCE),
         "replaces": replaces[name], "launches": launches[name],
         "max_abs_err": errors[name], "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
@@ -1169,6 +1254,7 @@ def main() -> int:
         "shape": [rows[name]["n"], rows[name]["F"]], "dtype": rows[name]["dtype"],
         **({"shards": rows[name]["shards"], "op_ms": rows[name]["op_ms"]}
            if name in ("K5", "K6") else {}),
+        **({"earlier_ms": rows[name]["earlier_ms"]} if name in ("K1", "K4") else {}),
     } for name in ("K1", "K2", "K3", "K4", "K5", "K6")]
 
     # the probes' rows: (label, wrapper, source, pallas_call, probe run,
@@ -1180,14 +1266,14 @@ def main() -> int:
          "window_gather", "window_gather", "W=255 B=512 d=8 float32 x"),
         ("P2", "window_gather (bf16 x)", PROBE_SOURCE, "experiments/gather_probe2.py:92",
          "gather_probe2", "window_gather", "window_gather", "W=255 B=256 d=8 bfloat16 x"),
-        ("P3", "subblock_spmm (K1's kernel)", BLOCK_ELL_SOURCE,
+        ("P3", "subblock_spmm (K1's earlier kernel)", BLOCK_ELL_SOURCE,
          "experiments/subblock_probe.py:123", "subblock_probe", "subblock_spmm",
          "subblock_spmm", "W=255 B=256 Wp=256"),
         ("P4", "panel_ell_spmm", PROBE_SOURCE, "experiments/panel_ell_probe.py:157",
          "panel_ell_probe", "panel_ell_spmm", "panel_ell_spmm", "W=255 B=256 Wp=256 W_P=4"),
         ("P5a", "banded_spmm_cols", PROBE_SOURCE, "experiments/weighted_probe.py:224",
          "weighted_probe", "banded_spmm_cols", "banded_spmm_cols", f"n={BANDED_N} F=128 D=8 cols"),
-        ("P5b", "banded_spmm (K4 on w')", KERNEL_SOURCE, "experiments/weighted_probe.py:251",
+        ("P5b", "banded_spmm (K4 on w')", K4_SOURCE, "experiments/weighted_probe.py:251",
          "weighted_probe", "banded_spmm", "banded_spmm (P5b)", f"n={BANDED_N} F=128 D=8 blockw"),
     ]:
         row = next(t for t in probe_timings if t["case"] == case)

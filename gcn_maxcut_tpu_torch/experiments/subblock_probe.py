@@ -3,7 +3,7 @@
 Port of ``experiments/subblock_probe.py``.  On the TPU, tiling a B-row
 block into 128-row sub-blocks, each comparing only its slice of the window
 [k·128 − Wp, k·128 + 128 + Wp), cut the one-hot build's compare work.
-Hopper builds no one-hot matrix, and K1's kernel already stages 128-row
+Hopper builds no one-hot matrix, and K1's earlier kernel stages 128-row
 slices, so P3 runs on it (``ops/probe_kernels.subblock_spmm``); what the
 slices cost here is the staged re-read, (128 + 2·Wp)/128 rows a row of
 output, against (B + 2·Wp)/B for the whole window.  So each configuration
@@ -67,7 +67,7 @@ def window_operands(x: torch.Tensor, sidx: torch.Tensor, B: int, wp: int):
 
 
 def main(n: int = N, iters: int = 10, device=None) -> dict:
-    """P3: 128-row slices on K1's kernel against the whole block window."""
+    """P3: 128-row slices on K1's earlier kernel against the whole block window."""
     dev = resolve_device(device)
     n_pad = round_up(n, 2048)
     e = n * D

@@ -14,10 +14,14 @@ Port of ``gcn_maxcut_tpu/ops/pallas_banded.py``:
     j·r + u), where every node shift is a row shift of the [m, r·F] view
     and only the wrap rows rotate their lane groups by F.
 
-All run ``csrc/banded_window.cu`` on CUDA tensors (K2 is the unit kernel
-at r = 1, K4 its weighted sibling) and their plain versions on CPU tensors;
-a tensor on any other device raises.  The unit ops take float32 or
-bfloat16; sums are taken in float32 and the output has the input's dtype.
+K2 and K3 run ``csrc/banded_window.cu`` on CUDA tensors (K2 is the unit
+kernel at r = 1); K4 runs ``csrc/banded_stream.cu``, which streams each
+strip of rows through a shared-memory ring once (geometry:
+``stream_shape``).  ``banded_window.cu``'s weighted entry
+point stays, unused by any op, as K4's earlier body (``_launch`` with
+weights).  CPU tensors take the plain versions; a tensor on any other
+device raises.  The unit ops take float32 or bfloat16; sums are taken in
+float32 and the output has the input's dtype.
 The unit ops are differentiable: the adjoint of a circulant shift set is
 the negated set, so the backward is the same kernel with negated offsets.
 """
@@ -25,6 +29,7 @@ the negated set, so the backward is the same kernel with negated offsets.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Sequence
 
@@ -40,6 +45,15 @@ _TILE_BYTES = 96 * 1024     # shared memory for one block's window
 _TILE_ROWS_MAX = 256
 _TILE_COLS_MAX = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# K4's streaming geometry (csrc/banded_stream.cu): rows a chunk, widest
+# column tile, longest strip, and the blocks below which strips shorten;
+# chosen on the H100 at n = 131,072 and 1,250,304, F = 128 (PERF.md)
+STREAM_CHUNK = 64
+STREAM_COLS = 64
+STREAM_STRIP_MAX = 1024
+STREAM_MIN_BLOCKS = 256
+STREAM_THREADS = 256          # csrc/banded_stream.cu BSTREAM_THREADS
+SMEM_LIMIT = 232_448          # dynamic shared memory one block may use on the H100
 
 
 def reset_launches() -> None:
@@ -64,6 +78,58 @@ def tile_shape(L: int, wp: int, elsize: int, row_bytes: int = 0) -> tuple[int, i
     if rows < 32:
         raise ValueError(f"bandwidth {wp} too wide for the kernel's window")
     return rows, cols
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamGeometry:
+    """K4's launch: a block of ``STREAM_THREADS`` threads owns ``cols``
+    columns and a strip of ``strip`` rows, walked in chunks of ``chunk``
+    rows through a ring of ``ring_rows`` = 2·chunk + 2·Wp source rows (the
+    current chunk's window and the next chunk's new rows) beside two
+    chunks' [chunk, D] weights.  A thread owns ``vec`` adjacent columns: 4
+    (16-byte copies, loads and stores) when F % 4 == 0, else 1."""
+
+    n: int
+    F: int
+    wp: int
+    chunk: int
+    strip: int
+    cols: int
+    ring_rows: int
+    vec: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        """(strips, column tiles) of the launch."""
+        return -(-self.n // self.strip), -(-self.F // self.cols)
+
+
+def stream_smem_bytes(ring_rows: int, cols: int, D: int) -> int:
+    """The ring (rounded up to 16 bytes) and two chunks of weights."""
+    return (ring_rows * cols * 4 + 15) // 16 * 16 + 2 * STREAM_CHUNK * D * 4
+
+
+@functools.cache
+def stream_shape(n: int, F: int, wp: int, D: int, *, vec4: bool = True) -> StreamGeometry:
+    """K4's launch geometry for x [n, F], Wp and D offsets.  ``vec4``: the
+    operands' addresses allow 16-byte accesses.  The column tile is halved
+    from ``STREAM_COLS`` until the ring fits; the strip is the longest
+    multiple of the chunk up to ``STREAM_STRIP_MAX`` that still launches
+    ``STREAM_MIN_BLOCKS`` blocks, and at least one chunk."""
+    chunk = STREAM_CHUNK
+    vec = 4 if vec4 and F % 4 == 0 else 1
+    cols = max(vec, min(F, STREAM_COLS) // vec * vec)
+    ring_rows = 2 * chunk + 2 * wp
+    while stream_smem_bytes(ring_rows, cols, D) > SMEM_LIMIT and cols > vec:
+        cols = max(vec, cols // 2 // vec * vec)
+    smem = stream_smem_bytes(ring_rows, cols, D)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a ring of {ring_rows} rows does not fit the block's shared memory")
+    strips_wanted = -(-STREAM_MIN_BLOCKS // -(-F // cols))
+    strip = max(1, min(STREAM_STRIP_MAX // chunk, n // (chunk * strips_wanted))) * chunk
+    return StreamGeometry(n=n, F=F, wp=wp, chunk=chunk, strip=strip, cols=cols,
+                          ring_rows=ring_rows, vec=vec, smem_bytes=smem)
 
 
 @functools.cache
@@ -91,12 +157,65 @@ def _weighted_kernel():
     return fn
 
 
+@functools.cache
+def _stream_kernel():
+    fn = build.load("banded_stream").banded_stream_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        *[ctypes.c_int] * 7, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_weighted(x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int]) -> int:
+    """K4's operand rules on the card; returns Wp."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
+    if (x.dtype != torch.float32 or w.dtype != torch.float32 or w.device != x.device
+            or x.dim() != 2 or tuple(w.shape) != (x.shape[0], len(offsets))):
+        raise ValueError("weighted kernel takes float32 x [n, F] and w [n, len(offsets)] "
+                         "on one device")
+    if not x.is_contiguous() or not w.is_contiguous():
+        raise ValueError("kernel needs contiguous tensors")
+    if not offsets or len(offsets) > MAX_OFFSETS:
+        raise ValueError(f"need 1..{MAX_OFFSETS} offsets, got {len(offsets)}")
+    n, F = x.shape
+    if n * F >= 2**31:
+        raise ValueError(f"bad shape [{n}, {F}]")
+    wp = padded_bandwidth(offsets)
+    if 2 * wp > n:
+        raise ValueError(f"2*Wp = {2 * wp} exceeds the {n} rows")
+    return wp
+
+
+def _stream_launch(x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
+    """K4: ``banded_stream_launch`` on contiguous float32 x [n, F] and
+    w [n, D] on the card, in ``stream_shape``'s geometry."""
+    wp = _check_weighted(x, w, offsets)
+    n, F = x.shape
+    out = torch.empty_like(x)
+    geom = stream_shape(n, F, wp, len(offsets),
+                        vec4=(x.data_ptr() | out.data_ptr()) % 16 == 0)
+    offs = (ctypes.c_int * len(offsets))(*[int(o) for o in offsets])
+    with torch.cuda.device(x.device):
+        err = _stream_kernel()(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), n, F, offs, len(offsets), wp,
+            geom.chunk, geom.strip, geom.cols, geom.ring_rows, geom.vec, geom.smem_bytes,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"banded_stream_launch failed: CUDA error {err}")
+    return out
+
+
 def _launch(
     x: torch.Tensor, offsets: Sequence[int], F: int, w: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Run ``banded_window_launch`` on a contiguous [m, L] CUDA tensor, or
     with a [m, D] weight table ``banded_window_weighted_launch`` (float32,
-    L = F)."""
+    L = F: K4's earlier body, on no op's path)."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -209,7 +328,7 @@ def _packed_raw(x: torch.Tensor, offsets: tuple[int, ...], r: int) -> torch.Tens
 def _weighted_raw(x: torch.Tensor, w: torch.Tensor, offsets: tuple[int, ...]) -> torch.Tensor:
     if x.device.type == "cpu":
         return banded_spmm_plain(x, w, offsets)
-    out = _launch(x.contiguous(), offsets, x.shape[1], w.contiguous())
+    out = _stream_launch(x.contiguous(), w.contiguous(), offsets)
     LAUNCHES["banded_spmm"] += 1
     return out
 

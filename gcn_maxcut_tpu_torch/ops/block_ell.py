@@ -15,13 +15,16 @@ triples, so that
                       = A·x   exactly (up to the order of float sums).
 
 The TPU kernel resolved the in-window indices with a one-hot matrix on the
-MXU; ``csrc/block_ell_window.cu`` computes the same function directly: one
-block per (R0-row sub-block, column tile) stages its slice of x in shared
-memory and sums each row's table slots in slot order, in float32.  Table
-slots whose sender lies outside the slice (padding slots: sender n − 1,
-weight 0) are skipped, as the one-hot matched nothing for them.  The
-outlier correction stays a PyTorch ``index_add_`` after the kernel, as it
-was an XLA scatter outside the Pallas kernel.
+MXU; ``csrc/block_ell_gather.cu`` computes the same function directly:
+one thread per receiver row and 4 (or, when F % 4 != 0, 1) columns loads
+its in-slice senders' rows from L2/device memory and sums its table slots
+in slot order, in float32 (``gather_shape``).  Table slots whose sender
+lies outside the receiver's slice (padding slots: sender n − 1, weight 0)
+are skipped, as the one-hot matched nothing for them.
+The outlier correction stays a PyTorch ``index_add_`` after the kernel, as
+it was an XLA scatter outside the Pallas kernel.  The earlier body,
+``csrc/block_ell_window.cu`` (one block stages each sub-block's slice), is
+P3's design and stays its kernel (``_slice_launch``).
 
 ``mode`` ("split" or "fast") is accepted for signature parity only: both
 compute in plain float32 here (the TPU's bf16 split undid the MXU's input
@@ -49,8 +52,9 @@ from gcn_maxcut_tpu_torch import build
 LAUNCHES = {"block_ell_spmm": 0}
 
 _R0 = 128                    # row sub-block of the planner's slice guarantee
-_SMEM_BYTES = 96 * 1024      # shared memory for one block's staged slice
+_SMEM_BYTES = 96 * 1024      # shared memory for one block's staged slice (P3's kernel)
 _MAX_COLS = 128
+GATHER_THREADS = 256         # csrc/block_ell_gather.cu BELL_GATHER_THREADS
 
 
 def reset_launches() -> None:
@@ -222,8 +226,18 @@ def sub_block_rows(block: int) -> int:
     return _R0 if block % _R0 == 0 else block
 
 
+def gather_shape(n: int, F: int, *, vec4: bool = True) -> tuple[int, int]:
+    """K1's launch (``csrc/block_ell_gather.cu``): (vec, blocks).  A thread
+    owns one receiver row and ``vec`` adjacent columns, 4 (16-byte loads and
+    stores) when F % 4 == 0 and ``vec4`` (the operands' addresses allow
+    it), else 1; blocks of ``GATHER_THREADS`` threads cover n·F/vec
+    threads."""
+    vec = 4 if vec4 and F % 4 == 0 else 1
+    return vec, -(-n * (F // vec) // GATHER_THREADS)
+
+
 def column_tile(F: int, slice_rows: int, elsize: int = 4) -> int:
-    """Columns of one kernel block: all of F when the [slice_rows, F] slice
+    """Columns of one slice-kernel block: all of F when the [slice_rows, F] slice
     of ``elsize``-byte elements fits the shared-memory budget, else the
     largest multiple of 8 that fits (at most 128)."""
     fit = _SMEM_BYTES // (slice_rows * elsize)
@@ -234,21 +248,22 @@ def column_tile(F: int, slice_rows: int, elsize: int = 4) -> int:
     return min(_MAX_COLS, fit // 8 * 8 if fit >= 8 else fit)
 
 
-@functools.cache
-def _kernel():
-    fn = build.load("block_ell_window").block_ell_window_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
+def _fn(source: str, name: str, n_ints: int):
+    """A launcher of ``csrc/<source>.cu``: four pointers, ``n_ints`` ints,
+    the stream."""
+    fn = getattr(build.load(source), name)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
-            n: int, block: int, wp: int) -> torch.Tensor:
-    """The in-slice table sum of ``csrc/block_ell_window.cu`` on CUDA."""
+_slice_kernel = functools.cache(lambda: _fn("block_ell_window", "block_ell_window_launch", 6))
+_gather_kernel = functools.cache(lambda: _fn("block_ell_gather", "block_ell_gather_launch", 7))
+
+
+def _check(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
+           n: int, block: int, wp: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's operand rules on the card; returns them contiguous."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.float32 or w.dtype != torch.float32:
@@ -263,15 +278,41 @@ def _launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
     if rows != n or sidx.shape[0] != n or n % block or block + 2 * wp > n or wp < 0:
         raise ValueError(
             f"bad geometry: x has {rows} rows, n={n}, block={block}, wp={wp}")
+    return x.contiguous(), sidx.contiguous(), w.contiguous()
+
+
+def _launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
+            n: int, block: int, wp: int) -> torch.Tensor:
+    """K1: the in-slice table sum of ``csrc/block_ell_gather.cu`` on CUDA."""
+    x, sidx, w = _check(x, sidx, w, n, block, wp)
+    F = x.shape[1]
+    out = torch.empty_like(x)
+    vec, blocks = gather_shape(n, F, vec4=(x.data_ptr() | out.data_ptr()) % 16 == 0)
+    with torch.cuda.device(x.device):
+        err = _gather_kernel()(
+            x.data_ptr(), sidx.data_ptr(), w.data_ptr(), out.data_ptr(),
+            n, F, sidx.shape[1], wp, sub_block_rows(block), vec, blocks,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"block_ell_gather_launch failed: CUDA error {err}")
+    return out
+
+
+def _slice_launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
+                  n: int, block: int, wp: int) -> torch.Tensor:
+    """The same sum by ``csrc/block_ell_window.cu``, one block per (R0-row
+    sub-block, column tile) staging its slice: P3's kernel and K1's
+    earlier body, on no op's path of K1."""
+    x, sidx, w = _check(x, sidx, w, n, block, wp)
     r0 = sub_block_rows(block)
-    fc = column_tile(F, r0 + 2 * wp)
-    x, sidx, w = x.contiguous(), sidx.contiguous(), w.contiguous()
+    F = x.shape[1]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(
+        err = _slice_kernel()(
             x.data_ptr(), sidx.data_ptr(), w.data_ptr(), out.data_ptr(),
-            n, F, sidx.shape[1], wp, r0, fc, stream,
+            n, F, sidx.shape[1], wp, r0, column_tile(F, r0 + 2 * wp),
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"block_ell_window_launch failed: CUDA error {err}")

@@ -10,8 +10,9 @@ their ports (``gcn_maxcut_tpu_torch/experiments/``) run on these ops:
     float32 (the TPU's "default" precision); y is float32.
   * ``subblock_spmm`` (P3): y[i] = Σ_j w[i, j]·x[sidx[i, j]] over the slots
     whose sender lies in row i's 128-row sub-block slice
-    [s·128 − Wp, s·128 + 128 + Wp) mod n: K1's function and K1's kernel
-    (``ops/block_ell._launch``) on P3's exact-degree table.
+    [s·128 − Wp, s·128 + 128 + Wp) mod n: K1's function on K1's earlier,
+    slice-staging kernel (``ops/block_ell._slice_launch``, P3's design) on
+    P3's exact-degree table.
   * ``panel_ell_spmm`` (P4): y[i] = Σ_s wgt[i, s]·xwin_i[(s // W_P)·128 +
     idx[i, s]] over slots with 0 ≤ idx < 128, where xwin_i[t] =
     x[(bi·B − Wp + t) mod n].
@@ -173,13 +174,14 @@ def subblock_spmm_plain(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
 def subblock_spmm(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
                   n: int, block: int, wp: int) -> torch.Tensor:
     """P3's sub-blocked SpMM: x float32 [n, F], absolute sender ids sidx
-    int32 [n, d] and weights w float32 [n, d]; runs K1's kernel, which
-    stages each 128-row sub-block's slice (``ops/block_ell.py``)."""
+    int32 [n, d] and weights w float32 [n, d]; runs the slice kernel
+    (``csrc/block_ell_window.cu``), which stages each 128-row sub-block's
+    slice: the design P3 measures, not K1's streaming kernel."""
     if _dispatch("subblock_spmm", x):
         return subblock_spmm_plain(x, sidx, w, n, block, wp)
     _subblock_geometry(x, sidx, w, n, block, wp)
     _check_cuda("subblock_spmm", x, sidx, w)
-    out = tbell._launch(x, sidx, w, n, block, wp)
+    out = tbell._slice_launch(x, sidx, w, n, block, wp)
     LAUNCHES["subblock_spmm"] += 1
     return out
 

@@ -443,3 +443,127 @@ def test_cuda_probe_kernels_reject_what_they_do_not_take(cuda_device):
         tpk.banded_spmm_cols(x, torch.ones(2, n), (1, -1))
     with pytest.raises(ValueError, match="float32"):
         tpk.banded_spmm_cols(x, torch.ones(2, n, device=cuda_device).double(), (1, -1))
+
+
+# ---- K4 (csrc/banded_stream.cu, a shared-memory ring), K1 (csrc/block_ell_gather.cu)
+
+# (n, F, offsets): n not a multiple of the strip, n below the chunk (one
+# strip that wraps at both ends), 2·Wp == n, a partial last chunk of a
+# 1024-row strip, the scalar path and column tails (F = 3, 5, 130), D = 1
+STREAM_K4_CASES = [
+    (5000, 16, (1, -1, 5, -5, 63, -63)),
+    (1000, 8, (7, -7, 60, -60)),
+    (40, 8, (7, -7, 16, -16)),
+    (128, 12, (64, -64, 3)),
+    (300_000, 8, (1, -1, 5, -5, 63, -63)),
+    (2048, 3, (2, -7, 9)),
+    (2000, 5, (40, -3)),
+    (4096, 130, (17, -17, 32, -32, 52, -52, 39, -39)),
+    (3000, 32, (5,)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STREAM_K4_CASES, ids=range(len(STREAM_K4_CASES)))
+def test_cuda_banded_stream_matches_plain(cuda_device, case):
+    n, F, offsets = case
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32), device=cuda_device)
+    w = torch.tensor((rng.random((n, len(offsets))) + 0.5).astype(np.float32),
+                     device=cuda_device)
+    geom = tb.stream_shape(n, F, tb.padded_bandwidth(offsets), len(offsets))
+    assert geom.vec == (4 if F % 4 == 0 else 1)
+    y = tb._stream_launch(x, w, offsets)
+    torch.cuda.synchronize()
+    # the plain version's arithmetic and order: equal bit for bit
+    assert torch.equal(y, tb.banded_spmm_plain(x, w, offsets))
+    # the op, forward and backward: one launch each
+    before = tb.LAUNCHES["banded_spmm"]
+    xk, wk = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    yk = tb.banded_spmm(xk, wk, offsets)
+    dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32), device=cuda_device)
+    yk.backward(dy)
+    torch.cuda.synchronize()
+    assert tb.LAUNCHES["banded_spmm"] == before + 2
+    xp, wq = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    yp = tb.banded_spmm_plain(xp, wq, offsets)
+    yp.backward(dy)
+    assert torch.equal(yk.detach(), yp.detach())
+    assert_kernel_close(xk.grad, xp.grad)
+    torch.testing.assert_close(wk.grad, wq.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_banded_stream_matches_its_earlier_body(cuda_device):
+    offsets = (17, -17, 32, -32, 52, -52, 39, -39)
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.normal(size=(131072, 128)).astype(np.float32), device=cuda_device)
+    w = torch.tensor((rng.random((131072, 8)) + 0.5).astype(np.float32), device=cuda_device)
+    y = tb._stream_launch(x, w, offsets)
+    assert torch.equal(y, tb._launch(x, offsets, 128, w))          # the earlier body
+
+
+def _stream_table(n, width, r0, wp, rng, pad_frac=0.2):
+    """An [n, width] table of senders in each receiver's slice, a few
+    beyond it (skipped), and padding slots (sender n − 1, weight 0)."""
+    i = np.arange(n)[:, None]
+    start = i // r0 * r0
+    sidx = (start - wp + rng.integers(-8, r0 + 2 * wp + 8, size=(n, width))) % n
+    w = (rng.random((n, width)) + 0.5).astype(np.float32)
+    pad = rng.random((n, width)) < pad_frac
+    sidx[pad], w[pad] = n - 1, 0.0
+    return sidx.astype(np.int32), w
+
+
+# (n, F, block, wp, width): the 16-byte path, R0 = B = 240, width 1, the
+# scalar path and column tails (F = 3, 5, 130)
+STREAM_K1_CASES = [
+    (1280, 16, 256, 64, 6),
+    (1280, 64, 256, 320, 8),
+    (1200, 3, 240, 40, 4),
+    (2048, 5, 512, 192, 8),
+    (2048, 130, 256, 128, 3),
+    (4096, 128, 512, 192, 8),
+    (1024, 8, 256, 64, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", STREAM_K1_CASES, ids=range(len(STREAM_K1_CASES)))
+def test_cuda_block_ell_stream_matches_plain(cuda_device, case):
+    n, F, block, wp, width = case
+    rng = np.random.default_rng(14)
+    r0 = tbell.sub_block_rows(block)
+    sidx, w = _stream_table(n, width, r0, wp, rng)
+    x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32), device=cuda_device)
+    si, wt = torch.tensor(sidx, device=cuda_device), torch.tensor(w, device=cuda_device)
+    assert tbell.gather_shape(n, F)[0] == (4 if F % 4 == 0 else 1)
+    ref = tpk.subblock_spmm_plain(x, si, wt, n, block, wp)    # the same slice test
+    assert torch.equal(tbell._launch(x, si, wt, n, block, wp), ref)
+    assert torch.equal(tbell._slice_launch(x, si, wt, n, block, wp), ref)
+
+
+@pytest.mark.cuda
+def test_cuda_block_ell_stream_launch_counts_and_transpose_plan(cuda_device):
+    n = 2048
+    rng = np.random.default_rng(15)
+    adj = np.zeros((n, n), np.float32)
+    edges = _banded_edges(n, 3, 40, 4, [(3, 1500), (700, 10)])
+    adj[edges[:, 0], edges[:, 1]] = rng.random(edges.shape[0]) + 0.5
+    g = graph_from_dense(adj, block_ell=True)
+    assert not g.symmetric and g.bell_t_block is not None
+    gc = g.to(cuda_device)
+    for F in (3, 8):
+        x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
+        dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
+        before = tbell.LAUNCHES["block_ell_spmm"]
+        xc = x.to(cuda_device).requires_grad_(True)
+        yc = spmm(gc, xc, gc.weights)
+        yc.backward(dy.to(cuda_device))
+        torch.cuda.synchronize()
+        assert tbell.LAUNCHES["block_ell_spmm"] == before + 2      # forward + transpose plan
+        xp = x.clone().requires_grad_(True)
+        yp = spmm(g, xp, g.weights)
+        yp.backward(dy)
+        assert_kernel_close(yc.detach().cpu(), yp.detach())
+        assert_kernel_close(xc.grad.cpu(), xp.grad)
