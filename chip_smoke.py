@@ -7,7 +7,9 @@ Phases; any failure ends the run with a non-zero exit code:
 
   1. build      compile every ``gcn_maxcut_tpu_torch/csrc/*.cu``
                 (``banded_stream.cu``: K4; ``block_ell_gather.cu``: K1;
-                ``banded_window.cu``: K2, K3, K5, K6 and K4's earlier body;
+                ``halo_stream.cu``: K5, K6 where rows take 16-byte copies;
+                ``banded_window.cu``: K2, K3, K4's earlier body and, in its
+                halo mode, K5 and K6 at other widths and their earlier body;
                 ``block_ell_window.cu``: P3's kernel, K1's earlier body;
                 ``probe_kernels.cu``: the probes' window_gather,
                 panel_ell_spmm and banded_spmm_cols) with nvcc for sm_90a,
@@ -28,10 +30,13 @@ Phases; any failure ends the run with a non-zero exit code:
                 weighted, and the plain halo trainer's 262,144-row shards at
                 F = 128 and 3, unit weights) and K6
                 (``halo_banded_spmm_unit_packed``: the packed halo trainer's
-                10,002,432 × 16 at r = 8) against their plain versions on
-                rings of 1, 2 and 4 shards on the card, forward and gradient,
-                and in float32 bit for bit against K4/K2 and K3 on the
-                gathered array; time one shard's launch, the ring op and
+                10,002,432 × 16 at r = 8) against their plain versions and
+                their earlier body (the halo mode of ``banded_window.cu``)
+                bit for bit on rings of 1, 2 and 4 shards on the card,
+                forward and gradient, float32 and bf16, and in float32 bit
+                for bit against K4/K2 and K3 on the gathered array; time one
+                shard's launch in turns with the earlier body, the ring op
+                (less the shard launches: the exchange) and
                 ``torch.sparse.mm`` of the shard's row operator (bf16 on the
                 values widened to float32);
      probes     hold the design probes' kernels against their plain versions
@@ -52,7 +57,9 @@ Phases; any failure ends the run with a non-zero exit code:
                 against the single-chip packed trainer, then the packed halo
                 trainer at its defaults (n = 10,002,432, 40 epochs) through
                 K6, held to the giant phase's cut, and the plain halo trainer
-                (emb 128, hidden 128, n = 1,048,576, 10 epochs) through K5;
+                (emb 128, hidden 128, n = 1,048,576, 10 epochs) through K5:
+                ``halo_stream.cu`` at F = 128 and the earlier body at F = 3,
+                each launch counted by the kernel that ran;
   4. recipe     the ``pipeline`` flow: 20 graphs of n = 500, d in [6, 8],
                 padded to 1000, GCNSoftmax 1000-500-3, 300 epochs, decoded
                 with 200 rollouts and held against the JAX pipeline's cut;
@@ -88,6 +95,7 @@ OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = "gcn_maxcut_tpu_torch/csrc/banded_window.cu"
+HALO_SOURCE = "gcn_maxcut_tpu_torch/csrc/halo_stream.cu"
 BLOCK_ELL_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_window.cu"
 K4_SOURCE = "gcn_maxcut_tpu_torch/csrc/banded_stream.cu"
 K1_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_gather.cu"
@@ -530,10 +538,28 @@ def halo_bound(n_shard: int, L: int, d: int, wp: int, elsize: int,
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def halo_op(r) -> str:
+    """The ``th.LAUNCHES`` key of K5 (``r`` None) or K6."""
+    return "halo_banded_spmm" if r is None else "halo_banded_spmm_unit_packed"
+
+
+def window_ring(torch, th, xs, offsets, mesh, r=None, ws=None):
+    """A ring op on the earlier body (``th._window_launch``, the halo mode
+    of ``banded_window.cu``): the exchange, then one launch per shard."""
+    n_loc, F = xs[0].shape
+    views = [x if r is None else x.view(n_loc // r, r * F) for x in xs]
+    tiles = th.halo_exchange(views, th.padded_bandwidth(offsets), mesh, None if r is None else F)
+    return torch.cat([
+        th._window_launch(v, pre, post, offsets, None if ws is None else ws[c],
+                          op=halo_op(r)).view(n_loc, F)
+        for c, ((pre, post), v) in enumerate(zip(tiles, views))])
+
+
 def check_ring(torch, th, tb, mesh, name, x, offsets, gen, w=None, r=None) -> float:
     """A ring op against its plain version (forward, and the gradient of the
-    unit op) and, for the same rows, against the circulant kernel on the
-    gathered array: bit for bit in float32, within one ulp in bfloat16."""
+    unit op) and its earlier body, bit for bit, and, for the same rows,
+    against the circulant kernel on the gathered array: bit for bit in
+    float32, within one ulp in bfloat16."""
     D = mesh.size
     shard = x.shape[0] // D
     xs = list(x.split(shard))
@@ -560,9 +586,21 @@ def check_ring(torch, th, tb, mesh, name, x, offsets, gen, w=None, r=None) -> fl
         gp = torch.cat(th.halo_ring_plain([d.float() for d in dys], [-o for o in offsets],
                                           mesh, r=r)).to(x.dtype)
     torch.cuda.synchronize()
-    y = torch.cat(yk).detach()
+    y, g = torch.cat(yk).detach(), torch.cat([t.grad for t in xk])
     err = max(max_err_within_tolerance(torch, y, torch.cat(yp).detach().to(x.dtype)),
-              max_err_within_tolerance(torch, torch.cat([t.grad for t in xk]), gp))
+              max_err_within_tolerance(torch, g, gp))
+    # the plain version and the earlier body sum in float32 in offset order
+    # and round once, as the kernel does: equal bit for bit in both dtypes;
+    # the gradient is the plain version of the adjoint (negated offsets)
+    neg = [-o for o in offsets]
+    check(torch.equal(y, torch.cat(th.halo_ring_plain(xs, offsets, mesh, r=r))),
+          f"{name} on {D} shards equals its plain version bit for bit")
+    check(torch.equal(g, torch.cat(th.halo_ring_plain(dys, neg, mesh, r=r))),
+          f"{name}'s gradient on {D} shards equals the plain adjoint bit for bit")
+    check(torch.equal(y, window_ring(torch, th, xs, offsets, mesh, r)),
+          f"{name} on {D} shards equals its earlier body bit for bit")
+    check(torch.equal(g, window_ring(torch, th, dys, neg, mesh, r)),
+          f"{name}'s gradient on {D} shards equals its earlier body bit for bit")
     exact = {"y": bool(torch.equal(y, circulant))}
     if x.dtype == torch.float32:
         check(exact["y"], f"{name} on {D} shards equals the circulant kernel bit for bit")
@@ -573,6 +611,10 @@ def check_ring(torch, th, tb, mesh, name, x, offsets, gen, w=None, r=None) -> fl
         yw = torch.cat(th.halo_banded_spmm(xs, ws, offsets, mesh))
         err = max(err, max_err_within_tolerance(
             torch, yw, torch.cat(th.halo_ring_plain(xs, offsets, mesh, ws=ws))))
+        check(torch.equal(yw, torch.cat(th.halo_ring_plain(xs, offsets, mesh, ws=ws))),
+              f"weighted {name} on {D} shards equals its plain version bit for bit")
+        check(torch.equal(yw, window_ring(torch, th, xs, offsets, mesh, ws=ws)),
+              f"weighted {name} on {D} shards equals its earlier body bit for bit")
         if x.dtype == torch.float32:
             exact["weighted"] = bool(torch.equal(yw, tb.banded_spmm(x, w, offsets)))
             check(exact["weighted"], f"weighted {name} on {D} shards equals K4 bit for bit")
@@ -580,10 +622,11 @@ def check_ring(torch, th, tb, mesh, name, x, offsets, gen, w=None, r=None) -> fl
 
 
 def time_ring(torch, th, mesh, name, x, offsets, w=None, r=None) -> dict:
-    """One shard's launch (shard 0, its tiles staged), the whole ring op,
-    one shard's plain version, and for float32 K5 ``torch.sparse.mm`` of
-    the shard's CSR operator [n_shard, n_shard + 2·Wp] on cat([pre, x,
-    post]), the concat counted."""
+    """One shard's launch (shard 0, its tiles staged) in turns with the
+    earlier body's, the whole ring op (less the D shard launches: the
+    exchange), one shard's plain version, and ``torch.sparse.mm`` of the
+    shard's CSR operator [n_shard, n_shard + 2·Wp] on cat([pre, x, post])
+    (float32: the concat counted)."""
     D, d = mesh.size, len(offsets)
     wp = th.padded_bandwidth(offsets)
     shard = x.shape[0] // D
@@ -596,8 +639,16 @@ def time_ring(torch, th, mesh, name, x, offsets, w=None, r=None) -> dict:
     m, L = v0.shape
     row = {"name": name, "shards": D, "n_shard": shard, "F": F, "r": r or 1, "L": L,
            "wp": wp, "weighted": w is not None, "dtype": str(x.dtype)[6:]}
+    op = halo_op(r)
     with torch.no_grad():
-        row["ms"] = best_ms(torch, lambda: th._launch(v0, pre, post, offsets, w0))
+        check(torch.equal(th._launch(v0, pre, post, offsets, w0, op=op),
+                          th._window_launch(v0, pre, post, offsets, w0, op=op)),
+              f"{name} shard launch equals its earlier body bit for bit")
+        row.update(ms_in_turns(torch, {
+            "ms": lambda: th._launch(v0, pre, post, offsets, w0, op=op),
+            "earlier_ms": lambda: th._window_launch(v0, pre, post, offsets, w0, op=op),
+        }))
+        row["vec16"] = th._vec16(L, x.element_size(), v0, pre, post)
         if w is not None:
             ring_op = lambda: th.halo_banded_spmm(xs, ws, offsets, mesh)  # noqa: E731
         elif r is None:
@@ -605,6 +656,7 @@ def time_ring(torch, th, mesh, name, x, offsets, w=None, r=None) -> dict:
         else:
             ring_op = lambda: th.halo_banded_spmm_unit_packed(xs, offsets, r, mesh)  # noqa: E731
         row["op_ms"] = best_ms(torch, ring_op)
+        row["exchange_ms"] = row["op_ms"] - D * row["ms"]
         row["plain_ms"] = best_ms(
             torch, lambda: th.halo_banded_spmm_plain(v0, w0, pre, post, offsets))
         # the shard's row operator [m, m + 2·Wp] (in the [·, L] view for
@@ -620,23 +672,27 @@ def time_ring(torch, th, mesh, name, x, offsets, w=None, r=None) -> dict:
             win = torch.cat([pre, v0, post]).float()
             lib = lambda: torch.sparse.mm(csr, win)  # noqa: E731
         row["library_max_abs_err"] = float(
-            (lib() - th._launch(v0, pre, post, offsets, w0).float()).abs().max())
+            (lib() - th._launch(v0, pre, post, offsets, w0, op=op).float()).abs().max())
         row["library_ms"] = best_ms(torch, lib)
         del csr, rows, cols, vals, lib
     row["bound_ms"], row["bound_by"] = halo_bound(m, L, d, wp, x.element_size(), w is not None)
-    log(f"  {name} {D} shards of [{m}, {L}] {row['dtype']}{' weighted' if w is not None else ''}:"
-        f" shard launch {row['ms']:.4f} ms, ring op {row['op_ms']:.4f} ms, plain "
+    log(f"  {name} {D} shards of [{m}, {L}] {row['dtype']}{' weighted' if w is not None else ''}"
+        f" ({'halo_stream.cu' if row['vec16'] else 'earlier body: no 16-byte path'}):"
+        f" shard launch {row['ms']:.4f} ms, earlier body {row['earlier_ms']:.4f}, ring op "
+        f"{row['op_ms']:.4f} ms (exchange {row['exchange_ms']:.4f}), plain "
         f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
 def phase_kernels_halo(torch, th, tb, make_mesh, offsets, bench_offsets) -> dict:
-    """K5 and K6 on rings of 1, 2 and 4 shards on the card."""
+    """K5 and K6 on rings of 1, 2 and 4 shards on the card; errors under
+    the kernel that ran ("K5 window": shards without 16-byte rows, on the
+    earlier body)."""
     log("== kernels: K5 halo_banded_spmm, K6 halo_banded_spmm_unit_packed")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    errors = {"K5": 0.0, "K6": 0.0}
+    errors = {"K5": 0.0, "K5 window": 0.0, "K6": 0.0}
     for D in (1, 2, 4):
         mesh = make_mesh(devices=["cuda:0"] * D)
         cases = [("K5", HALO_K5_N, 128, bench_offsets, True, None),
@@ -649,7 +705,9 @@ def phase_kernels_halo(torch, th, tb, make_mesh, offsets, bench_offsets) -> dict
                 w = (torch.rand(n, len(offs), generator=gen, device=dev) + 0.5
                      if weighted else None)
                 err = check_ring(torch, th, tb, mesh, name, x, offs, gen, w=w, r=r)
-                errors[name] = max(errors[name], err)
+                vec16 = th._vec16(F * (r or 1), x.element_size(), *x.split(n // D))
+                key = name if vec16 else f"{name} window"
+                errors[key] = max(errors[key], err)
                 log(f"  {name} {D} shards n={n} F={F} r={r or 1} {str(dtype)[6:]}"
                     f"{' weighted' if weighted else ''}: fwd+grad max |err| {err:.3g}, "
                     f"{'equals' if dtype == torch.float32 else 'within one ulp of'} "
@@ -1017,9 +1075,15 @@ def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> 
     log(f"  plain halo n={plain['n']} on {plain['num_devices']} shards: epoch "
         f"{plain['epoch_time_s'] * 1e3:.3f} ms, cut {plain['initial_cut']:.0f} -> "
         f"{plain['final_cut']:.0f} (fraction {plain['cut_fraction']:.5f}), launches {plain_launches}")
-    check(plain_launches["halo_banded_spmm"] == 6 * HALO_SHARDS * HALO_PLAIN_EPOCHS,
-          "K5 launched 6 times an epoch on each shard")
-    check(all(v == 0 for k, v in plain_launches.items() if k != "halo_banded_spmm"),
+    # an epoch on each shard: conv1 and conv2 at F = 128 forward and
+    # backward on halo_stream.cu, the loss's F = 3 sum forward and backward
+    # on the earlier body
+    check(plain_launches["halo_banded_spmm"] == 4 * HALO_SHARDS * HALO_PLAIN_EPOCHS,
+          "K5 launched halo_stream.cu 4 times an epoch on each shard (F = 128)")
+    check(plain_launches["halo_banded_spmm_window"] == 2 * HALO_SHARDS * HALO_PLAIN_EPOCHS,
+          "K5 launched the earlier body 2 times an epoch on each shard (F = 3)")
+    check(all(v == 0 for k, v in plain_launches.items()
+              if k not in ("halo_banded_spmm", "halo_banded_spmm_window")),
           "the plain halo trainer runs no other kernel")
     check(all(map(math.isfinite, plain["history"])), "finite loss history")
     check(plain["final_cut"] > plain["initial_cut"], "plain halo trainer improves the cut")
@@ -1224,26 +1288,34 @@ def main() -> int:
                       == ("K5", HALO_K5_N, "float32"))
     rows["K6"] = next(t for t in report["kernels_halo"]["timings"]
                       if (t["name"], t["dtype"]) == ("K6", "bfloat16"))
-    for name in ("K5", "K6"):
+    rows["K5 window"] = next(t for t in report["kernels_halo"]["timings"]
+                             if (t["name"], t["F"]) == ("K5", 3))
+    check(not rows["K5 window"]["vec16"], "K5 at F = 3 runs the earlier body")
+    for name in ("K5", "K6", "K5 window"):
         rows[name]["n"] = rows[name]["n_shard"]
     launches = {"K1": report["locality"]["launches"]["block_ell_spmm"],
                 "K2": report["giant"]["plain"]["launches"]["banded_spmm_unit"],
                 "K3": report["giant"]["packed"]["launches"]["banded_spmm_unit_packed"],
                 "K4": report["microbench"]["banded"]["launches"]["banded_spmm"],
                 "K5": report["halo"]["plain"]["launches"]["halo_banded_spmm"],
-                "K6": report["halo"]["packed"]["launches"]["halo_banded_spmm_unit_packed"]}
+                "K6": report["halo"]["packed"]["launches"]["halo_banded_spmm_unit_packed"],
+                "K5 window": report["halo"]["plain"]["launches"]["halo_banded_spmm_window"]}
     errors = {**report["kernels"]["max_abs_err"], "K1": report["kernels_k1"]["max_abs_err"],
               "K4": report["kernels_k4"]["max_abs_err"], **report["kernels_halo"]["max_abs_err"]}
     names = {"K1": "block_ell_spmm", "K2": "banded_spmm_unit",
              "K3": "banded_spmm_unit_packed", "K4": "banded_spmm",
-             "K5": "halo_banded_spmm", "K6": "halo_banded_spmm_unit_packed"}
+             "K5": "halo_banded_spmm", "K6": "halo_banded_spmm_unit_packed",
+             "K5 window": "halo_banded_spmm_unit at F = 3 (rows not 16-byte pieces: "
+                          "the earlier body, the halo mode of banded_window.cu)"}
     replaces = {"K1": "gcn_maxcut_tpu/ops/pallas_block_ell.py:146",
                 "K2": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
                 "K3": "gcn_maxcut_tpu/ops/pallas_banded.py:529",
                 "K4": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
                 "K5": "gcn_maxcut_tpu/ops/pallas_halo.py:162",
-                "K6": "gcn_maxcut_tpu/ops/pallas_halo.py:409"}
-    sources = {"K1": K1_SOURCE, "K4": K4_SOURCE}
+                "K6": "gcn_maxcut_tpu/ops/pallas_halo.py:409",
+                "K5 window": "gcn_maxcut_tpu/ops/pallas_halo.py:515"}
+    sources = {"K1": K1_SOURCE, "K4": K4_SOURCE, "K5": HALO_SOURCE, "K6": HALO_SOURCE,
+               "K5 window": KERNEL_SOURCE}
     kernels = [{
         "name": f"{name} {names[name]}", "route": "cuda",
         "source": sources.get(name, KERNEL_SOURCE),
@@ -1252,10 +1324,11 @@ def main() -> int:
         "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
         "library_ms": rows[name]["library_ms"],
         "shape": [rows[name]["n"], rows[name]["F"]], "dtype": rows[name]["dtype"],
-        **({"shards": rows[name]["shards"], "op_ms": rows[name]["op_ms"]}
-           if name in ("K5", "K6") else {}),
-        **({"earlier_ms": rows[name]["earlier_ms"]} if name in ("K1", "K4") else {}),
-    } for name in ("K1", "K2", "K3", "K4", "K5", "K6")]
+        **({"shards": rows[name]["shards"], "op_ms": rows[name]["op_ms"],
+            "exchange_ms": rows[name]["exchange_ms"]} if name.startswith(("K5", "K6")) else {}),
+        **({"earlier_ms": rows[name]["earlier_ms"]}
+           if name.startswith(("K1", "K4", "K5", "K6")) else {}),
+    } for name in ("K1", "K2", "K3", "K4", "K5", "K5 window", "K6")]
 
     # the probes' rows: (label, wrapper, source, pallas_call, probe run,
     # launch counter, error key, timing case)

@@ -26,10 +26,15 @@ of per-shard tensors, one on each mesh device:
     [n_shard / r, r·F] view, where every node shift is a row shift and only
     the tiles across the global wrap rotate their lane groups.
 
-CUDA shards run the halo mode of ``csrc/banded_window.cu``, one launch per
-shard after the exchange (the TPU kernel's overlap of the exchange with the
-interior sweep is not ported); CPU shards run the plain versions; a shard on
-any other device, or on another device than its mesh entry, raises.
+CUDA shards run one launch per shard after the exchange (the TPU kernel's
+overlap of the exchange with the interior sweep is not ported): of
+``csrc/halo_stream.cu``, which streams each short strip of a shard's rows
+into shared memory in 16-byte pieces (geometry: ``halo_stream_shape``),
+where the width and the operands' addresses allow 16-byte copies; else of
+the earlier body, the halo mode of ``csrc/banded_window.cu``
+(``_window_launch``), which is faster there (F = 3).  CPU shards run the
+plain versions; a shard on any other device, or on another device than its
+mesh entry, raises.
 
 Deviation from JAX: a mesh of one shard runs the halo kernel on its
 loopback tiles.  JAX routes it to the circulant kernels (K4, K3) only
@@ -39,6 +44,7 @@ because a loopback RDMA faults the TPU runtime; the function is the same.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Sequence
 
@@ -48,21 +54,104 @@ from gcn_maxcut_tpu_torch import build
 from gcn_maxcut_tpu_torch.ops.banded import (
     _DTYPE_CODES,
     MAX_OFFSETS,
+    SMEM_LIMIT,
     padded_bandwidth,
     tile_shape,
 )
 from gcn_maxcut_tpu_torch.parallel.mesh import Mesh
 
-# Launches of the CUDA kernel made by each op, one per shard, counted where
-# it launches.  K5 counts its weighted and unit launches together.
-LAUNCHES = {"halo_banded_spmm": 0, "halo_banded_spmm_unit_packed": 0}
+# Launches made by each op, one per shard, counted where each kernel
+# launches: under the op's name by ``_launch`` (``csrc/halo_stream.cu``),
+# under the op's name + "_window" by ``_window_launch`` (the halo mode of
+# ``csrc/banded_window.cu``).  K5 counts its weighted and unit launches
+# together.
+LAUNCHES = {"halo_banded_spmm": 0, "halo_banded_spmm_unit_packed": 0,
+            "halo_banded_spmm_window": 0, "halo_banded_spmm_unit_packed_window": 0}
 
 DEFAULT_BLOCK = 1024
+# The strip window's geometry (csrc/halo_stream.cu): rows a chunk, widest
+# column tile and rows a strip (two chunks); chosen on the H100 by a sweep
+# at the trainers' shards (PERF.md)
+HALO_CHUNK = 64
+HALO_COLS = 64
+HALO_STRIP = 2 * HALO_CHUNK
+HALO_THREADS = 256            # csrc/halo_stream.cu HSTREAM_THREADS
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloStreamGeometry:
+    """One shard's launch of ``halo_stream.cu``: a block of
+    ``HALO_THREADS`` threads owns ``cols`` columns and a strip of ``strip``
+    rows, whose window of ``window_rows`` = strip + 2·Wp source rows it
+    stages in chunks of ``chunk`` rows, summing each chunk while the next
+    one's rows land, beside two chunks' [chunk, D] weights (none for unit
+    weights).  A thread owns ``vec`` adjacent columns, 16 bytes: 8 bfloat16
+    or 4 float32 values."""
+
+    m: int
+    L: int
+    wp: int
+    chunk: int
+    strip: int
+    cols: int
+    window_rows: int
+    vec: int
+    smem_bytes: int
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        """(strips, column tiles) of the launch."""
+        return -(-self.m // self.strip), -(-self.L // self.cols)
+
+
+def halo_stream_smem_bytes(window_rows: int, cols: int, elsize: int, D: int) -> int:
+    """The strip's window (rounded up to 16 bytes) and two chunks of
+    weights (D = 0 for unit weights)."""
+    return (window_rows * cols * elsize + 15) // 16 * 16 + 2 * HALO_CHUNK * D * 4
+
+
+@functools.cache
+def halo_stream_shape(m: int, L: int, wp: int, D: int, elsize: int) -> HaloStreamGeometry:
+    """The launch geometry for a shard [m, L] of ``elsize``-byte values
+    whose rows are whole 16-byte pieces, halo width Wp and D weighted
+    offsets (0: unit weights).  The column tile is ``HALO_COLS`` wide,
+    halved until the window fits; every strip is ``HALO_STRIP`` rows."""
+    if L * elsize % 16:
+        raise ValueError(f"rows of {L} × {elsize} bytes are not whole 16-byte pieces")
+    chunk = HALO_CHUNK
+    vec = 16 // elsize
+    cols = min(L, HALO_COLS)
+    window_rows = HALO_STRIP + 2 * wp
+    while halo_stream_smem_bytes(window_rows, cols, elsize, D) > SMEM_LIMIT and cols > vec:
+        cols = max(vec, cols // 2 // vec * vec)
+    smem = halo_stream_smem_bytes(window_rows, cols, elsize, D)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a window of {window_rows} rows does not fit the block's "
+                         "shared memory")
+    return HaloStreamGeometry(m=m, L=L, wp=wp, chunk=chunk, strip=HALO_STRIP, cols=cols,
+                              window_rows=window_rows, vec=vec, smem_bytes=smem)
+
+
+def _vec16(L: int, elsize: int, *tensors: torch.Tensor) -> bool:
+    """``halo_stream.cu`` takes the shard: every row is a whole number of
+    16-byte pieces and every operand starts 16-byte aligned."""
+    return L * elsize % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+@functools.cache
+def _stream_kernel():
+    fn = build.load("halo_stream").halo_stream_launch
+    fn.argtypes = [
+        *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        *[ctypes.c_int] * 7, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
@@ -90,13 +179,11 @@ def _weighted_kernel():
     return fn
 
 
-def _launch(
+def _check_shard(
     x: torch.Tensor, pre: torch.Tensor, post: torch.Tensor,
-    offsets: Sequence[int], w: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """One shard's launch: ``halo_window_launch`` on a contiguous [m, L]
-    CUDA tensor and its [Wp, L] tiles, or with a float32 [m, D] weight
-    table ``halo_window_weighted_launch``."""
+    offsets: Sequence[int], w: torch.Tensor | None,
+) -> int:
+    """One shard's operand rules on the card; returns Wp."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
@@ -122,6 +209,51 @@ def _launch(
     ):
         raise ValueError(f"weights must be contiguous float32 [{m}, {len(offsets)}] "
                          f"on {x.device}")
+    return wp
+
+
+def _launch(
+    x: torch.Tensor, pre: torch.Tensor, post: torch.Tensor,
+    offsets: Sequence[int], w: torch.Tensor | None = None, *, op: str,
+) -> torch.Tensor:
+    """One shard's launch of ``op`` (a ``LAUNCHES`` key) on a contiguous
+    [m, L] CUDA tensor and its [Wp, L] tiles, with a float32 [m, D] weight
+    table or (``w`` None) unit weights: ``halo_stream_launch`` in
+    ``halo_stream_shape``'s geometry where the shard takes 16-byte copies
+    (``_vec16``), else the earlier body ``_window_launch``, which beat a
+    scalar path of the new kernel at F = 3 (PERF.md).  One rule by shape
+    and address: a failed launch raises."""
+    wp = _check_shard(x, pre, post, offsets, w)
+    m, L = x.shape
+    out = torch.empty_like(x)
+    el = x.element_size()
+    if not _vec16(L, el, x, pre, post, out):
+        return _window_launch(x, pre, post, offsets, w, op=op)
+    geom = halo_stream_shape(m, L, wp, 0 if w is None else len(offsets), el)
+    offs = (ctypes.c_int * len(offsets))(*offsets)
+    with torch.cuda.device(x.device):
+        err = _stream_kernel()(
+            x.data_ptr(), pre.data_ptr(), post.data_ptr(),
+            None if w is None else w.data_ptr(), out.data_ptr(), m, L, offs, len(offsets),
+            wp, _DTYPE_CODES[x.dtype], geom.chunk, geom.strip, geom.cols, geom.smem_bytes,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"halo_stream_launch failed: CUDA error {err}")
+    LAUNCHES[op] += 1
+    return out
+
+
+def _window_launch(
+    x: torch.Tensor, pre: torch.Tensor, post: torch.Tensor,
+    offsets: Sequence[int], w: torch.Tensor | None = None, *, op: str,
+) -> torch.Tensor:
+    """The earlier body, the halo mode of ``csrc/banded_window.cu``:
+    ``halo_window_launch``, or with weights ``halo_window_weighted_launch``;
+    the same operands and result as ``_launch``, counted under ``op`` +
+    "_window"."""
+    wp = _check_shard(x, pre, post, offsets, w)
+    m, L = x.shape
     rows, cols = tile_shape(L, wp, x.element_size(), 0 if w is None else 4 * len(offsets))
     out = torch.empty_like(x)
     offs = (ctypes.c_int * len(offsets))(*offsets)
@@ -140,6 +272,7 @@ def _launch(
             )
     if err != 0:
         raise RuntimeError(f"halo_window launch failed: CUDA error {err}")
+    LAUNCHES[op + "_window"] += 1
     return out
 
 
@@ -228,7 +361,7 @@ def _ring_sum(
     wp = padded_bandwidth(offsets)
     views = [x.contiguous() if r is None else x.contiguous().view(n_loc // r, r * F)
              for x in xs]
-    counter = "halo_banded_spmm" if r is None else "halo_banded_spmm_unit_packed"
+    op = "halo_banded_spmm" if r is None else "halo_banded_spmm_unit_packed"
     tiles = halo_exchange(views, wp, mesh, None if r is None else F)
     outs = []
     for c, ((pre, post), v) in enumerate(zip(tiles, views)):
@@ -236,8 +369,7 @@ def _ring_sum(
         if plain or v.device.type == "cpu":
             y = halo_banded_spmm_plain(v, w, pre, post, offsets)
         else:
-            y = _launch(v, pre, post, offsets, None if w is None else w.contiguous())
-            LAUNCHES[counter] += 1
+            y = _launch(v, pre, post, offsets, None if w is None else w.contiguous(), op=op)
         outs.append(y.view(n_loc, F))
     return tuple(outs)
 

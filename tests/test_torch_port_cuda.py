@@ -12,6 +12,8 @@ version's order, so it is usually exact); bfloat16 within one bf16 ulp of
 the plain version, which sums in float32 and rounds once.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -283,13 +285,16 @@ def test_cuda_halo_k5_matches_plain(cuda_device, case, dtype):
     dy = torch.tensor(rng.normal(size=x.shape).astype(np.float32)).to(dtype)
     xs = list(x.to(cuda_device, dtype).split(n_shard))
     ws = list(w.to(cuda_device).split(n_shard))
-    before = th.LAUNCHES["halo_banded_spmm"]
+    def launches():     # counted by the kernel that ran: the new one, or the earlier body (F = 3)
+        return th.LAUNCHES["halo_banded_spmm"] + th.LAUNCHES["halo_banded_spmm_window"]
+
+    before = launches()
     yw = th.halo_banded_spmm(xs, ws, offsets, mesh, block)
     xk = [t.clone().requires_grad_(True) for t in xs]
     yk = th.halo_banded_spmm_unit(xk, offsets, mesh, block)
     torch.autograd.backward(yk, list(dy.to(cuda_device).split(n_shard)))
     torch.cuda.synchronize()
-    assert th.LAUNCHES["halo_banded_spmm"] == before + 3 * n_dev
+    assert launches() == before + 3 * n_dev
     yp, gp = _plain_ring_and_grad(xs, dy.to(cuda_device), mesh, offsets)
     assert_kernel_close(torch.cat(yw), torch.cat(th.halo_ring_plain(xs, offsets, mesh, ws=ws)))
     assert_kernel_close(torch.cat(yk).detach(), yp)
@@ -567,3 +572,132 @@ def test_cuda_block_ell_stream_launch_counts_and_transpose_plan(cuda_device):
         yp.backward(dy)
         assert_kernel_close(yc.detach().cpu(), yp.detach())
         assert_kernel_close(xc.grad.cpu(), xp.grad)
+
+
+# ---- K5, K6 (csrc/halo_stream.cu, a shared-memory ring in halo mode) -------
+
+def _ring_launch(launch, xs, offsets, mesh, r=None, ws=None):
+    """A whole ring op on one launcher (``th._launch`` or the earlier body
+    ``th._window_launch``): the exchange, then one launch per shard."""
+    n_loc, F = xs[0].shape
+    views = [x if r is None else x.view(n_loc // r, r * F) for x in xs]
+    tiles = th.halo_exchange(views, tb.padded_bandwidth(offsets), mesh,
+                             None if r is None else F)
+    op = "halo_banded_spmm" if r is None else "halo_banded_spmm_unit_packed"
+    return torch.cat([launch(v, pre, post, offsets, None if ws is None else ws[c], op=op)
+                      .view(n_loc, F) for c, ((pre, post), v) in enumerate(zip(tiles, views))])
+
+
+# (D, n_shard, F, r, offsets, misaligned): K5 (r = 1) and K6 (r = 8) on
+# rings of 1, 2 and 4 shards; m below one chunk, a partial last chunk and
+# strip, Wp = m, L = 3 and 20, shards split from one tensor at F = 3 (pre
+# and post are then views at addresses that are not 16-byte aligned), and
+# shards of a buffer one element off 16-byte alignment
+HALO_STREAM_CASES = [
+    (1, 4096, 128, 1, BENCH_OFFSETS, False),
+    (2, 40, 16, 1, (1, -1, 5, -5), False),            # m below one chunk
+    (4, 1000, 32, 1, (7, -7, 60, -60), False),        # partial last chunk
+    (2, 300_000, 8, 1, (1, -1, 5, -5, 63, -63), False),  # partial last strip
+    (4, 64, 20, 1, (1, -1, 7, -7, 60, -60), False),   # Wp = m, L = 20
+    (4, 2048, 3, 1, BENCH_OFFSETS, False),             # L = 3
+    (4, 37 * 8, 3, 1, (1, -1, 7, -7), False),          # m·3·4 ≢ 0 mod 16
+    (2, 4096, 16, 1, (2, -2, 9, -9), True),            # misaligned buffer
+    (1, 4096, 16, 8, (63, -63, 1, -1), False),         # K6, L = 128
+    (2, 8192, 16, 8, (9, -9, 2, -2, 33, -33), False),
+    (4, 512, 16, 8, (63, -63, 1, -1), False),          # K6, Wp = m_loc = 64
+    (4, 384, 8, 3, (2, -2, 9, -9), False),             # K6, L = 24
+]
+
+
+def _halo_block(n_shard, offsets):
+    """The smallest block the K5 ops accept: a multiple of 8 that divides
+    the shard and is at least Wp."""
+    wp = max(8, tb.padded_bandwidth(offsets))
+    return next(b for b in range(wp, n_shard + 1, 8) if n_shard % b == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", HALO_STREAM_CASES, ids=range(len(HALO_STREAM_CASES)))
+def test_cuda_halo_stream_equals_plain_and_earlier_body(cuda_device, case, dtype):
+    n_dev, n_shard, F, r, offsets, misaligned = case
+    mesh = _ring(cuda_device, n_dev)
+    rng = np.random.default_rng(16)
+    n = n_dev * n_shard
+    x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32)).to(cuda_device, dtype)
+    if misaligned:
+        flat = torch.empty(n * F + 1, dtype=dtype, device=cuda_device)
+        x = flat[1:].view(n, F).copy_(x)
+    w = torch.tensor((rng.random((n, len(offsets))) + 0.5).astype(np.float32), device=cuda_device)
+    dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32)).to(cuda_device, dtype)
+    xs, ws, dys = list(x.split(n_shard)), list(w.split(n_shard)), list(dy.split(n_shard))
+    m, L = n_shard // r, r * F
+    vec16 = L * x.element_size() % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in xs)
+    assert th._vec16(L, x.element_size(), *xs) == vec16
+    narrow = (r, F) == (1, 3) or (r, F, dtype) == (1, 20, torch.bfloat16)
+    assert vec16 == (not misaligned and not narrow)
+    neg = [-o for o in offsets]
+    # forward and gradient of the unit op, one launch per shard each,
+    # counted by the kernel that ran: shards without 16-byte rows or
+    # addresses go to the earlier body (the cotangents are fresh, aligned)
+    op = "halo_banded_spmm" if r == 1 else "halo_banded_spmm_unit_packed"
+    before = dict(th.LAUNCHES)
+    xk = [t.detach().requires_grad_(True) for t in xs]      # the shards' own addresses
+    if r == 1:
+        yk = th.halo_banded_spmm_unit(xk, offsets, mesh, _halo_block(n_shard, offsets))
+    else:
+        yk = th.halo_banded_spmm_unit_packed(xk, offsets, r, mesh)
+    fwd = {op: n_dev if vec16 else 0, op + "_window": 0 if vec16 else n_dev}
+    assert {k: th.LAUNCHES[k] - before[k] for k in fwd} == fwd
+    torch.autograd.backward(yk, dys)
+    torch.cuda.synchronize()
+    bwd16 = not narrow
+    assert {k: th.LAUNCHES[k] - before[k] for k in fwd} == {
+        op: fwd[op] + (n_dev if bwd16 else 0),
+        op + "_window": fwd[op + "_window"] + (0 if bwd16 else n_dev)}
+    assert sum(th.LAUNCHES[k] - before[k] for k in th.LAUNCHES) == 2 * n_dev
+    y, g = torch.cat(yk).detach(), torch.cat([t.grad for t in xk])
+    # the plain version sums in float32 in offset order and rounds once, as
+    # the kernel does: equal bit for bit, in bfloat16 too; the gradient is
+    # the plain version of the adjoint (negated offsets)
+    assert torch.equal(y, torch.cat(th.halo_ring_plain(xs, offsets, mesh, r=r)))
+    assert torch.equal(g, torch.cat(th.halo_ring_plain(dys, neg, mesh, r=r)))
+    assert torch.equal(y, _ring_launch(th._window_launch, xs, offsets, mesh, r))
+    assert torch.equal(g, _ring_launch(th._window_launch, dys, neg, mesh, r))
+    if r == 1:
+        # weighted K5 (forward only)
+        yw = torch.cat(th.halo_banded_spmm(xs, ws, offsets, mesh, _halo_block(n_shard, offsets)))
+        assert torch.equal(yw, torch.cat(th.halo_ring_plain(xs, offsets, mesh, ws=ws)))
+        assert torch.equal(yw, _ring_launch(th._window_launch, xs, offsets, mesh, ws=ws))
+
+
+@pytest.mark.cuda
+def test_cuda_halo_stream_rejects_what_it_does_not_take(cuda_device):
+    offsets = (1, -1, 5, -5)
+    x = torch.randn(1024, 16, device=cuda_device)
+    pre, post = torch.randn(8, 16, device=cuda_device), torch.randn(8, 16, device=cuda_device)
+    out = torch.empty_like(x)
+    g = th.halo_stream_shape(1024, 16, 8, 0, 4)
+    offs = (ctypes.c_int * 4)(*offsets)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(x_ptr=x.data_ptr(), pre_ptr=pre.data_ptr(), L=16, smem=g.smem_bytes):
+        return th._stream_kernel()(x_ptr, pre_ptr, post.data_ptr(), None, out.data_ptr(),
+                                   1024, L, offs, 4, 8, 0, g.chunk, g.strip, g.cols,
+                                   smem, stream)
+
+    assert launch() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, th.halo_banded_spmm_plain(x, None, pre, post, offsets))
+    assert launch(smem=g.smem_bytes + 16) != 0          # a smem sum that is not the kernel's
+    assert launch(x_ptr=x.data_ptr() + 4) != 0          # 16-byte copies from a misaligned x
+    assert launch(pre_ptr=pre.data_ptr() + 4) != 0      # ... or a misaligned tile
+    assert launch(L=15) != 0                            # rows that are not 16-byte pieces
+    # the op's checks stay, with their messages
+    op = "halo_banded_spmm"
+    with pytest.raises(ValueError, match="halo tiles"):
+        th._launch(x, pre[:4], post, offsets, op=op)
+    with pytest.raises(ValueError, match="halo width"):
+        th._launch(x, pre, post, (9, -1), op=op)
+    with pytest.raises(ValueError, match="weights"):
+        th._launch(x, pre, post, offsets, torch.ones(1024, 3, device=cuda_device), op=op)
