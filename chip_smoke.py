@@ -7,9 +7,10 @@ Phases; any failure ends the run with a non-zero exit code:
 
   1. build      compile every ``gcn_maxcut_tpu_torch/csrc/*.cu``
                 (``banded_stream.cu``: K4; ``block_ell_gather.cu``: K1;
-                ``halo_stream.cu``: K5, K6 where rows take 16-byte copies;
-                ``banded_window.cu``: K2, K3, K4's earlier body and, in its
-                halo mode, K5 and K6 at other widths and their earlier body;
+                ``halo_stream.cu``: K5, K6, and K2, K3 as a one-shard ring,
+                where rows take 16-byte copies; ``banded_window.cu``: K2,
+                K3 and K4 at other widths and their earlier body and, in its
+                halo mode, K5's and K6's;
                 ``block_ell_window.cu``: P3's kernel, K1's earlier body;
                 ``probe_kernels.cu``: the probes' window_gather,
                 panel_ell_spmm and banded_spmm_cols) with nvcc for sm_90a,
@@ -22,10 +23,12 @@ Phases; any failure ends the run with a non-zero exit code:
                 K3 (``banded_spmm_unit_packed``, r = 8, F = 16) and K4
                 (``banded_spmm``, n = 131,072 and 1,250,304 at F = 128, and
                 F = 3) against their plain PyTorch versions on the card,
-                forward and gradient; time each beside its bound, its plain
-                version and one PyTorch library call (K3: ``torch.sparse.mm``
-                on the values widened to float32); K1 and K4 also beside
-                their earlier bodies, timed in turns;
+                forward and gradient (K2 and K3 bit for bit, and against
+                their earlier body); time each beside its bound, its plain
+                version and one PyTorch library call (K2: cuDNN's circular
+                depthwise convolution; K3: ``torch.sparse.mm`` on the values
+                widened to float32), and beside its earlier body, timed in
+                turns (K2, K3: the op and the kernel alone);
      halo       hold K5 (``halo_banded_spmm``: n = 131,072 at F = 128,
                 weighted, and the plain halo trainer's 262,144-row shards at
                 F = 128 and 3, unit weights) and K6
@@ -50,8 +53,11 @@ Phases; any failure ends the run with a non-zero exit code:
                 and check their launch counts and errors;
   3. giant      the packed giant trainer at its defaults (n = 10,002,432,
                 d = 8, bandwidth 63, bf16 aggregation and first moment, 40
-                epochs) through K3, after a small run held against the CPU;
-                then the plain-layout trainer at n = 1,048,576 through K2;
+                epochs) through K3 on ``halo_stream.cu``, after a small run
+                held against the CPU; then the plain-layout trainer at
+                n = 1,048,576 through K2 (F = 16 on ``halo_stream.cu``,
+                F = 3 on the earlier body), each launch counted by the kernel
+                that ran;
      halo       the node-sharded trainers on a ring of 4 shards on the card:
                 a small packed run held against a CPU ring, a 1-shard ring
                 against the single-chip packed trainer, then the packed halo
@@ -217,15 +223,22 @@ def phase_build(build) -> dict:
     return {"seconds": seconds, "card": card}
 
 
-def phase_kernels(torch, tb, offsets: tuple[int, ...], bench_offsets: tuple[int, ...]) -> dict:
-    """Kernel against plain version, forward and gradient; then timings.
-    ``offsets`` are the giant trainers', ``bench_offsets`` those of
-    ``bench --what banded``, which runs K2 at F = 128."""
+def circulant_op(name: str) -> str:
+    """The ``tb.LAUNCHES`` key of K2 or K3."""
+    return "banded_spmm_unit" if name == "K2" else "banded_spmm_unit_packed"
+
+
+def phase_kernels(torch, tb, hs, offsets: tuple[int, ...], bench_offsets: tuple[int, ...]) -> dict:
+    """K2 and K3 against their plain versions and their earlier body
+    (``banded_window.cu``, called directly), forward and gradient, bit for
+    bit; then timings, the op (wrap tiles + kernel) and the kernel alone in
+    turns with the earlier body.  ``offsets`` are the giant trainers',
+    ``bench_offsets`` those of ``bench --what banded``, which runs K2 at
+    F = 128.  Rows whose arrays are not whole 16-byte pieces run the
+    earlier body itself ("K2 window")."""
     log("== kernels")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    d = len(offsets)
-    wp = tb.padded_bandwidth(offsets)
     ops = {
         "K2": (lambda x, o, r: tb.banded_spmm_unit(x, o),
                lambda x, o, r: tb.banded_spmm_unit_plain(x, o)),
@@ -236,10 +249,13 @@ def phase_kernels(torch, tb, offsets: tuple[int, ...], bench_offsets: tuple[int,
              ("K2", PLAIN_N, 16, 1, offsets), ("K2", PLAIN_N, 3, 1, offsets),
              ("K3", GIANT_N, 16, 8, offsets),
              ("K2", BANDED_N, 128, 1, bench_offsets), ("K2", BANDED_BIG_N, 128, 1, bench_offsets)]
-    cases += [(k, n, F, r, o) for (n, F, r, o) in SMALL_CASES for k in ("K2", "K3")]
-    errors = {"K2": 0.0, "K3": 0.0}
+    cases += [(k, n, F, 1 if k == "K2" else r, o) for (n, F, r, o) in SMALL_CASES
+              for k in ("K2", "K3")]
+    errors = {"K2": 0.0, "K2 window": 0.0, "K3": 0.0}
     for name, n, F, r, offs in cases:
         kernel, plain = ops[name]
+        op = circulant_op(name)
+        neg = tuple(-o for o in offs)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(n, F, generator=gen, device=dev).to(dtype)
             dy = torch.randn(n, F, generator=gen, device=dev).to(dtype)
@@ -250,59 +266,98 @@ def phase_kernels(torch, tb, offsets: tuple[int, ...], bench_offsets: tuple[int,
             yp = plain(xp, offs, r)
             yp.backward(dy)
             torch.cuda.synchronize()
-            err = max(max_err_within_tolerance(torch, yk.detach(), yp.detach()),
-                      max_err_within_tolerance(torch, xk.grad, xp.grad))
-            errors[name] = max(errors[name], err)
-            log(f"  {name} n={n} F={F} r={r} {str(dtype)[6:]}: fwd+grad max |err| {err:.3g}")
-            del x, dy, xk, yk, xp, yp
+            y, g = yk.detach(), xk.grad
+            err = max(max_err_within_tolerance(torch, y, yp.detach()),
+                      max_err_within_tolerance(torch, g, xp.grad))
+            # the plain version, the earlier body and the new kernel all sum in
+            # float32 in offset order from zero and round once: equal bit
+            # for bit; the gradient is the same op with negated offsets
+            m, L = n // r, r * F
+            check(torch.equal(y, plain(x, offs, r)), f"{name} equals its plain version")
+            check(torch.equal(g, plain(dy, neg, r)), f"{name}'s gradient equals the plain adjoint")
+            check(torch.equal(y, tb._launch(x.view(m, L), offs, F, op=op).view(n, F)),
+                  f"{name} equals its earlier body")
+            check(torch.equal(g, tb._launch(dy.view(m, L), neg, F, op=op).view(n, F)),
+                  f"{name}'s gradient equals its earlier body")
+            key = name if hs._vec16(L, x.element_size(), x) else f"{name} window"
+            errors[key] = max(errors[key], err)
+            log(f"  {key} n={n} F={F} r={r} {str(dtype)[6:]}: fwd+grad max |err| {err:.3g}, "
+                "equal to the plain version and the earlier body")
+            del x, dy, xk, yk, xp, yp, y, g
 
-    def circular_conv(F: int, dtype):
+    def circular_conv(F: int, dtype, offs):
         # one cuDNN call for K2's function: a depthwise circular convolution
         # whose taps are the offsets (cross-correlation: tap o + W reads x[i + o])
+        wp = tb.padded_bandwidth(offs)
         conv = torch.nn.Conv1d(F, F, 2 * wp + 1, padding=wp, padding_mode="circular",
                                groups=F, bias=False).to(dev, dtype)
         with torch.no_grad():
             conv.weight.zero_()
-            for o in offsets:
+            for o in offs:
                 conv.weight[:, 0, o + wp] += 1
         return conv
 
     packed = None                 # K3's operator in packed order, built once
     timings = []
     with torch.no_grad():
-        for name, n, F, r, dtype in [
-            ("K2", GIANT_N, 16, 1, torch.float32), ("K2", GIANT_N, 3, 1, torch.float32),
-            ("K2", GIANT_N, 16, 1, torch.bfloat16), ("K2", PLAIN_N, 16, 1, torch.float32),
-            ("K2", PLAIN_N, 3, 1, torch.float32),
-            ("K3", GIANT_N, 16, 8, torch.bfloat16), ("K3", GIANT_N, 16, 8, torch.float32),
+        for name, n, F, r, dtype, offs in [
+            ("K2", GIANT_N, 16, 1, torch.float32, offsets),
+            ("K2", GIANT_N, 3, 1, torch.float32, offsets),
+            ("K2", GIANT_N, 16, 1, torch.bfloat16, offsets),
+            ("K2", PLAIN_N, 16, 1, torch.float32, offsets),
+            ("K2", PLAIN_N, 3, 1, torch.float32, offsets),
+            ("K2", BANDED_N, 128, 1, torch.float32, bench_offsets),
+            ("K2", BANDED_BIG_N, 128, 1, torch.float32, bench_offsets),
+            ("K3", GIANT_N, 16, 8, torch.bfloat16, offsets),
+            ("K3", GIANT_N, 16, 8, torch.float32, offsets),
         ]:
             kernel, plain = ops[name]
+            op = circulant_op(name)
             x = torch.randn(n, F, generator=gen, device=dev).to(dtype)
-            row = {"name": name, "n": n, "F": F, "r": r, "dtype": str(dtype)[6:]}
-            row["ms"] = best_ms(torch, lambda: kernel(x, offsets, r))
-            row["plain_ms"] = best_ms(torch, lambda: plain(x, offsets, r))
+            m, L, el = n // r, r * F, x.element_size()
+            v, wp = x.view(m, L), tb.padded_bandwidth(offs)
+            stream = hs._vec16(L, el, v)
+            row = {"name": name if stream else f"{name} window", "n": n, "F": F, "r": r,
+                   "dtype": str(dtype)[6:],
+                   "source": HALO_SOURCE if stream else KERNEL_SOURCE}
+            # the op (wrap tiles + kernel), the earlier body and the kernel alone
+            # on tiles staged once, in turns; a window row's op is the earlier
+            # body itself, so it has no second time
+            fns = {"ms": lambda: kernel(x, offs, r)}
+            row["earlier_ms"] = None
+            if stream:
+                fns["earlier_ms"] = lambda: tb._launch(v, offs, F, op=op)
+                pre, post = tb.wrap_tiles(v, wp, F)
+                fns["kernel_only_ms"] = lambda: hs.launch(v, pre, post, offs)
+                row["geometry"] = dataclasses.asdict(hs.halo_stream_shape(m, L, wp, 0, el))
+            row.update(ms_in_turns(torch, fns))
+            row["plain_ms"] = best_ms(torch, lambda: plain(x, offs, r))
             row["library_ms"] = row["library_max_abs_err"] = None
             if name == "K2":
-                conv = circular_conv(F, dtype)
+                conv = circular_conv(F, dtype, offs)
                 xt = x.t().unsqueeze(0)
                 lib = conv(xt)[0].t()
                 row["library_max_abs_err"] = float(
-                    (lib.float() - plain(x, offsets, r).float()).abs().max())
+                    (lib.float() - plain(x, offs, r).float()).abs().max())
                 row["library_ms"] = best_ms(torch, lambda: conv(xt))
                 del conv, xt, lib
-            elif name == "K3":
-                packed = packed if packed is not None else packed_csr(torch, n, r, offsets)
+            else:
+                packed = packed if packed is not None else packed_csr(torch, n, r, offs)
                 xf = x.float()
                 row["library_max_abs_err"] = float(
-                    (torch.sparse.mm(packed, xf) - plain(x, offsets, r).float()).abs().max())
+                    (torch.sparse.mm(packed, xf) - plain(x, offs, r).float()).abs().max())
                 row["library_ms"] = best_ms(torch, lambda: torch.sparse.mm(packed, xf))
                 del xf
-            row["bound_ms"], row["bound_by"] = bound(n, F, d, x.element_size())
+            row["bound_ms"], row["bound_by"] = bound(n, F, len(offs), el)
             timings.append(row)
-            log(f"  {name} n={n} F={F} r={r} {row['dtype']}: kernel {row['ms']:.4f} ms, "
-                f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-            del x
+            log(f"  {row['name']} n={n} F={F} r={r} {row['dtype']} ({Path(row['source']).name}): op "
+                f"{row['ms']:.4f} ms, kernel alone {row.get('kernel_only_ms', row['ms']):.4f}, "
+                f"earlier body {row['earlier_ms']}, plain {row['plain_ms']:.4f} ms, library "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            del x, v
+            if stream:
+                del pre, post
     del packed
     torch.cuda.empty_cache()
     return {"max_abs_err": errors, "timings": timings}
@@ -492,23 +547,27 @@ def phase_kernels_weighted(torch, tb, offsets) -> dict:
         del xk, wk, xp, wq, yp, dy
         if n < BANDED_N:
             continue
-        geom = tb.stream_shape(n, F, tb.padded_bandwidth(offsets), d)
+        # rows of whole 16-byte pieces on the ring, else (F = 3) the earlier body
+        geom = tb.stream_shape(n, F, tb.padded_bandwidth(offsets), d) if F % 4 == 0 else None
         row = {"name": "K4", "n": n, "F": F, "D": d, "dtype": "float32",
-               "geometry": dataclasses.asdict(geom)}
+               "geometry": None if geom is None else dataclasses.asdict(geom),
+               "source": K4_SOURCE if geom else KERNEL_SOURCE}
         with torch.no_grad():
             rows = torch.arange(n, device=dev).repeat_interleave(d)
             cols = (rows.view(n, d) + torch.tensor(offsets, device=dev)) % n
             csr = csr_of(torch, rows, cols.reshape(-1), w.reshape(-1), n)
             row["library_max_abs_err"] = float((torch.sparse.mm(csr, x) - yk).abs().max())
             # the kernel, its earlier body (banded_window.cu), the plain
-            # version and sparse.mm in turns
-            row.update(ms_in_turns(torch, {
-                "ms": lambda: tb.banded_spmm(x, w, offsets),
-                "earlier_ms": lambda: tb._launch(x, offsets, F, w),
-                "plain_ms": lambda: tb.banded_spmm_plain(x, w, offsets),
-                "library_ms": lambda: torch.sparse.mm(csr, x),
-            }))
-            check(torch.equal(tb._launch(x, offsets, F, w), yk),
+            # version and sparse.mm in turns; at F = 3 the kernel is the
+            # earlier body itself, so it has no second time
+            fns = {"ms": lambda: tb.banded_spmm(x, w, offsets),
+                   "plain_ms": lambda: tb.banded_spmm_plain(x, w, offsets),
+                   "library_ms": lambda: torch.sparse.mm(csr, x)}
+            row["earlier_ms"] = None
+            if geom is not None:
+                fns["earlier_ms"] = lambda: tb._launch(x, offsets, F, w, op="banded_spmm")
+            row.update(ms_in_turns(torch, fns))
+            check(torch.equal(tb._launch(x, offsets, F, w, op="banded_spmm"), yk),
                   "K4's earlier body equals the kernel bit for bit")
             del csr, rows, cols
         bytes_ms = (2 * n * F * 4 + n * d * 4) / HBM_BYTES_PER_S * 1e3
@@ -516,9 +575,11 @@ def phase_kernels_weighted(torch, tb, offsets) -> dict:
         row["bound_ms"] = max(bytes_ms, ops_ms)
         row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         timings.append(row)
-        log(f"  K4 n={n} F={F} (strip {geom.strip}, {geom.cols} columns, chunk {geom.chunk}, "
-            f"{geom.smem_bytes} B shared): kernel {row['ms']:.4f} ms, earlier body "
-            f"{row['earlier_ms']:.4f}, plain {row['plain_ms']:.4f}, sparse.mm {row['library_ms']:.4f}, "
+        shape = ("the earlier body: no 16-byte rows" if geom is None else
+                 f"strip {geom.strip}, {geom.cols} columns, chunk {geom.chunk}, "
+                 f"{geom.smem_bytes} B shared")
+        log(f"  K4 n={n} F={F} ({shape}): kernel {row['ms']:.4f} ms, earlier body "
+            f"{row['earlier_ms']}, plain {row['plain_ms']:.4f}, sparse.mm {row['library_ms']:.4f}, "
             f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
         del x, w, yk
     torch.cuda.empty_cache()
@@ -644,11 +705,13 @@ def time_ring(torch, th, mesh, name, x, offsets, w=None, r=None) -> dict:
         check(torch.equal(th._launch(v0, pre, post, offsets, w0, op=op),
                           th._window_launch(v0, pre, post, offsets, w0, op=op)),
               f"{name} shard launch equals its earlier body bit for bit")
-        row.update(ms_in_turns(torch, {
-            "ms": lambda: th._launch(v0, pre, post, offsets, w0, op=op),
-            "earlier_ms": lambda: th._window_launch(v0, pre, post, offsets, w0, op=op),
-        }))
+        # a shard without 16-byte rows runs the earlier body itself: one time
         row["vec16"] = th._vec16(L, x.element_size(), v0, pre, post)
+        fns = {"ms": lambda: th._launch(v0, pre, post, offsets, w0, op=op)}
+        row["earlier_ms"] = None
+        if row["vec16"]:
+            fns["earlier_ms"] = lambda: th._window_launch(v0, pre, post, offsets, w0, op=op)
+        row.update(ms_in_turns(torch, fns))
         if w is not None:
             ring_op = lambda: th.halo_banded_spmm(xs, ws, offsets, mesh)  # noqa: E731
         elif r is None:
@@ -678,7 +741,7 @@ def time_ring(torch, th, mesh, name, x, offsets, w=None, r=None) -> dict:
     row["bound_ms"], row["bound_by"] = halo_bound(m, L, d, wp, x.element_size(), w is not None)
     log(f"  {name} {D} shards of [{m}, {L}] {row['dtype']}{' weighted' if w is not None else ''}"
         f" ({'halo_stream.cu' if row['vec16'] else 'earlier body: no 16-byte path'}):"
-        f" shard launch {row['ms']:.4f} ms, earlier body {row['earlier_ms']:.4f}, ring op "
+        f" shard launch {row['ms']:.4f} ms, earlier body {row['earlier_ms']}, ring op "
         f"{row['op_ms']:.4f} ms (exchange {row['exchange_ms']:.4f}), plain "
         f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -990,8 +1053,9 @@ def phase_giant(torch, tb, giant) -> dict:
         f"{res['edges_per_s_per_epoch']:.4g} edges/s, cut fraction {res['cut_fraction']:.5f} "
         f"(decoded {cut / res['edges']:.5f}), peak {peak_gb:.2f} GB, launches {launches}")
     check(launches["banded_spmm_unit_packed"] == 6 * GIANT_EPOCHS + 2,
-          "K3 launched 6 times an epoch plus 2 for the decode")
-    check(launches["banded_spmm_unit"] == 0, "the packed trainer runs no K2")
+          "K3 launched halo_stream.cu 6 times an epoch plus 2 for the decode")
+    check(all(v == 0 for k, v in launches.items() if k != "banded_spmm_unit_packed"),
+          "the packed trainer runs no earlier body, no K2 and no K4")
     check(all(map(math.isfinite, res["history"])), "finite loss history")
     check(res["cut_fraction"] >= 0.90, "packed cut fraction >= 0.90")
     check(cut / res["edges"] >= 0.90, "decoded assignment cuts >= 0.90 of the edges")
@@ -1005,8 +1069,15 @@ def phase_giant(torch, tb, giant) -> dict:
     log(f"  plain n={plain['n']}: epoch {plain['epoch_time_s'] * 1e3:.3f} ms, cut "
         f"{plain['initial_cut']:.0f} -> {plain['final_cut']:.0f} "
         f"(fraction {plain['cut_fraction']:.5f}), launches {plain_launches}")
-    check(plain_launches["banded_spmm_unit"] == 6 * PLAIN_EPOCHS, "K2 launched 6 times an epoch")
-    check(plain_launches["banded_spmm_unit_packed"] == 0, "the plain trainer runs no K3")
+    # an epoch: conv1's F = 16 sum forward and backward on halo_stream.cu;
+    # conv2's and the loss's F = 3 sums forward and backward on the earlier body
+    check(plain_launches["banded_spmm_unit"] == 2 * PLAIN_EPOCHS,
+          "K2 launched halo_stream.cu 2 times an epoch (F = 16)")
+    check(plain_launches["banded_spmm_unit_window"] == 4 * PLAIN_EPOCHS,
+          "K2 launched the earlier body 4 times an epoch (F = 3)")
+    check(all(v == 0 for k, v in plain_launches.items()
+              if k not in ("banded_spmm_unit", "banded_spmm_unit_window")),
+          "the plain trainer runs no K3 and no K4")
     check(plain["final_cut"] > plain["initial_cut"], "plain trainer improves the cut")
     for r in (res, plain):
         r.pop("history")
@@ -1206,8 +1277,12 @@ def phase_microbench(tbell, tb, micro) -> dict:
         f"{banded['hbm_regime_gbps']:.1f} GB/s), K4 "
         f"{banded['hbm_regime_weighted_fwd_edges_per_s']:.4g} "
         f"({banded['hbm_regime_weighted_fraction']:.4f}); launches {banded_launches}")
-    check(banded_launches["banded_spmm_unit"] == 3 * (2 + 30) + (2 + 10), "K2 launch count")
-    check(banded_launches["banded_spmm"] == (2 + 30) + (2 + 10), "K4 launch count")
+    check(banded_launches["banded_spmm_unit"] == 3 * (2 + 30) + (2 + 10),
+          "K2 launched halo_stream.cu 108 times (F = 128)")
+    check(banded_launches["banded_spmm"] == (2 + 30) + (2 + 10), "K4 launched its ring 44 times")
+    check(all(v == 0 for k, v in banded_launches.items()
+              if k not in ("banded_spmm_unit", "banded_spmm")),
+          "bench --what banded runs no earlier body and no other kernel")
     fractions = [spmm[k] for k in spmm if "fraction" in k]
     fractions += [banded[k] for k in banded if "fraction" in k]
     check(all(0 < f <= 1 for f in fractions), "every roofline fraction in (0, 1]")
@@ -1245,6 +1320,7 @@ def main() -> int:
     from gcn_maxcut_tpu_torch.ops import banded as tb
     from gcn_maxcut_tpu_torch.ops import block_ell as tbell
     from gcn_maxcut_tpu_torch.ops import halo as th
+    from gcn_maxcut_tpu_torch.ops import halo_stream as hs
     from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
     from gcn_maxcut_tpu_torch.ops import segment as seg
     from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
@@ -1254,7 +1330,7 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     t_start = time.perf_counter()
     report = {"build": phase_build(build)}
-    report["kernels"] = phase_kernels(torch, tb, giant.circulant_offsets(8, 63, 0),
+    report["kernels"] = phase_kernels(torch, tb, hs, giant.circulant_offsets(8, 63, 0),
                                       micro.banded_offsets(8, 63))
     report["kernels_k1"] = phase_kernels_block_ell(torch, np, tbell, seg, tgraph, micro, loc)
     report["kernels_k4"] = phase_kernels_weighted(torch, tb, micro.banded_offsets(8, 63))
@@ -1278,7 +1354,8 @@ def main() -> int:
 
     rows = {t["name"]: t for t in report["kernels"]["timings"]
             if (t["name"], t["n"], t["F"], t["dtype"]) in
-            {("K2", GIANT_N, 16, "float32"), ("K3", GIANT_N, 16, "bfloat16")}}
+            {("K2", GIANT_N, 16, "float32"), ("K3", GIANT_N, 16, "bfloat16"),
+             ("K2 window", PLAIN_N, 3, "float32")}}
     rows["K1"] = next(t for t in report["kernels_k1"]["timings"]
                       if (t["case"], t["F"]) == ("locality", 64))
     rows["K4"] = next(t for t in report["kernels_k4"]["timings"]
@@ -1291,10 +1368,14 @@ def main() -> int:
     rows["K5 window"] = next(t for t in report["kernels_halo"]["timings"]
                              if (t["name"], t["F"]) == ("K5", 3))
     check(not rows["K5 window"]["vec16"], "K5 at F = 3 runs the earlier body")
+    check((rows["K2"]["source"], rows["K3"]["source"], rows["K2 window"]["source"])
+          == (HALO_SOURCE, HALO_SOURCE, KERNEL_SOURCE),
+          "K2 at F = 16 and K3 run halo_stream.cu, K2 at F = 3 the earlier body")
     for name in ("K5", "K6", "K5 window"):
         rows[name]["n"] = rows[name]["n_shard"]
     launches = {"K1": report["locality"]["launches"]["block_ell_spmm"],
                 "K2": report["giant"]["plain"]["launches"]["banded_spmm_unit"],
+                "K2 window": report["giant"]["plain"]["launches"]["banded_spmm_unit_window"],
                 "K3": report["giant"]["packed"]["launches"]["banded_spmm_unit_packed"],
                 "K4": report["microbench"]["banded"]["launches"]["banded_spmm"],
                 "K5": report["halo"]["plain"]["launches"]["halo_banded_spmm"],
@@ -1303,22 +1384,26 @@ def main() -> int:
     errors = {**report["kernels"]["max_abs_err"], "K1": report["kernels_k1"]["max_abs_err"],
               "K4": report["kernels_k4"]["max_abs_err"], **report["kernels_halo"]["max_abs_err"]}
     names = {"K1": "block_ell_spmm", "K2": "banded_spmm_unit",
+             "K2 window": "banded_spmm_unit at F = 3 (rows not 16-byte pieces: "
+                          "the earlier body, banded_window.cu)",
              "K3": "banded_spmm_unit_packed", "K4": "banded_spmm",
              "K5": "halo_banded_spmm", "K6": "halo_banded_spmm_unit_packed",
              "K5 window": "halo_banded_spmm_unit at F = 3 (rows not 16-byte pieces: "
                           "the earlier body, the halo mode of banded_window.cu)"}
     replaces = {"K1": "gcn_maxcut_tpu/ops/pallas_block_ell.py:146",
                 "K2": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
+                "K2 window": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
                 "K3": "gcn_maxcut_tpu/ops/pallas_banded.py:529",
                 "K4": "gcn_maxcut_tpu/ops/pallas_banded.py:257",
                 "K5": "gcn_maxcut_tpu/ops/pallas_halo.py:162",
                 "K6": "gcn_maxcut_tpu/ops/pallas_halo.py:409",
                 "K5 window": "gcn_maxcut_tpu/ops/pallas_halo.py:515"}
-    sources = {"K1": K1_SOURCE, "K4": K4_SOURCE, "K5": HALO_SOURCE, "K6": HALO_SOURCE,
+    sources = {"K1": K1_SOURCE, "K2": HALO_SOURCE, "K2 window": KERNEL_SOURCE,
+               "K3": HALO_SOURCE, "K4": K4_SOURCE, "K5": HALO_SOURCE, "K6": HALO_SOURCE,
                "K5 window": KERNEL_SOURCE}
     kernels = [{
         "name": f"{name} {names[name]}", "route": "cuda",
-        "source": sources.get(name, KERNEL_SOURCE),
+        "source": sources[name],
         "replaces": replaces[name], "launches": launches[name],
         "max_abs_err": errors[name], "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
         "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
@@ -1326,9 +1411,8 @@ def main() -> int:
         "shape": [rows[name]["n"], rows[name]["F"]], "dtype": rows[name]["dtype"],
         **({"shards": rows[name]["shards"], "op_ms": rows[name]["op_ms"],
             "exchange_ms": rows[name]["exchange_ms"]} if name.startswith(("K5", "K6")) else {}),
-        **({"earlier_ms": rows[name]["earlier_ms"]}
-           if name.startswith(("K1", "K4", "K5", "K6")) else {}),
-    } for name in ("K1", "K2", "K3", "K4", "K5", "K5 window", "K6")]
+        "earlier_ms": rows[name]["earlier_ms"],
+    } for name in ("K1", "K2", "K2 window", "K3", "K4", "K5", "K5 window", "K6")]
 
     # the probes' rows: (label, wrapper, source, pallas_call, probe run,
     # launch counter, error key, timing case)

@@ -29,9 +29,11 @@
 // thread per row and 4 columns, D float4 loads from L2) lost to this ring
 // at F = 128 (PERF.md): x at those sizes (67-640 MB) does not fit in L2.
 //
-// A thread owns VEC adjacent columns of one row: 16-byte copies, 16-byte
-// shared loads and 16-byte stores when F % 4 == 0 (VEC = 4), else a scalar
-// path (VEC = 1) for F = 3 and column tails.  Sums are float32 in offset
+// A thread owns 4 adjacent columns of one row: 16-byte copies, 16-byte
+// shared loads and 16-byte stores, so the kernel takes only F % 4 == 0
+// with x and out 16-byte aligned; ops/banded.py sends anything else (F =
+// 3) to the earlier body, which beat a scalar path of this ring there
+// (PERF.md).  Sums are float32 in offset
 // order from 0 with separate multiply and add roundings (no FMA
 // contraction): the arithmetic of the plain PyTorch version
 // (ops/banded.py banded_spmm_plain), so results agree with it bit for bit.
@@ -70,7 +72,6 @@ static size_t bstream_smem_bytes(int ring_rows, int fc, int chunk, int D) {
   return ((size_t)ring_rows * fc * 4 + 15) / 16 * 16 + (size_t)2 * chunk * D * 4;
 }
 
-template <int VEC>
 __global__ void __launch_bounds__(BSTREAM_THREADS)
 banded_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      float* __restrict__ out, int n, int F, int Wp, int chunk,
@@ -88,10 +89,10 @@ banded_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int n_chunks = (rows_here + chunk - 1) / chunk;
 
   // Each thread keeps one column group and one row phase for the whole run.
-  const int groups = fc / VEC;
+  const int groups = fc / 4;
   const int row_step = BSTREAM_THREADS / groups;
   const int my_row = threadIdx.x / groups;
-  const int col = (threadIdx.x - my_row * groups) * VEC;
+  const int col = (threadIdx.x - my_row * groups) * 4;
   const bool active = my_row < row_step && col < cols;
 
   // Strip-local rows [t_lo, min(t_hi, need)) into their ring slots.
@@ -105,13 +106,8 @@ banded_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
       } else if (q >= n) {
         q -= n;
       }
-      const float* src = x + (int64_t)q * F + c0 + col;
-      float* dst = ring + (size_t)(t % ring_rows) * fc + col;
-      if (VEC == 4) {
-        bstream_cp16(dst, src);
-      } else {
-        bstream_cp4(dst, src);
-      }
+      bstream_cp16(ring + (size_t)(t % ring_rows) * fc + col,
+                   x + (int64_t)q * F + c0 + col);
     }
   };
   // Chunk j's weights: one contiguous run of rows * D floats.
@@ -152,31 +148,20 @@ banded_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const float* wc = wbuf + (size_t)(j & 1) * chunk * D;
     if (active) {
       for (int i = my_row; i < rows; i += row_step) {
-        float acc[VEC];
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 8
         for (int k = 0; k < D; ++k) {
           int slot = base + Wp + i + offs.o[k];
           if (slot >= ring_rows) slot -= ring_rows;
           const float wk = wc[i * D + k];
-          const float* src = ring + (size_t)slot * fc + col;
-          if (VEC == 4) {
-            const float4 v = *reinterpret_cast<const float4*>(src);
-            acc[0] = __fadd_rn(acc[0], __fmul_rn(wk, v.x));
-            acc[1] = __fadd_rn(acc[1], __fmul_rn(wk, v.y));
-            acc[2] = __fadd_rn(acc[2], __fmul_rn(wk, v.z));
-            acc[3] = __fadd_rn(acc[3], __fmul_rn(wk, v.w));
-          } else {
-            acc[0] = __fadd_rn(acc[0], __fmul_rn(wk, src[0]));
-          }
+          const float4 v = *reinterpret_cast<const float4*>(ring + (size_t)slot * fc + col);
+          acc[0] = __fadd_rn(acc[0], __fmul_rn(wk, v.x));
+          acc[1] = __fadd_rn(acc[1], __fmul_rn(wk, v.y));
+          acc[2] = __fadd_rn(acc[2], __fmul_rn(wk, v.z));
+          acc[3] = __fadd_rn(acc[3], __fmul_rn(wk, v.w));
         }
-        float* dst = out + (int64_t)(r + i) * F + c0 + col;
-        if (VEC == 4) {
-          *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-        } else {
-          dst[0] = acc[0];
-        }
+        *reinterpret_cast<float4*>(out + (int64_t)(r + i) * F + c0 + col) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
       }
     }
     base += chunk;
@@ -184,23 +169,6 @@ banded_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();                              // chunk j's slots are free
   }
   bstream_wait<0>();
-}
-
-template <int VEC>
-static int bstream_launch_t(const float* x, const float* w, float* out, int n,
-                            int F, int Wp, int chunk, int strip, int fc,
-                            int ring_rows, size_t smem,
-                            const BStreamOffsets& offs, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        banded_stream_kernel<VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((n + strip - 1) / strip, (F + fc - 1) / fc);
-  banded_stream_kernel<VEC><<<grid, BSTREAM_THREADS, smem, stream>>>(
-      x, w, out, n, F, Wp, chunk, strip, fc, ring_rows, offs);
-  return (int)cudaGetLastError();
 }
 
 static int bstream_offsets(const int* offsets, int n_offsets, int Wp,
@@ -217,37 +185,35 @@ static int bstream_offsets(const int* offsets, int n_offsets, int Wp,
 }
 
 // Plain C entry point of K4, bound with ctypes.  x and out float32 [n, F],
-// w float32 [n, n_offsets], all contiguous on the device.  The geometry
-// (chunk, strip, fc, ring_rows, vec) and smem_bytes come from
-// ops/banded.py stream_shape; smem_bytes must equal what the kernel uses.
-// Returns the cudaError_t of the launch (0 on success).
+// w float32 [n, n_offsets], all contiguous on the device; F % 4 == 0 and x
+// and out 16-byte aligned.  The geometry (chunk, strip, fc, ring_rows) and
+// smem_bytes come from ops/banded.py stream_shape; smem_bytes must equal
+// what the kernel uses.  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int banded_stream_launch(const void* x, const void* w, void* out,
                                     int n, int F, const int* offsets,
                                     int n_offsets, int Wp, int chunk,
-                                    int strip, int fc, int ring_rows, int vec,
+                                    int strip, int fc, int ring_rows,
                                     int smem_bytes, void* stream) {
   BStreamOffsets offs;
   const int bad = bstream_offsets(offsets, n_offsets, Wp, &offs);
   if (bad) return bad;
-  if ((vec != 1 && vec != 4) || n < 1 || F < 1 || Wp < 0 || 2 * Wp > n ||
-      chunk < 4 || chunk % 4 ||
-      strip < chunk || strip % chunk || fc < 1 || fc % vec ||
-      fc / vec > BSTREAM_THREADS || ring_rows < 2 * chunk + 2 * Wp ||
-      (size_t)smem_bytes != bstream_smem_bytes(ring_rows, fc, chunk, n_offsets)) {
+  if (n < 1 || F < 1 || F % 4 || Wp < 0 || 2 * Wp > n || chunk < 4 || chunk % 4 ||
+      strip < chunk || strip % chunk || fc < 4 || fc % 4 ||
+      fc / 4 > BSTREAM_THREADS || ring_rows < 2 * chunk + 2 * Wp ||
+      (size_t)smem_bytes != bstream_smem_bytes(ring_rows, fc, chunk, n_offsets) ||
+      (((uintptr_t)x | (uintptr_t)out) & 15)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (vec == 4 && (F % 4 || (((uintptr_t)x | (uintptr_t)out) & 15))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  float* of = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = (size_t)smem_bytes;
-  if (vec == 4) {
-    return bstream_launch_t<4>(xf, wf, of, n, F, Wp, chunk, strip, fc, ring_rows,
-                               smem, offs, s);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        banded_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
-  return bstream_launch_t<1>(xf, wf, of, n, F, Wp, chunk, strip, fc, ring_rows,
-                             smem, offs, s);
+  dim3 grid((n + strip - 1) / strip, (F + fc - 1) / fc);
+  banded_stream_kernel<<<grid, BSTREAM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out),
+      n, F, Wp, chunk, strip, fc, ring_rows, offs);
+  return (int)cudaGetLastError();
 }

@@ -1,13 +1,23 @@
 // Banded SpMM on one shard of a node-sharded ring, streamed through
-// shared memory strip by strip, for Hopper (sm_90a): K5 and K6.
+// shared memory strip by strip, for Hopper (sm_90a): K5 and K6, and K2 and
+// K3 as a ring of one shard.
 //
 // Replaces the TPU kernels of gcn_maxcut_tpu/ops/pallas_halo.py:
 //   * K5, _halo_kernel via halo_banded_spmm and halo_banded_spmm_unit: the
 //     weighted (or unit) banded sum on one shard [m, F] of a contiguous row
 //     partition, x float32 or bfloat16, w float32 [m, D];
 //   * K6, _packed_halo_kernel via _halo_packed_raw: the unit sum on one
-//     shard of the packed [m, L = r*F] view.
-// Both compute, for 0 <= i < m,
+//     shard of the packed [m, L = r*F] view;
+// and of gcn_maxcut_tpu/ops/pallas_banded.py, on one card:
+//   * K2, _fused_window_kernel's unit path via banded_spmm_unit: the
+//     circulant sum on x [n, F], whose wrap the TPU kernel stages as the
+//     tiles lo = x[n - Wp:] and hi = x[:Wp];
+//   * K3, _banded_spmm_unit_packed_raw: the same on the packed [m, r*F]
+//     view, whose wrap tiles are those rows rotated by +F and -F along
+//     columns (wrap_lo, wrap_hi).
+// ops/banded.py stages those same tiles as pre and post of a one-shard
+// ring, so the circulant sum is the shard's sum below with no row taken
+// mod m.  All compute, for 0 <= i < m,
 //   out[i, c] = sum_k w[i, k] * src(i + o_k, c)        (w = 1: unit weights)
 // with src(q) = pre[q + Wp] for q < 0, x[q] for 0 <= q < m and
 // post[q - m] for q >= m: pre and post are the [Wp, L] tiles the caller
@@ -16,16 +26,21 @@
 // rotated its lane groups.  Sums are float32 in offset order from 0 with
 // separate multiply and add roundings (no FMA contraction); unit weights
 // add the value itself; the output has x's dtype, rounded once.  That is
-// the arithmetic of the plain PyTorch version (ops/halo.py
-// halo_banded_spmm_plain) and of the earlier body (the halo mode of
-// csrc/banded_window.cu), so all three agree bit for bit.
+// the arithmetic of the plain PyTorch versions (ops/halo.py
+// halo_banded_spmm_plain, ops/banded.py banded_spmm_unit_plain) and of the
+// earlier bodies (csrc/banded_window.cu, in its halo mode for K5 and K6),
+// so all agree bit for bit.
 //
 // Bound on this card: bytes.  One launch reads the shard and its two tiles
 // once (and the [m, D] weights) and writes the shard once:
 // 2*m*L*el + 2*Wp*L*el (+ m*D*4) bytes against m*L*D adds (2*m*L*D
 // operations weighted).  At the packed halo trainer's shard (m = 312,576,
 // L = 128, bf16) that is ~160 MB, ~0.048 ms at 3.35 TB/s, while the adds
-// need ~5 us at 67 TFLOP/s.
+// need ~5 us at 67 TFLOP/s.  K2 and K3 on one card: the function reads x
+// once and writes it once, 2*m*L*el bytes (the tiles are x's own rows;
+// staging K3's two rotated tiles adds 4*Wp*L*el), against m*L*D adds.  At
+// the packed giant trainer's 10,002,432 x 16 bf16 (m = 1,250,304, L = 128)
+// that is 640 MB, 0.191 ms at 3.35 TB/s; its adds need 0.019 ms.
 //
 // Design: K4's chunked stream (csrc/banded_stream.cu) in a halo mode.  The
 // earlier body staged a [rows + 2*Wp, cols] window per tile (x read 1.5-5
@@ -49,12 +64,12 @@
 // or 4 floats), summed in VEC float accumulators.  So the kernel takes only
 // shards whose rows are whole 16-byte pieces (L*el % 16 == 0) with x, pre,
 // post and out 16-byte aligned; the entry point refuses anything else, and
-// ops/halo.py sends other shards to the earlier body, which beat a scalar
-// path of this kernel at F = 3 (PERF.md).  Weights are copied in 16-byte
-// pieces where their chunk is aligned, else in 4-byte pieces.  A sweep on
-// the card fixed the geometry (PERF.md): short strips of two chunks keep
-// many blocks in flight, and their re-read rows come from L2.  No TMA or
-// wgmma: there is no matrix product here.
+// ops/halo.py and ops/banded.py send other arrays to the earlier body,
+// which beat a scalar path of this kernel at F = 3 (PERF.md).  Weights are
+// copied in 16-byte pieces where their chunk is aligned, else in 4-byte
+// pieces.  A sweep on the card fixed the geometry (PERF.md): short strips
+// of two chunks keep many blocks in flight, and their re-read rows come
+// from L2.  No TMA or wgmma: there is no matrix product here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,7 +132,7 @@ __device__ __forceinline__ void hstream_put(__nv_bfloat16* p, const float (&a)[8
 }
 
 // Bytes of the strip's window, rounded up so that the two weight buffers
-// after it start 16-byte aligned.  ops/halo.py halo_stream_smem_bytes
+// after it start 16-byte aligned.  ops/halo_stream.py halo_stream_smem_bytes
 // computes the same sum.
 static size_t hstream_smem_bytes(int window_rows, int fc, size_t elsize, int chunk,
                                  int D) {
@@ -259,11 +274,11 @@ static int hstream_dispatch(const void* x, const void* pre, const void* post,
                                     smem, offs, stream);
 }
 
-// Plain C entry point of K5 and K6, bound with ctypes.  x and out are one
+// Plain C entry point of K2, K3, K5 and K6, bound with ctypes.  x and out are one
 // shard [m, L], pre and post its staged [Wp, L] tiles, all contiguous on
 // the device and of one dtype (0 = float32, 1 = bfloat16); w is a float32
 // [m, n_offsets] weight table, or null for unit weights.  The geometry
-// (chunk, strip, fc) and smem_bytes come from ops/halo.py
+// (chunk, strip, fc) and smem_bytes come from ops/halo_stream.py
 // halo_stream_shape; smem_bytes must equal what the kernel uses.  L times
 // the element size must be a multiple of 16 and x, pre, post and out
 // 16-byte aligned.  m may be as small as one row: every row beyond the

@@ -14,12 +14,17 @@ Port of ``gcn_maxcut_tpu/ops/pallas_banded.py``:
     j·r + u), where every node shift is a row shift of the [m, r·F] view
     and only the wrap rows rotate their lane groups by F.
 
-K2 and K3 run ``csrc/banded_window.cu`` on CUDA tensors (K2 is the unit
-kernel at r = 1); K4 runs ``csrc/banded_stream.cu``, which streams each
-strip of rows through a shared-memory ring once (geometry:
-``stream_shape``).  ``banded_window.cu``'s weighted entry
-point stays, unused by any op, as K4's earlier body (``_launch`` with
-weights).  CPU tensors take the plain versions; a tensor on any other
+On CUDA tensors K2 and K3 run ``csrc/halo_stream.cu`` as a one-shard
+ring (``_circulant_launch``): the circulant wrap is staged as two [Wp, L]
+tiles, as the TPU kernel stages it (K2: the views x[m - Wp:] and x[:Wp];
+K3: those rows of the [m, r·F] view with their lane groups rotated by ±F),
+and the kernel sums pure row shifts of x and the tiles.  K4 runs
+``csrc/banded_stream.cu``, which streams each strip of rows through a
+shared-memory ring once (geometry: ``stream_shape``).  Both take only
+rows of whole 16-byte pieces with 16-byte aligned operands; anything else
+(F = 3 float32, a misaligned view) runs the earlier body,
+``csrc/banded_window.cu`` (``_launch``), by that one rule of shape and
+address.  CPU tensors take the plain versions; a tensor on any other
 device raises.  The unit ops take float32 or bfloat16; sums are taken in
 float32 and the output has the input's dtype.
 The unit ops are differentiable: the adjoint of a circulant shift set is
@@ -36,15 +41,21 @@ from typing import Sequence
 import torch
 
 from gcn_maxcut_tpu_torch import build
+from gcn_maxcut_tpu_torch.ops import halo_stream as hs
+from gcn_maxcut_tpu_torch.ops.halo_stream import _DTYPE_CODES, SMEM_LIMIT, _vec16
 
-# Launches of the CUDA kernel made by each op, counted where it launches.
-LAUNCHES = {"banded_spmm_unit": 0, "banded_spmm_unit_packed": 0, "banded_spmm": 0}
+# Launches made by each op, counted where each kernel launches: under the
+# op's name by ``_circulant_launch`` (K2, K3: ``csrc/halo_stream.cu``) and
+# ``_stream_launch`` (K4: ``csrc/banded_stream.cu``), under the op's name +
+# "_window" by ``_launch`` (the earlier body, ``csrc/banded_window.cu``).
+LAUNCHES = {"banded_spmm_unit": 0, "banded_spmm_unit_packed": 0, "banded_spmm": 0,
+            "banded_spmm_unit_window": 0, "banded_spmm_unit_packed_window": 0,
+            "banded_spmm_window": 0}
 
 MAX_OFFSETS = 32            # csrc/banded_window.cu BANDED_MAX_OFFSETS
 _TILE_BYTES = 96 * 1024     # shared memory for one block's window
 _TILE_ROWS_MAX = 256
 _TILE_COLS_MAX = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # K4's streaming geometry (csrc/banded_stream.cu): rows a chunk, widest
 # column tile, longest strip, and the blocks below which strips shorten;
 # chosen on the H100 at n = 131,072 and 1,250,304, F = 128 (PERF.md)
@@ -53,7 +64,6 @@ STREAM_COLS = 64
 STREAM_STRIP_MAX = 1024
 STREAM_MIN_BLOCKS = 256
 STREAM_THREADS = 256          # csrc/banded_stream.cu BSTREAM_THREADS
-SMEM_LIMIT = 232_448          # dynamic shared memory one block may use on the H100
 
 
 def reset_launches() -> None:
@@ -86,8 +96,8 @@ class StreamGeometry:
     columns and a strip of ``strip`` rows, walked in chunks of ``chunk``
     rows through a ring of ``ring_rows`` = 2·chunk + 2·Wp source rows (the
     current chunk's window and the next chunk's new rows) beside two
-    chunks' [chunk, D] weights.  A thread owns ``vec`` adjacent columns: 4
-    (16-byte copies, loads and stores) when F % 4 == 0, else 1."""
+    chunks' [chunk, D] weights.  A thread owns 4 adjacent columns:
+    16-byte copies, loads and stores."""
 
     n: int
     F: int
@@ -96,7 +106,6 @@ class StreamGeometry:
     strip: int
     cols: int
     ring_rows: int
-    vec: int
     smem_bytes: int
 
     @property
@@ -111,25 +120,26 @@ def stream_smem_bytes(ring_rows: int, cols: int, D: int) -> int:
 
 
 @functools.cache
-def stream_shape(n: int, F: int, wp: int, D: int, *, vec4: bool = True) -> StreamGeometry:
-    """K4's launch geometry for x [n, F], Wp and D offsets.  ``vec4``: the
-    operands' addresses allow 16-byte accesses.  The column tile is halved
-    from ``STREAM_COLS`` until the ring fits; the strip is the longest
-    multiple of the chunk up to ``STREAM_STRIP_MAX`` that still launches
-    ``STREAM_MIN_BLOCKS`` blocks, and at least one chunk."""
+def stream_shape(n: int, F: int, wp: int, D: int) -> StreamGeometry:
+    """K4's launch geometry for float32 x [n, F] whose rows are whole
+    16-byte pieces (F % 4 == 0), Wp and D offsets.  The column tile is
+    halved from ``STREAM_COLS`` until the ring fits; the strip is the
+    longest multiple of the chunk up to ``STREAM_STRIP_MAX`` that still
+    launches ``STREAM_MIN_BLOCKS`` blocks, and at least one chunk."""
+    if F % 4:
+        raise ValueError(f"rows of {F} floats are not whole 16-byte pieces")
     chunk = STREAM_CHUNK
-    vec = 4 if vec4 and F % 4 == 0 else 1
-    cols = max(vec, min(F, STREAM_COLS) // vec * vec)
+    cols = max(4, min(F, STREAM_COLS) // 4 * 4)
     ring_rows = 2 * chunk + 2 * wp
-    while stream_smem_bytes(ring_rows, cols, D) > SMEM_LIMIT and cols > vec:
-        cols = max(vec, cols // 2 // vec * vec)
+    while stream_smem_bytes(ring_rows, cols, D) > SMEM_LIMIT and cols > 4:
+        cols = max(4, cols // 2 // 4 * 4)
     smem = stream_smem_bytes(ring_rows, cols, D)
     if smem > SMEM_LIMIT:
         raise ValueError(f"a ring of {ring_rows} rows does not fit the block's shared memory")
     strips_wanted = -(-STREAM_MIN_BLOCKS // -(-F // cols))
     strip = max(1, min(STREAM_STRIP_MAX // chunk, n // (chunk * strips_wanted))) * chunk
     return StreamGeometry(n=n, F=F, wp=wp, chunk=chunk, strip=strip, cols=cols,
-                          ring_rows=ring_rows, vec=vec, smem_bytes=smem)
+                          ring_rows=ring_rows, smem_bytes=smem)
 
 
 @functools.cache
@@ -163,7 +173,7 @@ def _stream_kernel():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        *[ctypes.c_int] * 7, ctypes.c_void_p,
+        *[ctypes.c_int] * 6, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -192,41 +202,33 @@ def _check_weighted(x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int]) ->
 
 def _stream_launch(x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
     """K4: ``banded_stream_launch`` on contiguous float32 x [n, F] and
-    w [n, D] on the card, in ``stream_shape``'s geometry."""
+    w [n, D] on the card, in ``stream_shape``'s geometry, counted under
+    "banded_spmm".  x's rows must be whole 16-byte pieces and x 16-byte
+    aligned (``_vec16``): the kernel refuses anything else."""
     wp = _check_weighted(x, w, offsets)
     n, F = x.shape
     out = torch.empty_like(x)
-    geom = stream_shape(n, F, wp, len(offsets),
-                        vec4=(x.data_ptr() | out.data_ptr()) % 16 == 0)
+    geom = stream_shape(n, F, wp, len(offsets))
     offs = (ctypes.c_int * len(offsets))(*[int(o) for o in offsets])
     with torch.cuda.device(x.device):
         err = _stream_kernel()(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), n, F, offs, len(offsets), wp,
-            geom.chunk, geom.strip, geom.cols, geom.ring_rows, geom.vec, geom.smem_bytes,
+            geom.chunk, geom.strip, geom.cols, geom.ring_rows, geom.smem_bytes,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"banded_stream_launch failed: CUDA error {err}")
+    LAUNCHES["banded_spmm"] += 1
     return out
 
 
-def _launch(
-    x: torch.Tensor, offsets: Sequence[int], F: int, w: torch.Tensor | None = None
-) -> torch.Tensor:
-    """Run ``banded_window_launch`` on a contiguous [m, L] CUDA tensor, or
-    with a [m, D] weight table ``banded_window_weighted_launch`` (float32,
-    L = F: K4's earlier body, on no op's path)."""
+def _check_unit(x: torch.Tensor, offsets: Sequence[int], F: int) -> int:
+    """The operand rules of a launch on a [m, L] CUDA tensor of lane groups
+    of F columns; returns Wp."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {x.dtype}")
-    if w is not None and (
-        x.dtype != torch.float32 or w.dtype != torch.float32 or w.device != x.device
-        or not w.is_contiguous() or tuple(w.shape) != (x.shape[0], len(offsets))
-        or x.shape[1] != F
-    ):
-        raise ValueError("weighted kernel takes float32 x [n, F] and w [n, len(offsets)] "
-                         "on one device")
     if not x.is_contiguous() or x.dim() != 2:
         raise ValueError("kernel needs a contiguous 2-D tensor")
     m, L = x.shape
@@ -237,6 +239,50 @@ def _launch(
     wp = padded_bandwidth(offsets)
     if 2 * wp > m:
         raise ValueError(f"2*Wp = {2 * wp} exceeds the {m} rows")
+    return wp
+
+
+def wrap_tiles(x: torch.Tensor, wp: int, F: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The circulant wrap of [m, L] x as a one-shard ring's (pre, post)
+    tiles: the last and the first Wp rows.  In the packed layout (L = r·F,
+    r > 1) a node shift across the wrap also moves one lane group, so the
+    tiles are rotated by +F and −F along columns: the TPU kernel's
+    ``wrap_lo`` and ``wrap_hi``.  At r = 1 they are views of x."""
+    pre, post = x[x.shape[0] - wp:], x[:wp]
+    if x.shape[1] != F:
+        pre, post = torch.roll(pre, F, dims=1), torch.roll(post, -F, dims=1)
+    return pre, post
+
+
+def _circulant_launch(x: torch.Tensor, offsets: Sequence[int], F: int, *, op: str) -> torch.Tensor:
+    """K2 and K3 on ``csrc/halo_stream.cu``: the wrap tiles
+    (``wrap_tiles``), then one launch of the one-shard ring on a contiguous
+    [m, L] CUDA tensor whose rows are whole 16-byte pieces, 16-byte
+    aligned, counted under ``op``."""
+    wp = _check_unit(x, offsets, F)
+    pre, post = wrap_tiles(x, wp, F)
+    out = hs.launch(x, pre, post, offsets)
+    LAUNCHES[op] += 1
+    return out
+
+
+def _launch(
+    x: torch.Tensor, offsets: Sequence[int], F: int, w: torch.Tensor | None = None, *,
+    op: str,
+) -> torch.Tensor:
+    """The earlier body, ``csrc/banded_window.cu``: ``banded_window_launch``
+    on a contiguous [m, L] CUDA tensor, or with a [m, D] weight table
+    ``banded_window_weighted_launch`` (float32, L = F), counted under
+    ``op`` + "_window"."""
+    wp = _check_unit(x, offsets, F)
+    if w is not None and (
+        x.dtype != torch.float32 or w.dtype != torch.float32 or w.device != x.device
+        or not w.is_contiguous() or tuple(w.shape) != (x.shape[0], len(offsets))
+        or x.shape[1] != F
+    ):
+        raise ValueError("weighted kernel takes float32 x [n, F] and w [n, len(offsets)] "
+                         "on one device")
+    m, L = x.shape
     rows, cols = tile_shape(L, wp, x.element_size(), 0 if w is None else 4 * len(offsets))
     out = torch.empty_like(x)
     offs = (ctypes.c_int * len(offsets))(*[int(o) for o in offsets])
@@ -254,6 +300,7 @@ def _launch(
             )
     if err != 0:
         raise RuntimeError(f"banded_window_launch failed: CUDA error {err}")
+    LAUNCHES[op + "_window"] += 1
     return out
 
 
@@ -306,12 +353,20 @@ def banded_spmm_unit_packed_plain(
 
 # ---- dispatch: plain on the CPU, the kernel on CUDA ----------------------
 
+def _unit_route(x: torch.Tensor, offsets: tuple[int, ...], F: int, op: str) -> torch.Tensor:
+    """One rule by shape and address: a contiguous [m, L] CUDA tensor whose
+    rows are whole 16-byte pieces and that starts 16-byte aligned runs
+    ``halo_stream.cu`` (its wrap tiles are then aligned too), anything else
+    the earlier body.  A failed launch raises."""
+    if _vec16(x.shape[1], x.element_size(), x):
+        return _circulant_launch(x, offsets, F, op=op)
+    return _launch(x, offsets, F, op=op)
+
+
 def _unit_raw(x: torch.Tensor, offsets: tuple[int, ...]) -> torch.Tensor:
     if x.device.type == "cpu":
         return banded_spmm_unit_plain(x, offsets)
-    out = _launch(x.contiguous(), offsets, x.shape[1])
-    LAUNCHES["banded_spmm_unit"] += 1
-    return out
+    return _unit_route(x.contiguous(), offsets, x.shape[1], "banded_spmm_unit")
 
 
 def _packed_raw(x: torch.Tensor, offsets: tuple[int, ...], r: int) -> torch.Tensor:
@@ -320,17 +375,21 @@ def _packed_raw(x: torch.Tensor, offsets: tuple[int, ...], r: int) -> torch.Tens
     n, F = x.shape
     if n % r:
         raise ValueError(f"n={n} must be a multiple of r={r}")
-    out = _launch(x.contiguous().view(n // r, r * F), offsets, F)
-    LAUNCHES["banded_spmm_unit_packed"] += 1
+    out = _unit_route(x.contiguous().view(n // r, r * F), offsets, F,
+                      "banded_spmm_unit_packed")
     return out.view(n, F)
 
 
 def _weighted_raw(x: torch.Tensor, w: torch.Tensor, offsets: tuple[int, ...]) -> torch.Tensor:
+    """K4 by the same rule: 16-byte rows and an aligned x run
+    ``banded_stream.cu``, anything else (F = 3) the earlier body, which beat
+    the ring's scalar path there (PERF.md)."""
     if x.device.type == "cpu":
         return banded_spmm_plain(x, w, offsets)
-    out = _stream_launch(x.contiguous(), w.contiguous(), offsets)
-    LAUNCHES["banded_spmm"] += 1
-    return out
+    x, w = x.contiguous(), w.contiguous()
+    if _vec16(x.shape[1], x.element_size(), x):
+        return _stream_launch(x, w, offsets)
+    return _launch(x, offsets, x.shape[1], w, op="banded_spmm")
 
 
 class _BandedUnit(torch.autograd.Function):

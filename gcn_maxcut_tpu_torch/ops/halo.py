@@ -29,7 +29,8 @@ of per-shard tensors, one on each mesh device:
 CUDA shards run one launch per shard after the exchange (the TPU kernel's
 overlap of the exchange with the interior sweep is not ported): of
 ``csrc/halo_stream.cu``, which streams each short strip of a shard's rows
-into shared memory in 16-byte pieces (geometry: ``halo_stream_shape``),
+into shared memory in 16-byte pieces (its binding and geometry:
+``ops/halo_stream.py``),
 where the width and the operands' addresses allow 16-byte copies; else of
 the earlier body, the halo mode of ``csrc/banded_window.cu``
 (``_window_launch``), which is faster there (F = 3).  CPU shards run the
@@ -44,19 +45,26 @@ because a loopback RDMA faults the TPU runtime; the function is the same.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 from typing import Sequence
 
 import torch
 
 from gcn_maxcut_tpu_torch import build
-from gcn_maxcut_tpu_torch.ops.banded import (
+from gcn_maxcut_tpu_torch.ops import halo_stream as hs
+from gcn_maxcut_tpu_torch.ops.banded import MAX_OFFSETS, padded_bandwidth, tile_shape
+from gcn_maxcut_tpu_torch.ops.halo_stream import (  # noqa: F401  (re-exported)
     _DTYPE_CODES,
-    MAX_OFFSETS,
+    HALO_CHUNK,
+    HALO_COLS,
+    HALO_STRIP,
+    HALO_THREADS,
     SMEM_LIMIT,
-    padded_bandwidth,
-    tile_shape,
+    HaloStreamGeometry,
+    _stream_kernel,
+    _vec16,
+    halo_stream_shape,
+    halo_stream_smem_bytes,
 )
 from gcn_maxcut_tpu_torch.parallel.mesh import Mesh
 
@@ -69,89 +77,11 @@ LAUNCHES = {"halo_banded_spmm": 0, "halo_banded_spmm_unit_packed": 0,
             "halo_banded_spmm_window": 0, "halo_banded_spmm_unit_packed_window": 0}
 
 DEFAULT_BLOCK = 1024
-# The strip window's geometry (csrc/halo_stream.cu): rows a chunk, widest
-# column tile and rows a strip (two chunks); chosen on the H100 by a sweep
-# at the trainers' shards (PERF.md)
-HALO_CHUNK = 64
-HALO_COLS = 64
-HALO_STRIP = 2 * HALO_CHUNK
-HALO_THREADS = 256            # csrc/halo_stream.cu HSTREAM_THREADS
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-@dataclasses.dataclass(frozen=True)
-class HaloStreamGeometry:
-    """One shard's launch of ``halo_stream.cu``: a block of
-    ``HALO_THREADS`` threads owns ``cols`` columns and a strip of ``strip``
-    rows, whose window of ``window_rows`` = strip + 2·Wp source rows it
-    stages in chunks of ``chunk`` rows, summing each chunk while the next
-    one's rows land, beside two chunks' [chunk, D] weights (none for unit
-    weights).  A thread owns ``vec`` adjacent columns, 16 bytes: 8 bfloat16
-    or 4 float32 values."""
-
-    m: int
-    L: int
-    wp: int
-    chunk: int
-    strip: int
-    cols: int
-    window_rows: int
-    vec: int
-    smem_bytes: int
-
-    @property
-    def grid(self) -> tuple[int, int]:
-        """(strips, column tiles) of the launch."""
-        return -(-self.m // self.strip), -(-self.L // self.cols)
-
-
-def halo_stream_smem_bytes(window_rows: int, cols: int, elsize: int, D: int) -> int:
-    """The strip's window (rounded up to 16 bytes) and two chunks of
-    weights (D = 0 for unit weights)."""
-    return (window_rows * cols * elsize + 15) // 16 * 16 + 2 * HALO_CHUNK * D * 4
-
-
-@functools.cache
-def halo_stream_shape(m: int, L: int, wp: int, D: int, elsize: int) -> HaloStreamGeometry:
-    """The launch geometry for a shard [m, L] of ``elsize``-byte values
-    whose rows are whole 16-byte pieces, halo width Wp and D weighted
-    offsets (0: unit weights).  The column tile is ``HALO_COLS`` wide,
-    halved until the window fits; every strip is ``HALO_STRIP`` rows."""
-    if L * elsize % 16:
-        raise ValueError(f"rows of {L} × {elsize} bytes are not whole 16-byte pieces")
-    chunk = HALO_CHUNK
-    vec = 16 // elsize
-    cols = min(L, HALO_COLS)
-    window_rows = HALO_STRIP + 2 * wp
-    while halo_stream_smem_bytes(window_rows, cols, elsize, D) > SMEM_LIMIT and cols > vec:
-        cols = max(vec, cols // 2 // vec * vec)
-    smem = halo_stream_smem_bytes(window_rows, cols, elsize, D)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"a window of {window_rows} rows does not fit the block's "
-                         "shared memory")
-    return HaloStreamGeometry(m=m, L=L, wp=wp, chunk=chunk, strip=HALO_STRIP, cols=cols,
-                              window_rows=window_rows, vec=vec, smem_bytes=smem)
-
-
-def _vec16(L: int, elsize: int, *tensors: torch.Tensor) -> bool:
-    """``halo_stream.cu`` takes the shard: every row is a whole number of
-    16-byte pieces and every operand starts 16-byte aligned."""
-    return L * elsize % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
-
-
-@functools.cache
-def _stream_kernel():
-    fn = build.load("halo_stream").halo_stream_launch
-    fn.argtypes = [
-        *[ctypes.c_void_p] * 5, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        *[ctypes.c_int] * 7, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 @functools.cache
@@ -223,23 +153,10 @@ def _launch(
     (``_vec16``), else the earlier body ``_window_launch``, which beat a
     scalar path of the new kernel at F = 3 (PERF.md).  One rule by shape
     and address: a failed launch raises."""
-    wp = _check_shard(x, pre, post, offsets, w)
-    m, L = x.shape
-    out = torch.empty_like(x)
-    el = x.element_size()
-    if not _vec16(L, el, x, pre, post, out):
+    _check_shard(x, pre, post, offsets, w)
+    if not _vec16(x.shape[1], x.element_size(), x, pre, post):
         return _window_launch(x, pre, post, offsets, w, op=op)
-    geom = halo_stream_shape(m, L, wp, 0 if w is None else len(offsets), el)
-    offs = (ctypes.c_int * len(offsets))(*offsets)
-    with torch.cuda.device(x.device):
-        err = _stream_kernel()(
-            x.data_ptr(), pre.data_ptr(), post.data_ptr(),
-            None if w is None else w.data_ptr(), out.data_ptr(), m, L, offs, len(offsets),
-            wp, _DTYPE_CODES[x.dtype], geom.chunk, geom.strip, geom.cols, geom.smem_bytes,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"halo_stream_launch failed: CUDA error {err}")
+    out = hs.launch(x, pre, post, offsets, w)
     LAUNCHES[op] += 1
     return out
 

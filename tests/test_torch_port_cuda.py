@@ -40,6 +40,13 @@ CASES = [
 ]
 
 
+def launches(op, counts=None):
+    """Launches of a circulant op on either kernel: ``halo_stream.cu``
+    (under the op's name) or its earlier body (the op's name + "_window")."""
+    counts = tb.LAUNCHES if counts is None else counts
+    return counts[op] + counts[op + "_window"]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -74,7 +81,8 @@ def test_cuda_kernel_matches_plain(cuda_device, packed, dtype):
         yc.backward(dy.to(cuda_device))
         torch.cuda.synchronize()
         name = "banded_spmm_unit_packed" if packed else "banded_spmm_unit"
-        assert tb.LAUNCHES[name] == before[name] + 2       # forward + backward
+        # forward + backward, counted by the kernel that ran
+        assert launches(name) == launches(name, before) + 2
         xp = x.clone().requires_grad_(True)
         yp = fn(xp)
         yp.backward(dy)
@@ -91,12 +99,12 @@ def test_cuda_unit_kernel_at_bench_width(cuda_device, n, dtype):
     rng = np.random.default_rng(3)
     x = torch.tensor(rng.normal(size=(n, 128)).astype(np.float32)).to(dtype)
     dy = torch.tensor(rng.normal(size=(n, 128)).astype(np.float32)).to(dtype)
-    before = tb.LAUNCHES["banded_spmm_unit"]
+    before = launches("banded_spmm_unit")
     xc = x.to(cuda_device).requires_grad_(True)
     yc = tb.banded_spmm_unit(xc, offsets)
     yc.backward(dy.to(cuda_device))
     torch.cuda.synchronize()
-    assert tb.LAUNCHES["banded_spmm_unit"] == before + 2
+    assert launches("banded_spmm_unit") == before + 2
     xp = x.clone().requires_grad_(True)
     yp = tb.banded_spmm_unit(xp, offsets)
     yp.backward(dy)
@@ -109,8 +117,94 @@ def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
     x = torch.zeros(64, 4, device=cuda_device)
     with pytest.raises(ValueError, match="exceeds"):
         tb.banded_spmm_unit(x, (40, -40))                  # 2·Wp > m
+    with pytest.raises(ValueError, match="exceeds"):
+        tb.banded_spmm_unit(x[:, :3].contiguous(), (40, -40))   # on the earlier body
+    with pytest.raises(ValueError, match="exceeds"):
+        tb.banded_spmm_unit_packed(torch.zeros(512, 16, device=cuda_device), (40, -40), 8)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tb.banded_spmm_unit(x.half(), (1, -1))
+
+
+def _circulant(x, offsets, r):
+    return tb.banded_spmm_unit(x, offsets) if r == 1 else tb.banded_spmm_unit_packed(x, offsets, r)
+
+
+def _circulant_plain(x, offsets, r):
+    if r == 1:
+        return tb.banded_spmm_unit_plain(x, offsets)
+    return tb.banded_spmm_unit_packed_plain(x, offsets, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("packed", [False, True], ids=["K2", "K3"])
+@pytest.mark.parametrize("case", CASES, ids=range(len(CASES)))
+def test_cuda_circulant_stream_equals_plain_and_earlier_body(cuda_device, case, packed, dtype):
+    """K2 and K3 on ``halo_stream.cu`` (a one-shard ring on the wrap tiles)
+    wherever the rows are whole 16-byte pieces, else on the earlier body:
+    forward and gradient bit for bit to the plain version and to the
+    earlier body called directly; each launch counted under its kernel's
+    key."""
+    n, F, r, offsets = case
+    r = r if packed else 1
+    op = "banded_spmm_unit_packed" if packed else "banded_spmm_unit"
+    rng = np.random.default_rng(17)
+    x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32)).to(cuda_device, dtype)
+    dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32)).to(cuda_device, dtype)
+    m, L = n // r, r * F
+    stream = L * x.element_size() % 16 == 0
+    key = op if stream else op + "_window"
+    before = dict(tb.LAUNCHES)
+    xk = x.clone().requires_grad_(True)
+    yk = _circulant(xk, offsets, r)
+    yk.backward(dy)
+    torch.cuda.synchronize()
+    assert {k: tb.LAUNCHES[k] - before[k] for k in tb.LAUNCHES} == {
+        k: 2 if k == key else 0 for k in tb.LAUNCHES}
+    y, g = yk.detach(), xk.grad
+    neg = tuple(-o for o in offsets)
+    # the plain versions sum in float32 in offset order and round once, as
+    # both kernels do: equal bit for bit in both dtypes
+    assert torch.equal(y, _circulant_plain(x, offsets, r))
+    assert torch.equal(g, _circulant_plain(dy, neg, r))
+    assert torch.equal(y, tb._launch(x.view(m, L), offsets, F, op=op).view(n, F))
+    assert torch.equal(g, tb._launch(dy.view(m, L), neg, F, op=op).view(n, F))
+    if stream:
+        assert torch.equal(y, tb._circulant_launch(x.view(m, L), offsets, F, op=op).view(n, F))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_circulant_misaligned_or_narrow_rows_take_the_earlier_body(cuda_device, dtype):
+    offsets = (1, -1, 7, -7)
+    rng = np.random.default_rng(18)
+    # (n, F, r, misaligned): an x one element off 16-byte alignment (its
+    # gradient is fresh, so aligned), rows of 3 values (12 or 6 bytes; K3
+    # at r = 2: 24 or 12 bytes), and K3 at r = 8, F = 3 (96 or 48 bytes)
+    for n, F, r, misaligned in ((4096, 16, 1, True), (4096, 16, 8, True), (4096, 3, 1, False),
+                                (4096, 3, 2, False), (4096, 3, 8, False)):
+        op = "banded_spmm_unit" if r == 1 else "banded_spmm_unit_packed"
+        x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32)).to(cuda_device, dtype)
+        if misaligned:
+            x = torch.empty(n * F + 1, dtype=dtype, device=cuda_device)[1:].view(n, F).copy_(x)
+            assert x.data_ptr() % 16
+        dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32)).to(cuda_device, dtype)
+        row_bytes = r * F * x.element_size()
+        fwd_stream = row_bytes % 16 == 0 and not misaligned
+        bwd_stream = row_bytes % 16 == 0
+        before = dict(tb.LAUNCHES)
+        xk = x.detach().requires_grad_(True)             # x's own address
+        yk = _circulant(xk, offsets, r)
+        yk.backward(dy)
+        torch.cuda.synchronize()
+        want = {op: int(fwd_stream) + int(bwd_stream),
+                op + "_window": 2 - int(fwd_stream) - int(bwd_stream)}
+        assert {k: tb.LAUNCHES[k] - before[k] for k in want} == want
+        assert sum(tb.LAUNCHES[k] - before[k] for k in tb.LAUNCHES) == 2
+        assert torch.equal(yk.detach(), _circulant_plain(x, offsets, r))
+        assert torch.equal(xk.grad, _circulant_plain(dy, [-o for o in offsets], r))
+        if (r, F) == (8, 3):
+            assert fwd_stream                            # the pre-rotated tiles: 16-byte rows
 
 
 @pytest.mark.cuda
@@ -218,13 +312,13 @@ def test_cuda_weighted_banded_matches_plain(cuda_device, n, F, offsets):
     x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
     w = torch.tensor((rng.random((n, len(offsets))) + 0.5).astype(np.float32))
     dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
-    before = tb.LAUNCHES["banded_spmm"]
+    before = launches("banded_spmm")
     xc = x.to(cuda_device).requires_grad_(True)
     wc = w.to(cuda_device).requires_grad_(True)
     yc = tb.banded_spmm(xc, wc, offsets)
     yc.backward(dy.to(cuda_device))
     torch.cuda.synchronize()
-    assert tb.LAUNCHES["banded_spmm"] == before + 2
+    assert launches("banded_spmm") == before + 2
     xp = x.clone().requires_grad_(True)
     wp = w.clone().requires_grad_(True)
     yp = tb.banded_spmm(xp, wp, offsets)
@@ -454,7 +548,8 @@ def test_cuda_probe_kernels_reject_what_they_do_not_take(cuda_device):
 
 # (n, F, offsets): n not a multiple of the strip, n below the chunk (one
 # strip that wraps at both ends), 2·Wp == n, a partial last chunk of a
-# 1024-row strip, the scalar path and column tails (F = 3, 5, 130), D = 1
+# 1024-row strip, rows that are not 16-byte pieces (F = 3, 5, 130: the
+# earlier body), column tails, D = 1
 STREAM_K4_CASES = [
     (5000, 16, (1, -1, 5, -5, 63, -63)),
     (1000, 8, (7, -7, 60, -60)),
@@ -476,20 +571,27 @@ def test_cuda_banded_stream_matches_plain(cuda_device, case):
     x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32), device=cuda_device)
     w = torch.tensor((rng.random((n, len(offsets))) + 0.5).astype(np.float32),
                      device=cuda_device)
-    geom = tb.stream_shape(n, F, tb.padded_bandwidth(offsets), len(offsets))
-    assert geom.vec == (4 if F % 4 == 0 else 1)
-    y = tb._stream_launch(x, w, offsets)
+    if F % 4:
+        # the ring takes only 16-byte rows: the earlier body runs these
+        with pytest.raises(ValueError, match="16-byte"):
+            tb._stream_launch(x, w, offsets)
+        y = tb._launch(x, offsets, F, w, op="banded_spmm")
+    else:
+        y = tb._stream_launch(x, w, offsets)
     torch.cuda.synchronize()
     # the plain version's arithmetic and order: equal bit for bit
     assert torch.equal(y, tb.banded_spmm_plain(x, w, offsets))
-    # the op, forward and backward: one launch each
-    before = tb.LAUNCHES["banded_spmm"]
+    # the op, forward and backward: one launch each, counted by the kernel
+    # that ran
+    key = "banded_spmm" if F % 4 == 0 else "banded_spmm_window"
+    before = dict(tb.LAUNCHES)
     xk, wk = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     yk = tb.banded_spmm(xk, wk, offsets)
     dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32), device=cuda_device)
     yk.backward(dy)
     torch.cuda.synchronize()
-    assert tb.LAUNCHES["banded_spmm"] == before + 2
+    assert {k: tb.LAUNCHES[k] - before[k] for k in tb.LAUNCHES} == {
+        k: 2 if k == key else 0 for k in tb.LAUNCHES}
     xp, wq = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     yp = tb.banded_spmm_plain(xp, wq, offsets)
     yp.backward(dy)
@@ -505,7 +607,23 @@ def test_cuda_banded_stream_matches_its_earlier_body(cuda_device):
     x = torch.tensor(rng.normal(size=(131072, 128)).astype(np.float32), device=cuda_device)
     w = torch.tensor((rng.random((131072, 8)) + 0.5).astype(np.float32), device=cuda_device)
     y = tb._stream_launch(x, w, offsets)
-    assert torch.equal(y, tb._launch(x, offsets, 128, w))          # the earlier body
+    assert torch.equal(y, tb._launch(x, offsets, 128, w, op="banded_spmm"))  # the earlier body
+    # the C entry point refuses a misaligned x or rows that are not 16-byte
+    # pieces (its scalar path is gone)
+    geom = tb.stream_shape(131072, 128, tb.padded_bandwidth(offsets), 8)
+    offs = (ctypes.c_int * 8)(*offsets)
+    out = torch.empty_like(x)
+
+    def launch(x_ptr=x.data_ptr(), F=128):
+        return tb._stream_kernel()(x_ptr, w.data_ptr(), out.data_ptr(), 131072, F, offs, 8,
+                                   geom.wp, geom.chunk, geom.strip, geom.cols, geom.ring_rows,
+                                   geom.smem_bytes, torch.cuda.current_stream().cuda_stream)
+
+    assert launch() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, y)
+    assert launch(x_ptr=x.data_ptr() + 4) != 0
+    assert launch(F=126) != 0
 
 
 def _stream_table(n, width, r0, wp, rng, pad_frac=0.2):

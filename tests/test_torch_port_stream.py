@@ -54,15 +54,20 @@ def _check_geometry(g: tb.StreamGeometry, n: int, F: int, wp: int, D: int) -> No
     assert strips * g.strip >= n > (strips - 1) * g.strip
     assert tiles * g.cols >= F > (tiles - 1) * g.cols
     assert g.strip % g.chunk == 0
-    # a thread owns vec columns: 16-byte accesses only when F % 4 == 0
-    assert g.vec == (4 if F % 4 == 0 else 1)
-    assert g.cols % g.vec == 0 and g.cols // g.vec <= tb.STREAM_THREADS
+    # a thread owns 4 columns: 16-byte accesses only
+    assert F % 4 == 0
+    assert g.cols % 4 == 0 and g.cols // 4 <= tb.STREAM_THREADS
 
 
 @pytest.mark.parametrize("n,F,offsets", K4_SHAPES)
 def test_k4_geometry(n, F, offsets):
     wp = tb.padded_bandwidth(offsets)
     assert 2 * wp <= n
+    if F % 4:
+        # such rows go to the earlier body: the ring has no geometry
+        with pytest.raises(ValueError, match="16-byte"):
+            tb.stream_shape(n, F, wp, len(offsets))
+        return
     _check_geometry(tb.stream_shape(n, F, wp, len(offsets)), n, F, wp, len(offsets))
 
 
@@ -86,11 +91,12 @@ def test_geometry_at_the_main_shapes():
     # (1024 + 112)/1024 times, against (32 + 112)/32 by the 32-row tiles
     for n in (131_072, 1_250_304):
         g = tb.stream_shape(n, 128, 56, 8)
-        assert (g.vec, g.cols, g.chunk, g.strip, g.ring_rows) == (4, 64, 64, 1024, 240)
+        assert (g.cols, g.chunk, g.strip, g.ring_rows) == (64, 64, 1024, 240)
         assert g.grid == (-(-n // 1024), 2)
-    # at F = 3 the scalar path, one column tile, strips shortened to launch
-    # 256 blocks; n below the chunk gives one strip longer than n
-    assert tb.stream_shape(131_072, 3, 56, 8).grid == (256, 1)
+    # F = 3 has no ring (the earlier body takes it); n below the chunk
+    # gives one strip longer than n
+    with pytest.raises(ValueError, match="16-byte"):
+        tb.stream_shape(131_072, 3, 56, 8)
     assert tb.stream_shape(40, 8, 16, 4).grid == (1, 1)
     # K1 at the locality plan (F = 64 and 3) and the microbenchmark's
     # (F = 128): 16-byte loads where F allows

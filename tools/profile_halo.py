@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Where the node-sharded giant trainers' epoch time goes on the card.
+"""Where the giant trainers' epoch time goes on the card.
 
     python tools/profile_halo.py [--epochs 10] [--shards 4]
 
 Runs, on a ring of ``--shards`` shards on one card (``make_mesh(devices=
 ["cuda:0"] * shards)``), the packed halo trainer at its defaults (n =
 10,002,432) and the plain halo trainer at ``HaloGiantConfig`` widths on
-262,144-node shards, and beside them the single-chip packed trainer at the
-same n.  Each runs once untraced for ``--epochs`` epochs (its steady epoch
+262,144-node shards, and beside them the single-chip trainers: the packed
+one at the same n and the plain one at n = 1,048,576.  Each runs once untraced for ``--epochs`` epochs (its steady epoch
 time, CUDA events) and once traced with ``torch.profiler`` (CPU and CUDA
 activities) for as many epochs.  Prints one JSON object: for each trainer
 the epoch time, the device time per epoch summed over the device's own
@@ -29,7 +29,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from gcn_maxcut_tpu_torch.bench.giant_demo import train_banded_giant_packed  # noqa: E402
+from gcn_maxcut_tpu_torch.bench.giant_demo import (  # noqa: E402
+    train_banded_giant,
+    train_banded_giant_packed,
+)
 from gcn_maxcut_tpu_torch.device import resolve_device  # noqa: E402
 from gcn_maxcut_tpu_torch.parallel.giant_banded import (  # noqa: E402
     HaloGiantConfig,
@@ -41,6 +44,7 @@ from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 
 GIANT_N = 10_002_432
 PLAIN_SHARD = 262_144
+PLAIN_N = 1_048_576
 
 
 def _device_us(evt) -> float:
@@ -93,6 +97,8 @@ def main() -> int:
         n=GIANT_N, epochs=E, device="cuda"), E)
     out["plain_halo"] = _profile(lambda: train_halo_giant(
         PLAIN_SHARD, HaloGiantConfig(epochs=E), ring), E)
+    out["single_chip_plain"] = _profile(lambda: train_banded_giant(
+        n=PLAIN_N, epochs=E, device="cuda"), E)
     print(json.dumps(out, indent=1))
     return 0
 
