@@ -11,11 +11,12 @@ Phases; any failure ends the run with a non-zero exit code:
                 where rows take 16-byte copies; ``banded_window.cu``: K2,
                 K3 and K4 at other widths and their earlier body and, in its
                 halo mode, K5's and K6's;
-                ``block_ell_window.cu``: P3's kernel, K1's earlier body;
-                ``probe_kernels.cu``: the probes' window_gather,
-                panel_ell_spmm and banded_spmm_cols) with nvcc for sm_90a,
-                one nvcc per source, started together, and print the card's
-                name and power limit;
+                ``block_ell_window.cu``: K1's and P3's earlier body;
+                ``subblock_stream.cu``: P3's ring; ``probe_kernels.cu``: the
+                probes' window_gather, panel_ell_gather (P4) and its earlier
+                body, and banded_spmm_cols) with nvcc for sm_90a, one nvcc
+                per source, started together, and print the card's name and
+                power limit;
   2. kernels    hold K1 (``block_ell_spmm``: the microbenchmark's plan at
                 F = 128, the locality trainer's at F = 64 and 3, and small
                 odd plans), K2 (``banded_spmm_unit``, r = 1, F = 16 and 3;
@@ -45,12 +46,17 @@ Phases; any failure ends the run with a non-zero exit code:
      probes     hold the design probes' kernels against their plain versions
                 at the probes' sizes (``window_gather`` at every P1 (W, B),
                 float32 and bf16 x, and P2's d = 16; ``subblock_spmm`` on
-                K1's earlier kernel at both P3 configurations; ``panel_ell_spmm`` at
-                every P4 (W, W_P) the 5% rule keeps; ``banded_spmm_cols``
-                and K4 on every P5 variant's weights), time each beside its
-                bound, its plain version and ``torch.sparse.mm``; then run
-                the five probe entry points (``gcn_maxcut_tpu_torch.experiments``)
-                and check their launch counts and errors;
+                P3's ring at both P3 configurations; ``panel_ell_spmm`` on
+                the gather at every P4 (W, W_P) the 5% rule keeps, both bit
+                for bit against their plain versions and their earlier
+                bodies; ``banded_spmm_cols`` and K4 on every P5 variant's
+                weights), time each beside its bound, its plain version and
+                ``torch.sparse.mm`` (P3, P4 in turns with their earlier
+                bodies); time P3's ring in turns with K1's gather past the
+                L2 (n = 1,048,576, F = 128, x 512 MB); then run the five
+                probe entry points (``gcn_maxcut_tpu_torch.experiments``)
+                and check their launch counts (none on an earlier body) and
+                errors;
   3. giant      the packed giant trainer at its defaults (n = 10,002,432,
                 d = 8, bandwidth 63, bf16 aggregation and first moment, 40
                 epochs) through K3 on ``halo_stream.cu``, after a small run
@@ -102,10 +108,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = "gcn_maxcut_tpu_torch/csrc/banded_window.cu"
 HALO_SOURCE = "gcn_maxcut_tpu_torch/csrc/halo_stream.cu"
-BLOCK_ELL_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_window.cu"
 K4_SOURCE = "gcn_maxcut_tpu_torch/csrc/banded_stream.cu"
 K1_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_gather.cu"
 PROBE_SOURCE = "gcn_maxcut_tpu_torch/csrc/probe_kernels.cu"
+SUBBLOCK_SOURCE = "gcn_maxcut_tpu_torch/csrc/subblock_stream.cu"
+PAST_L2_N = 1_048_576           # P3's ring against K1's gather: x is 512 MB at F = 128
 PROBE_ITERS = 10                # timed calls of each probe case (plus 2 warm-up)
 
 GIANT_N = 10_002_432
@@ -217,6 +224,8 @@ def phase_build(build) -> dict:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
+            check(" 0 bytes spill stores" in line or "spill stores" not in line,
+                  f"{name}.cu builds without register spills: {line.strip()}")
     log(f"  built {sorted(logs)} in {seconds:.2f} s")
     card = card_line()
     log(f"  card: {card}")
@@ -796,22 +805,28 @@ def phase_kernels_halo(torch, th, tb, make_mesh, offsets, bench_offsets) -> dict
 
 
 def probe_timing(torch, name: str, case: str, kernel, plain, csr, rhs,
-                 nbytes: float, ops: float) -> dict:
+                 nbytes: float, ops: float, earlier=None) -> dict:
     """One probe kernel's row: the kernel, its plain version and
     ``torch.sparse.mm`` of the same operator (``csr`` on the float32
     ``rhs``) in ms, and the bound: the larger of bytes / 3.35 TB/s and
-    operations / 67 TFLOP/s."""
+    operations / 67 TFLOP/s.  With ``earlier`` (the kernel's earlier body)
+    the four are timed in turns."""
     with torch.no_grad():
-        row = {"name": name, "case": case, "ms": best_ms(torch, kernel),
-               "plain_ms": best_ms(torch, plain)}
+        row = {"name": name, "case": case}
         row["library_max_abs_err"] = float((torch.sparse.mm(csr, rhs) - plain()).abs().max())
-        row["library_ms"] = best_ms(torch, lambda: torch.sparse.mm(csr, rhs))
+        fns = {"ms": kernel, "plain_ms": plain, "library_ms": lambda: torch.sparse.mm(csr, rhs)}
+        if earlier is None:
+            row.update({key: best_ms(torch, fn) for key, fn in fns.items()})
+        else:
+            row.update(ms_in_turns(torch, {**fns, "earlier_ms": earlier}))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
     row["bound_ms"] = max(bytes_ms, ops_ms)
     row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
-    log(f"  {name} {case}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"sparse.mm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    earlier_note = f", earlier body {row['earlier_ms']:.4f} ms" if earlier else ""
+    log(f"  {name} {case}: kernel {row['ms']:.4f} ms{earlier_note}, plain "
+        f"{row['plain_ms']:.4f} ms, sparse.mm {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
 
 
@@ -822,6 +837,50 @@ def check_probe(torch, got, ref, errors: dict, name: str) -> float:
     err = max_err_within_tolerance(torch, got, ref)
     errors[name] = max(errors.get(name, 0.0), err)
     return err
+
+
+def time_past_l2(torch, np, tpk, tbell, gen) -> dict:
+    """P3's ring (``subblock_spmm``) against K1's gather (``block_ell._launch``)
+    on one table past the 50 MB L2: n = 1,048,576, F = 128 (x 512 MB), 8
+    senders a row within ±255 made with numpy from a seed, so at B = 256,
+    Wp = 256 every slot lies in its 128-row sub-block's slice.  Both are
+    held bit for bit to the plain version, then timed in turns with P3's
+    earlier body and ``torch.sparse.mm``; one bound for both (the same
+    bytes: x and y once, the table once)."""
+    n, F, d, B, wp = PAST_L2_N, 128, 8, 256, 256
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    i = np.arange(n)[:, None]
+    sidx = torch.from_numpy(((i + rng.integers(-255, 256, size=(n, d))) % n)
+                            .astype(np.int32)).to(dev)
+    w = torch.from_numpy((rng.random((n, d)) + 0.5).astype(np.float32)).to(dev)
+    x = torch.randn(n, F, generator=gen, device=dev)
+    with torch.no_grad():
+        ref = tpk.subblock_spmm_plain(x, sidx, w, n, B, wp)
+        check(torch.equal(tpk.subblock_spmm(x, sidx, w, n, B, wp), ref)
+              and torch.equal(tbell._launch(x, sidx, w, n, B, wp), ref),
+              "past L2: P3's ring and K1's gather equal the plain version")
+        del ref
+        csr = csr_of(torch, torch.arange(n, device=dev).repeat_interleave(d), sidx.reshape(-1),
+                     w.reshape(-1), n)
+        row = ms_in_turns(torch, {
+            "ring_ms": lambda: tpk.subblock_spmm(x, sidx, w, n, B, wp),
+            "gather_ms": lambda: tbell._launch(x, sidx, w, n, B, wp),
+            "earlier_ms": lambda: tpk._subblock_window_launch(x, sidx, w, n, B, wp),
+            "library_ms": lambda: torch.sparse.mm(csr, x),
+        })
+    row.update(n=n, F=F, d=d, B=B, wp=wp, x_mb=n * F * 4 / 1e6)
+    bytes_ms = (2 * n * F * 4 + n * d * 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n * d * F / F32_OPS_PER_S * 1e3
+    row["bound_ms"] = max(bytes_ms, ops_ms)
+    row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"  past L2 n={n} F={F} d={d} B={B} Wp={wp} (x {row['x_mb']:.0f} MB): P3 ring "
+        f"{row['ring_ms']:.4f} ms, K1 gather {row['gather_ms']:.4f} ms, P3 earlier body "
+        f"{row['earlier_ms']:.4f} ms, sparse.mm {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del x, sidx, w, csr
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> dict:
@@ -865,7 +924,8 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
                             "dtype": str(dtype)[6:]})
         del x, li, w, csr, rows, cols, xpad, xf, y
 
-    # P3 on K1's earlier (slice) kernel and P4 on the panel tables, on the probes' two graphs
+    # P3 on its ring and P4 on its gather, on the probes' two graphs, each
+    # bit for bit against its plain version and its earlier body
     n, d = MICRO_N, 8
     n_pad = tgraph.round_up(n, 2048)
     graphs = {W: micro._banded_regular_graph(n, d, W, n_pad=n_pad) for W, _ in pp.CONFIGS}
@@ -875,8 +935,11 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
         si = torch.from_numpy(sidx).to(dev)
         w = torch.from_numpy(w0).to(dev) * (torch.rand(n_pad, d, generator=gen, device=dev) + 0.5)
         y = tpk.subblock_spmm(x, si, w, n_pad, B, wp)
-        err = check_probe(torch, y, tpk.subblock_spmm_plain(x, si, w, n_pad, B, wp), errors,
-                          "subblock_spmm")
+        ref = tpk.subblock_spmm_plain(x, si, w, n_pad, B, wp)
+        err = check_probe(torch, y, ref, errors, "subblock_spmm")
+        check(torch.equal(y, ref) and torch.equal(
+            y, tpk._subblock_window_launch(x, si, w, n_pad, B, wp)),
+            f"P3's ring equals its plain version and its earlier body at W={W}")
         log(f"  subblock_spmm n={n_pad} F={F} W={W} B={B} Wp={wp}: max |err| {err:.3g}")
         r0 = tbell.sub_block_rows(B)
         start = (torch.arange(n_pad, device=dev) // r0 * r0)[:, None]
@@ -887,9 +950,11 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
                            lambda: tpk.subblock_spmm(x, si, w, n_pad, B, wp),
                            lambda: tpk.subblock_spmm_plain(x, si, w, n_pad, B, wp),
                            csr, x, 2 * n_pad * F * 4 + n_pad * d * 8,
-                           2 * int(valid.sum()) * F)
+                           2 * int(valid.sum()) * F,
+                           earlier=lambda: tpk._subblock_window_launch(x, si, w, n_pad, B, wp))
         timings.append({**row, "W": W, "B": B, "wp": wp, "n": n_pad, "F": F, "dtype": "float32"})
-        del x, si, w, y, csr, rows, valid, start
+        del x, si, w, y, ref, csr, rows, valid, start
+    past_l2 = time_past_l2(torch, np, tpk, tbell, gen)
 
     panel_ran = {W: 0 for W, _ in pp.CONFIGS}
     for W, wp in pp.CONFIGS:
@@ -909,8 +974,11 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
             wg = torch.from_numpy(wgt).to(dev) * (
                 torch.rand(idx.shape, generator=gen, device=dev) + 0.5)
             y = tpk.panel_ell_spmm(x, ii, wg, n_pad, B, wp, W_P)
-            err = check_probe(torch, y, tpk.panel_ell_spmm_plain(x, ii, wg, n_pad, B, wp, W_P),
-                              errors, "panel_ell_spmm")
+            ref = tpk.panel_ell_spmm_plain(x, ii, wg, n_pad, B, wp, W_P)
+            err = check_probe(torch, y, ref, errors, "panel_ell_spmm")
+            check(torch.equal(y, ref) and torch.equal(
+                y, tpk._panel_window_launch(x, ii, wg, n_pad, B, wp, W_P)),
+                f"P4's gather equals its plain version and its earlier body at W={W} W_P={W_P}")
             log(f"  panel_ell_spmm n={n_pad} F={F} W={W} B={B} Wp={wp} W_P={W_P} "
                 f"({idx.shape[1]} slots, {n_drop} edges dropped): max |err| {err:.3g}")
             valid = ii >= 0
@@ -923,10 +991,12 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
                                lambda: tpk.panel_ell_spmm(x, ii, wg, n_pad, B, wp, W_P),
                                lambda: tpk.panel_ell_spmm_plain(x, ii, wg, n_pad, B, wp, W_P),
                                csr, x, 2 * n_pad * F * 4 + n_pad * idx.shape[1] * 8,
-                               2 * int(valid.sum()) * F)
+                               2 * int(valid.sum()) * F,
+                               earlier=lambda: tpk._panel_window_launch(x, ii, wg, n_pad, B, wp,
+                                                                        W_P))
             timings.append({**row, "W": W, "B": B, "wp": wp, "W_P": W_P, "slots": idx.shape[1],
                             "n": n_pad, "F": F, "dtype": "float32"})
-            del x, ii, wg, y, csr, rows, cols, valid
+            del x, ii, wg, y, ref, csr, rows, cols, valid
     check(all(panel_ran.values()), f"panel_ell_spmm ran at least one W_P for each W: {panel_ran}")
 
     # P5: banded_spmm_cols, and K4 on every row-major variant's weights
@@ -957,7 +1027,8 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
             timings.append({**row, "n": n5, "F": F, "D": D, "dtype": "float32"})
     del x, w, rows, cols, csr
     torch.cuda.empty_cache()
-    return {"max_abs_err": errors, "timings": timings, "panel_configs": panel_ran}
+    return {"max_abs_err": errors, "timings": timings, "panel_configs": panel_ran,
+            "past_l2": past_l2}
 
 
 def phase_probes(torch, tpk, tb, tbell, probes) -> dict:
@@ -1423,10 +1494,11 @@ def main() -> int:
          "window_gather", "window_gather", "W=255 B=512 d=8 float32 x"),
         ("P2", "window_gather (bf16 x)", PROBE_SOURCE, "experiments/gather_probe2.py:92",
          "gather_probe2", "window_gather", "window_gather", "W=255 B=256 d=8 bfloat16 x"),
-        ("P3", "subblock_spmm (K1's earlier kernel)", BLOCK_ELL_SOURCE,
+        ("P3", "subblock_spmm (ring)", SUBBLOCK_SOURCE,
          "experiments/subblock_probe.py:123", "subblock_probe", "subblock_spmm",
          "subblock_spmm", "W=255 B=256 Wp=256"),
-        ("P4", "panel_ell_spmm", PROBE_SOURCE, "experiments/panel_ell_probe.py:157",
+        ("P4", "panel_ell_spmm (panel_ell_gather)", PROBE_SOURCE,
+         "experiments/panel_ell_probe.py:157",
          "panel_ell_probe", "panel_ell_spmm", "panel_ell_spmm", "W=255 B=256 Wp=256 W_P=4"),
         ("P5a", "banded_spmm_cols", PROBE_SOURCE, "experiments/weighted_probe.py:224",
          "weighted_probe", "banded_spmm_cols", "banded_spmm_cols", f"n={BANDED_N} F=128 D=8 cols"),
@@ -1440,6 +1512,7 @@ def main() -> int:
             "max_abs_err": probe_errors[err_key], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": [row["n"], row["F"]], "dtype": row["dtype"],
+            "earlier_ms": row.get("earlier_ms"),
         })
     log(f"total {report['seconds']:.1f} s")
     log(card_line())

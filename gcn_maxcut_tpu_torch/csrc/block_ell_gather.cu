@@ -21,7 +21,7 @@
 // shape (n = 100,352, F = 64, width 8) that is ~58 MB, ~0.017 ms at
 // 3.35 TB/s.
 //
-// Design.  The earlier body (csrc/block_ell_window.cu, still P3's kernel)
+// Design.  The earlier body (csrc/block_ell_window.cu, also P3's)
 // staged an R0 + 2*Wp slice for each 128-row sub-block: a 4-6x re-read of
 // x at the planner's Wp, and the staging did not overlap the sums.  Here
 // nothing is staged.  A thread owns one receiver row and VEC adjacent

@@ -4,12 +4,13 @@
 // aggregation kernels' designs: P1-P4 compute K1's function (a windowed
 // block-ELL gather-sum) from different operand layouts, P5 computes K4's
 // (a weighted banded sum) with different ways of delivering the weights.
-// Three of them need a kernel of their own here; P3 runs on K1's kernel
-// (csrc/block_ell_window.cu, its 128-row slices are P3's design) and P5's
-// row-major variants on K4's (csrc/banded_window.cu).  Each kernel below
-// sums in float32 in its plain version's order, with separate multiply and
-// add roundings (ops/probe_kernels.py), so results agree with it bit for
-// bit.  No TMA or wgmma: there is no matrix product here.
+// Three of them need a kernel of their own here; P3 has its own source
+// (csrc/subblock_stream.cu) and P5's row-major variants run on K4's
+// (csrc/banded_stream.cu).  P4 is the gather panel_ell_gather; its earlier
+// body panel_ell_kernel stays for comparison.  Each kernel below sums in
+// float32 in its plain version's order, with separate multiply and add
+// roundings (ops/probe_kernels.py), so results agree with it bit for bit.
+// No TMA or wgmma: there is no matrix product here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,9 +144,13 @@ window_gather_kernel(const T* __restrict__ xpad, const int* __restrict__ lidx,
 // (12 panels, 48 slots) ~141 MB.  The table is 3-6x K1's: the bucketing that
 // cut the TPU's one-hot build costs bytes here.
 //
-// Design: as window_gather, on the wrapped window (the probe's in-window
-// rule is block-relative, so a 128-row slice does not cover a row), and a
-// thread walks all of its row's slots, skipping the empty ones.
+// This is P4's earlier body, kept for comparison with panel_ell_gather
+// below (ops/probe_kernels.py _panel_window_launch).  Design: as
+// window_gather, on the wrapped window (the probe's in-window rule is
+// block-relative, so a 128-row slice does not cover a row), and a thread
+// walks all of its row's slots, skipping the empty ones.  It stages
+// (B + 2*Wp) / B rows for each row of output, synchronously, and re-reads
+// the table once per column tile.
 __global__ void __launch_bounds__(PROBE_THREADS)
 panel_ell_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                  const float* __restrict__ wgt, float* __restrict__ out, int n,
@@ -175,6 +180,127 @@ panel_ell_kernel(const float* __restrict__ x, const int* __restrict__ idx,
       }
     }
     out[gi * F + c0 + cl] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// panel_ell_gather (P4)
+//
+// The same function as panel_ell_kernel above, on the same tables, as a
+// direct gather.  It replaces experiments/panel_ell_probe.py::_panel_kernel
+// (pallas_call in panel_spmm):
+//   out[i, c] = sum_s wgt[i, s] * x[(bi*B - Wp + (s / W_P)*128 + idx[i, s]) mod n, c]
+// over the slots with 0 <= idx < 128, in slot order.
+//
+// Bound on this card: bytes, as above: 2*n*F*4 + n*slots*8.  At n =
+// 100,352, F = 128 that is 0.0364, 0.0393 and 0.0422 ms at 24, 36 and 48
+// slots (3.35 TB/s).
+//
+// Design.  Nothing is staged: at the probe's size x (51 MB) is about the
+// size of the 50 MB L2, and K1's gather (csrc/block_ell_gather.cu) beat a
+// staged ring there.  One warp owns one receiver row.  Its lanes load the
+// row's slot table once, for all of F, 32 slots a pass in coalesced 4-byte
+// loads (lane j takes slot p0 + j), and each lane turns its slot into a
+// source row.  __ballot_sync marks the filled slots; the warp walks the set
+// bits in ascending order, which is slot order, and takes each slot's row
+// and weight from its lane by __shfl_sync.  Empty slots (2/3 to 5/6 of
+// build_panel_tables' slots at d = 8) cost no load of x and no add.  Then
+// every lane loads VEC columns of that row: at F = 128 and VEC = 4 the warp
+// reads the 512-byte row in one coalesced pass.  PANEL_GATHER_UNROLL
+// filled slots are taken together, so their row loads are in flight at
+// once, and are summed after in slot order.  VEC = 1 takes rows that are
+// not whole 16-byte pieces or misaligned operands; rows wider than 32*VEC
+// columns are walked in chunks of that width, each re-reading the table
+// (from L1).
+#define PANEL_GATHER_THREADS 256
+#define PANEL_GATHER_UNROLL 4
+
+template <int VEC>
+__global__ void __launch_bounds__(PANEL_GATHER_THREADS)
+panel_ell_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                        const float* __restrict__ wgt, float* __restrict__ out,
+                        int n, int F, int slots, int W_P, int B, int Wp) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * (PANEL_GATHER_THREADS / 32) + (threadIdx.x >> 5);
+  if (i >= n) return;                             // the whole warp
+  const int first = i / B * B - Wp;
+  const int* irow = idx + (int64_t)i * slots;
+  const float* wrow = wgt + (int64_t)i * slots;
+
+  for (int c0 = 0; c0 < F; c0 += 32 * VEC) {
+    const int col = c0 + lane * VEC;
+    const bool active = col < F;
+    float acc[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+    for (int p0 = 0; p0 < slots; p0 += 32) {
+      // lane j's slot: its source row and weight, if filled
+      const int s = p0 + lane;
+      int src = 0;
+      float ws = 0.0f;
+      bool filled = false;
+      if (s < slots) {
+        const int k = __ldg(irow + s);
+        filled = (unsigned)k < (unsigned)PROBE_PANEL;
+        if (filled) {
+          int q = first + s / W_P * PROBE_PANEL + k;
+          if (q < 0) {
+            q += n;
+          } else if (q >= n) {
+            q -= n;
+          }
+          src = q;
+          ws = __ldg(wrow + s);
+        }
+      }
+      unsigned mask = __ballot_sync(full, filled);
+      while (mask) {                              // warp-uniform
+        int rows[PANEL_GATHER_UNROLL];
+        float wk[PANEL_GATHER_UNROLL];
+        bool take[PANEL_GATHER_UNROLL];
+#pragma unroll
+        for (int u = 0; u < PANEL_GATHER_UNROLL; ++u) {
+          take[u] = mask != 0;
+          const int from = take[u] ? __ffs(mask) - 1 : 0;
+          mask &= mask - 1;
+          rows[u] = __shfl_sync(full, src, from);
+          wk[u] = __shfl_sync(full, ws, from);
+        }
+        float v[PANEL_GATHER_UNROLL][VEC];
+#pragma unroll
+        for (int u = 0; u < PANEL_GATHER_UNROLL; ++u) {
+          const float* p = x + (int64_t)rows[u] * F + col;
+          if constexpr (VEC == 4) {
+            float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (take[u] && active) f = __ldg(reinterpret_cast<const float4*>(p));
+            v[u][0] = f.x;
+            v[u][1] = f.y;
+            v[u][2] = f.z;
+            v[u][3] = f.w;
+          } else {
+            v[u][0] = (take[u] && active) ? __ldg(p) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < PANEL_GATHER_UNROLL; ++u) {
+          if (take[u]) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              acc[e] = __fadd_rn(acc[e], __fmul_rn(wk[u], v[u][e]));
+            }
+          }
+        }
+      }
+    }
+    if (active) {
+      float* dst = out + (int64_t)i * F + col;
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+        dst[0] = acc[0];
+      }
+    }
   }
 }
 
@@ -310,6 +436,35 @@ extern "C" int panel_ell_launch(const void* x, const void* idx,
       static_cast<const float*>(x), static_cast<const int*>(idx),
       static_cast<const float*>(wgt), static_cast<float*>(out), n, F, slots,
       W_P, B, Wp, fc);
+  return (int)cudaGetLastError();
+}
+
+// The same operands as panel_ell_launch, for panel_ell_gather: vec 4 needs
+// F % 4 == 0 and 16-byte aligned x and out, else vec 1.  One warp a row.
+extern "C" int panel_ell_gather_launch(const void* x, const void* idx,
+                                       const void* wgt, void* out, int n,
+                                       int F, int slots, int W_P, int B,
+                                       int Wp, int vec, void* stream) {
+  if (n < 1 || F < 1 || W_P < 1 || B < 1 || Wp < 0 || n % B != 0 ||
+      B + 2 * Wp > n || (B + 2 * Wp) % PROBE_PANEL != 0 ||
+      slots != (B + 2 * Wp) / PROBE_PANEL * W_P || (vec != 1 && vec != 4) ||
+      (vec == 4 && (F % 4 || (((uintptr_t)x | (uintptr_t)out) & 15)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int rows_per_block = PANEL_GATHER_THREADS / 32;
+  const int blocks = (n + rows_per_block - 1) / rows_per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const int* ii = static_cast<const int*>(idx);
+  const float* wf = static_cast<const float*>(wgt);
+  float* of = static_cast<float*>(out);
+  if (vec == 4) {
+    panel_ell_gather_kernel<4><<<blocks, PANEL_GATHER_THREADS, 0, s>>>(
+        xf, ii, wf, of, n, F, slots, W_P, B, Wp);
+  } else {
+    panel_ell_gather_kernel<1><<<blocks, PANEL_GATHER_THREADS, 0, s>>>(
+        xf, ii, wf, of, n, F, slots, W_P, B, Wp);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@ Port of ``experiments/panel_ell_probe.py``.  On the TPU, bucketing each
 row's senders by the 128-row panel of its block window cut the one-hot
 build to W_P compare passes a panel.  On Hopper there is no one-hot build,
 and the bucketed table is 3–6× K1's: n_panels·W_P slots a row instead of d.
-``ops/probe_kernels.panel_ell_spmm`` reads the tables as they are, beside
+``ops/probe_kernels.panel_ell_spmm`` reads the tables as they are (a warp
+a row, walking only the filled slots: ``panel_ell_gather``), beside
 the shipped path (``spmm`` through the graph's block-ELL plan, K1).  A
 configuration that drops more than 5% of the edges (escapes from the
 window, or spills beyond W_P in a panel) is skipped, as in the JAX probe.

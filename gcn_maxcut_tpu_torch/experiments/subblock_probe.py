@@ -3,13 +3,14 @@
 Port of ``experiments/subblock_probe.py``.  On the TPU, tiling a B-row
 block into 128-row sub-blocks, each comparing only its slice of the window
 [k·128 − Wp, k·128 + 128 + Wp), cut the one-hot build's compare work.
-Hopper builds no one-hot matrix, and K1's earlier kernel stages 128-row
-slices, so P3 runs on it (``ops/probe_kernels.subblock_spmm``); what the
-slices cost here is the staged re-read, (128 + 2·Wp)/128 rows a row of
-output, against (B + 2·Wp)/B for the whole window.  So each configuration
-also runs the whole-window kernel (``window_gather`` on the wrapped
-window) on the same graph, and the shipped path (``spmm`` through the
-graph's block-ELL plan) when the graph plans.
+Hopper builds no one-hot matrix.  P3's kernel
+(``ops/probe_kernels.subblock_spmm``, ``csrc/subblock_stream.cu``) streams
+a strip of S sub-blocks through a shared-memory ring, each sub-block
+reading only its slice, so x is read (S·128 + 2·Wp)/(S·128) times, where
+staging each slice on its own read it (128 + 2·Wp)/128 times.  Each
+configuration also runs the whole-window kernel (``window_gather`` on the
+wrapped window, (B + 2·Wp)/B) on the same graph, and the shipped path
+(``spmm`` through the graph's block-ELL plan) when the graph plans.
 
     python -m gcn_maxcut_tpu_torch.experiments.subblock_probe [--device cpu --n 4096]
 """
@@ -30,7 +31,11 @@ from gcn_maxcut_tpu_torch.experiments import (
     rel_err,
     roofline_edges_per_s,
 )
-from gcn_maxcut_tpu_torch.ops.probe_kernels import subblock_spmm, window_gather
+from gcn_maxcut_tpu_torch.ops.probe_kernels import (
+    subblock_spmm,
+    subblock_stream_shape,
+    window_gather,
+)
 from gcn_maxcut_tpu_torch.ops.segment import spmm
 
 N, D, F = 100_000, 8, 128
@@ -67,7 +72,7 @@ def window_operands(x: torch.Tensor, sidx: torch.Tensor, B: int, wp: int):
 
 
 def main(n: int = N, iters: int = 10, device=None) -> dict:
-    """P3: 128-row slices on K1's earlier kernel against the whole block window."""
+    """P3: 128-row slices read from a ring against the whole block window."""
     dev = resolve_device(device)
     n_pad = round_up(n, 2048)
     e = n * D
@@ -97,15 +102,15 @@ def main(n: int = N, iters: int = 10, device=None) -> dict:
         far_rows[recv[far]] = True
         keep = torch.from_numpy(~far_rows).to(dev).float()
         xpad, lidx = window_operands(x, ij, B, wp)
+        ring = subblock_stream_shape(n_pad, F, R0, wp, D, 4)
         designs = (
-            ("sub-blocked", R0, lambda: subblock_spmm(x, ij, wj, n_pad, B, wp)),
-            ("whole window", B, lambda: window_gather(xpad, lidx, wj, B, wp)),
+            ("sub-blocked", ring.reads, lambda: subblock_spmm(x, ij, wj, n_pad, B, wp)),
+            ("whole window", (B + 2 * wp) / B, lambda: window_gather(xpad, lidx, wj, B, wp)),
         )
-        for name, rows_per_window, fn in designs:
+        for name, staged, fn in designs:
             err = rel_err(fn(), ref, keep)
             st = time_stats(fn, dev, iters)
             eps = e / st["best_s"]
-            staged = (rows_per_window + 2 * wp) / rows_per_window
             row[name] = {"stats": st, "edges_per_s": eps, "fraction_of_roofline": eps / roof,
                          "relerr": err, "rows_staged_per_row": staged}
             print(f"W={locality} B={B}: {name} {eps:.3e} edges/s ({100 * eps / roof:.0f}% of "

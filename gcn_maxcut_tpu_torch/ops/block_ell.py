@@ -23,8 +23,9 @@ lies outside the receiver's slice (padding slots: sender n − 1, weight 0)
 are skipped, as the one-hot matched nothing for them.
 The outlier correction stays a PyTorch ``index_add_`` after the kernel, as
 it was an XLA scatter outside the Pallas kernel.  The earlier body,
-``csrc/block_ell_window.cu`` (one block stages each sub-block's slice), is
-P3's design and stays its kernel (``_slice_launch``).
+``csrc/block_ell_window.cu`` (one block stages each sub-block's slice),
+stays reachable by ``_slice_launch`` as K1's and P3's earlier body; P3 runs
+its own ring (``ops/probe_kernels.subblock_spmm``).
 
 ``mode`` ("split" or "fast") is accepted for signature parity only: both
 compute in plain float32 here (the TPU's bf16 split undid the MXU's input
@@ -302,8 +303,8 @@ def _launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
 def _slice_launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
                   n: int, block: int, wp: int) -> torch.Tensor:
     """The same sum by ``csrc/block_ell_window.cu``, one block per (R0-row
-    sub-block, column tile) staging its slice: P3's kernel and K1's
-    earlier body, on no op's path of K1."""
+    sub-block, column tile) staging its slice: K1's and P3's earlier
+    body, on no op's path."""
     x, sidx, w = _check(x, sidx, w, n, block, wp)
     r0 = sub_block_rows(block)
     F = x.shape[1]

@@ -1,5 +1,6 @@
 """The SpMM design probes' kernels (P1–P5): wrappers of
-``csrc/probe_kernels.cu`` and their plain PyTorch versions.
+``csrc/probe_kernels.cu`` and ``csrc/subblock_stream.cu`` and their plain
+PyTorch versions.
 
 The JAX package's ``experiments/`` probe K1's and K4's designs on the TPU;
 their ports (``gcn_maxcut_tpu_torch/experiments/``) run on these ops:
@@ -9,24 +10,31 @@ their ports (``gcn_maxcut_tpu_torch/experiments/``) run on these ops:
     zero rows before and after.  x is float32, or bfloat16 summed in
     float32 (the TPU's "default" precision); y is float32.
   * ``subblock_spmm`` (P3): y[i] = Σ_j w[i, j]·x[sidx[i, j]] over the slots
-    whose sender lies in row i's 128-row sub-block slice
-    [s·128 − Wp, s·128 + 128 + Wp) mod n: K1's function on K1's earlier,
-    slice-staging kernel (``ops/block_ell._slice_launch``, P3's design) on
-    P3's exact-degree table.
+    whose sender lies in row i's R0-row sub-block slice
+    [k·R0 − Wp, k·R0 + R0 + Wp) mod n (R0 = ``block_ell.sub_block_rows``):
+    K1's function on P3's exact-degree table.  Its kernel
+    (``csrc/subblock_stream.cu``) streams a strip of sub-blocks through a
+    shared-memory ring, and each sub-block reads only its slice from it
+    (geometry ``subblock_stream_shape``).
   * ``panel_ell_spmm`` (P4): y[i] = Σ_s wgt[i, s]·xwin_i[(s // W_P)·128 +
     idx[i, s]] over slots with 0 ≤ idx < 128, where xwin_i[t] =
-    x[(bi·B − Wp + t) mod n].
+    x[(bi·B − Wp + t) mod n].  Its kernel (``panel_ell_gather``) is a warp
+    gather a row that walks only the filled slots.
   * ``banded_spmm_cols`` (P5a): K4's y[i] = Σ_k wc[k, i]·x[(i + o_k) mod n]
     with column-major [D, n] weights.
 
 Each wrapper runs its plain version on CPU tensors only; on a CUDA tensor
 it launches its kernel or raises, and counts the launch.  The ops are
-forward only: the probes differentiate nothing.
+forward only: the probes differentiate nothing.  P3's and P4's earlier
+bodies (``block_ell_window.cu``, P4's staging ``panel_ell_kernel``) stay
+reachable by ``_subblock_window_launch`` and ``_panel_window_launch``, for
+comparison only, counted under the op's name + ``_window``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Sequence
 
@@ -43,9 +51,19 @@ from gcn_maxcut_tpu_torch.ops.banded import (
 
 # Launches of each CUDA kernel, counted where it launches.
 LAUNCHES = {"window_gather": 0, "panel_ell_spmm": 0, "banded_spmm_cols": 0,
-            "subblock_spmm": 0}
+            "subblock_spmm": 0, "subblock_spmm_window": 0, "panel_ell_spmm_window": 0}
 
 PANEL = 128                  # rows of one P4 panel (csrc PROBE_PANEL)
+PANEL_GATHER_ROWS = 8        # rows (warps) of one panel_ell_gather block
+SMEM_LIMIT = 232_448         # dynamic shared memory one block may use on the H100
+SM_SMEM = 233_472            # the most shared memory one SM holds (of its 256 KB with L1)
+SM_BLOCK_RESERVED = 1024     # shared memory the card reserves for each block
+SM_COUNT = 132               # SMs of the H100 SXM
+# P3's ring (csrc/subblock_stream.cu): the widest column tile and the most
+# threads of a block (csrc SSTREAM_MAX_THREADS), chosen on the H100 by
+# tools/sweep_subblock_stream.py (PERF.md)
+SUBBLOCK_COLS = 64
+SUBBLOCK_THREADS = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -55,8 +73,8 @@ def reset_launches() -> None:
 
 
 @functools.cache
-def _fn(name: str, argtypes: tuple):
-    fn = getattr(build.load("probe_kernels"), name)
+def _fn(name: str, argtypes: tuple, source: str = "probe_kernels"):
+    fn = getattr(build.load(source), name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
@@ -150,7 +168,82 @@ def window_gather(xpad: torch.Tensor, lidx: torch.Tensor, w: torch.Tensor,
     return out
 
 
-# ---- P3: subblock_spmm (K1's kernel) -------------------------------------
+# ---- P3: subblock_spmm ----------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SubblockStreamGeometry:
+    """One launch of ``subblock_stream.cu``: a block of ``threads`` threads
+    owns ``cols`` columns and a strip of ``strip`` sub-blocks of ``r0``
+    rows, streamed through a ring of ``ring_rows`` = 2·r0 + 2·Wp rows (the
+    summed sub-block's slice and the next one's new rows in flight) beside
+    two buffers of one sub-block's [r0, d] table and its [r0, d] (ring
+    slot, weight) pairs.  A thread owns ``vec`` adjacent columns (4:
+    16-byte copies).  ``blocks_per_sm`` blocks fit one SM; the strip is
+    chosen so that the grid fills one wave of them."""
+
+    n: int
+    F: int
+    r0: int
+    wp: int
+    d: int
+    vec: int
+    threads: int
+    cols: int
+    strip: int
+    ring_rows: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        """(strips, column tiles) of the launch."""
+        return -(-(self.n // self.r0) // self.strip), -(-self.F // self.cols)
+
+    @property
+    def reads(self) -> float:
+        """Rows of x read for each row of output, at full strips."""
+        rows = self.strip * self.r0
+        return (rows + 2 * self.wp) / rows
+
+
+def subblock_stream_smem_bytes(ring_rows: int, cols: int, r0: int, d: int) -> int:
+    """The ring (rounded up to 16 bytes), two buffers of a sub-block's
+    sender ids and weights and its (slot, weight) pairs (each array of
+    r0·d 4-byte values rounded up to 16 bytes)."""
+    return (ring_rows * cols * 4 + 15) // 16 * 16 + 6 * ((r0 * d * 4 + 15) // 16 * 16)
+
+
+@functools.cache
+def subblock_stream_shape(n: int, F: int, r0: int, wp: int, d: int,
+                          vec: int) -> SubblockStreamGeometry:
+    """The launch geometry of P3's ring for x [n, F], R0-row sub-blocks,
+    half-window Wp and a d-slot table.  The column tile is all of F up to
+    ``SUBBLOCK_COLS`` columns, halved until the ring fits a block's shared
+    memory; a block has a thread for each (row, column group) of a
+    sub-block, at most ``SUBBLOCK_THREADS``.  The strip is the fewest
+    sub-blocks that fill one wave of ``SM_COUNT`` SMs at the blocks that
+    fit an SM (by shared memory and by threads), so no block waits for a
+    second wave."""
+    if vec not in (1, 4) or F % vec:
+        raise ValueError(f"vec must be 1 or 4 and divide F, got vec={vec}, F={F}")
+    if r0 < 1 or n % r0 or r0 + 2 * wp > n:
+        raise ValueError(f"bad geometry: n={n}, r0={r0}, wp={wp}")
+    ring_rows = 2 * r0 + 2 * wp
+    cols = min(F, SUBBLOCK_COLS) // vec * vec
+    while subblock_stream_smem_bytes(ring_rows, cols, r0, d) > SMEM_LIMIT and cols > vec:
+        cols = max(vec, cols // 2 // vec * vec)
+    smem = subblock_stream_smem_bytes(ring_rows, cols, r0, d)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a ring of {ring_rows} rows does not fit the block's shared memory")
+    threads = min(SUBBLOCK_THREADS, -(-r0 * cols // vec // 32) * 32)
+    per_sm = min(SM_SMEM // (smem + SM_BLOCK_RESERVED), 2048 // threads)
+    tiles = -(-F // cols)
+    strips = max(1, SM_COUNT * per_sm // tiles)
+    strip = -(-(n // r0) // strips)
+    return SubblockStreamGeometry(n=n, F=F, r0=r0, wp=wp, d=d, vec=vec, threads=threads,
+                                  cols=cols, strip=strip, ring_rows=ring_rows,
+                                  smem_bytes=smem, blocks_per_sm=per_sm)
+
 
 def _subblock_geometry(x, sidx, w, n: int, block: int, wp: int) -> None:
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != n:
@@ -171,18 +264,46 @@ def subblock_spmm_plain(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
     return tbell._ell_sum_exact(x, sidx, torch.where(valid, w, 0.0))
 
 
+def _subblock_stream_launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
+                            n: int, block: int, wp: int) -> torch.Tensor:
+    """``subblock_stream_launch`` on checked operands; raises if it fails."""
+    F, d = x.shape[1], sidx.shape[1]
+    out = torch.empty_like(x)
+    vec = 4 if F % 4 == 0 and (x.data_ptr() | out.data_ptr()) % 16 == 0 else 1
+    g = subblock_stream_shape(n, F, tbell.sub_block_rows(block), wp, d, vec)
+    with torch.cuda.device(x.device):
+        err = _fn("subblock_stream_launch", (_P, _P, _P, _P) + (_I,) * 11 + (_P,),
+                  "subblock_stream")(
+            x.data_ptr(), sidx.data_ptr(), w.data_ptr(), out.data_ptr(), n, F, d, wp,
+            g.r0, g.vec, g.strip, g.cols, g.ring_rows, g.threads, g.smem_bytes, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"subblock_stream_launch failed: CUDA error {err}")
+    return out
+
+
 def subblock_spmm(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
                   n: int, block: int, wp: int) -> torch.Tensor:
     """P3's sub-blocked SpMM: x float32 [n, F], absolute sender ids sidx
-    int32 [n, d] and weights w float32 [n, d]; runs the slice kernel
-    (``csrc/block_ell_window.cu``), which stages each 128-row sub-block's
-    slice: the design P3 measures, not K1's streaming kernel."""
+    int32 [n, d] and weights w float32 [n, d]; runs P3's ring
+    (``csrc/subblock_stream.cu``), in which each sub-block reads only its
+    slice: the design P3 measures."""
     if _dispatch("subblock_spmm", x):
         return subblock_spmm_plain(x, sidx, w, n, block, wp)
     _subblock_geometry(x, sidx, w, n, block, wp)
     _check_cuda("subblock_spmm", x, sidx, w)
-    out = tbell._slice_launch(x, sidx, w, n, block, wp)
+    out = _subblock_stream_launch(x, sidx, w, n, block, wp)
     LAUNCHES["subblock_spmm"] += 1
+    return out
+
+
+def _subblock_window_launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
+                            n: int, block: int, wp: int) -> torch.Tensor:
+    """P3's earlier body, ``csrc/block_ell_window.cu`` (each sub-block's
+    slice staged on its own), on CUDA tensors; for comparison only."""
+    _subblock_geometry(x, sidx, w, n, block, wp)
+    _check_cuda("subblock_spmm", x, sidx, w)
+    out = tbell._slice_launch(x, sidx, w, n, block, wp)
+    LAUNCHES["subblock_spmm_window"] += 1
     return out
 
 
@@ -211,13 +332,48 @@ def panel_ell_spmm_plain(x: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
     return tbell._ell_sum_exact(x, rows, torch.where(valid, wgt, 0.0))
 
 
+def panel_gather_shape(n: int, F: int, *, vec4: bool = True) -> tuple[int, int]:
+    """``panel_ell_gather``'s launch: (vec, blocks).  A warp owns one row
+    and each lane ``vec`` adjacent columns, 4 (16-byte loads and stores)
+    when F % 4 == 0 and ``vec4`` (the operands' addresses allow it), else
+    1; blocks of ``PANEL_GATHER_ROWS`` warps cover the n rows."""
+    return (4 if vec4 and F % 4 == 0 else 1), -(-n // PANEL_GATHER_ROWS)
+
+
+def _panel_gather_launch(x: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
+                         n: int, block: int, wp: int, w_p: int) -> torch.Tensor:
+    """``panel_ell_gather_launch`` on checked operands; raises if it fails."""
+    F = x.shape[1]
+    out = torch.empty_like(x)
+    vec, _ = panel_gather_shape(n, F, vec4=(x.data_ptr() | out.data_ptr()) % 16 == 0)
+    with torch.cuda.device(x.device):
+        err = _fn("panel_ell_gather_launch", (_P, _P, _P, _P) + (_I,) * 7 + (_P,))(
+            x.data_ptr(), idx.data_ptr(), wgt.data_ptr(), out.data_ptr(),
+            n, F, idx.shape[1], w_p, block, wp, vec, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"panel_ell_gather_launch failed: CUDA error {err}")
+    return out
+
+
 def panel_ell_spmm(x: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
                    n: int, block: int, wp: int, w_p: int) -> torch.Tensor:
     """P4's kernel: x float32 [n, F], panel-local indices idx int32
     [n, n_panels·W_P] (−1 for an empty slot) and weights wgt float32 of the
-    same shape (``experiments/panel_ell_probe.build_panel_tables``)."""
+    same shape (``experiments/panel_ell_probe.build_panel_tables``); runs
+    ``panel_ell_gather``."""
     if _dispatch("panel_ell_spmm", x):
         return panel_ell_spmm_plain(x, idx, wgt, n, block, wp, w_p)
+    _panel_geometry(x, idx, wgt, n, block, wp, w_p)
+    _check_cuda("panel_ell_spmm", x, idx, wgt)
+    out = _panel_gather_launch(x, idx, wgt, n, block, wp, w_p)
+    LAUNCHES["panel_ell_spmm"] += 1
+    return out
+
+
+def _panel_window_launch(x: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
+                         n: int, block: int, wp: int, w_p: int) -> torch.Tensor:
+    """P4's earlier body, ``panel_ell_kernel`` (the block window staged in
+    shared memory), on CUDA tensors; for comparison only."""
     _panel_geometry(x, idx, wgt, n, block, wp, w_p)
     _check_cuda("panel_ell_spmm", x, idx, wgt)
     F = x.shape[1]
@@ -229,7 +385,7 @@ def panel_ell_spmm(x: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
             n, F, idx.shape[1], w_p, block, wp, fc, _stream(x))
     if err != 0:
         raise RuntimeError(f"panel_ell_launch failed: CUDA error {err}")
-    LAUNCHES["panel_ell_spmm"] += 1
+    LAUNCHES["panel_ell_spmm_window"] += 1
     return out
 
 

@@ -461,41 +461,92 @@ def test_cuda_window_gather_matches_plain(cuda_device, case, dtype):
     assert_kernel_close(y.cpu(), tpk.window_gather_plain(xpad.float(), lidx, w, B, Wp))
 
 
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x on the card that starts 4 bytes past a 16-byte
+    boundary: the kernels take their VEC = 1 path."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16
+    return y
+
+
+# (n, F, B, Wp, misaligned): P3's ring at F = 16 (16-byte copies), R0 = B =
+# 240 at F = 3 and F = 130 (the VEC = 1 path), Wp = 512 at F = 128 (a
+# 1280-row ring), and a misaligned x at F = 16 (VEC = 1)
+SUBBLOCK_CASES = [(2048, 16, 256, 64, False), (1200, 3, 240, 40, False),
+                  (4096, 128, 512, 512, False), (2048, 130, 256, 128, False),
+                  (2048, 16, 256, 64, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,F,B,wp", [(2048, 16, 256, 64), (1200, 3, 240, 40)])
-def test_cuda_subblock_spmm_matches_plain(cuda_device, n, F, B, wp):
+@pytest.mark.parametrize("n,F,B,wp,misaligned", SUBBLOCK_CASES)
+def test_cuda_subblock_spmm_matches_plain(cuda_device, n, F, B, wp, misaligned):
     rng = np.random.default_rng(8)
     i = np.arange(n)[:, None]
     # senders up to 40 rows beyond the slice, across the wrap at both ends
     sidx = torch.tensor(((i + rng.integers(-wp - 40, wp + 41, size=(n, 6))) % n).astype(np.int32))
     w = torch.tensor((rng.random((n, 6)) + 0.5).astype(np.float32))
     x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
-    before = tpk.LAUNCHES["subblock_spmm"]
-    y = tpk.subblock_spmm(x.to(cuda_device), sidx.to(cuda_device), w.to(cuda_device), n, B, wp)
+    xc = _misaligned(x) if misaligned else x.to(cuda_device)
+    sc, wc = sidx.to(cuda_device), w.to(cuda_device)
+    before = dict(tpk.LAUNCHES)
+    y = tpk.subblock_spmm(xc, sc, wc, n, B, wp)
+    earlier = tpk._subblock_window_launch(xc, sc, wc, n, B, wp)
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES["subblock_spmm"] == before + 1
-    assert_kernel_close(y.cpu(), tpk.subblock_spmm_plain(x, sidx, w, n, B, wp))
+    assert tpk.LAUNCHES == {**before, "subblock_spmm": before["subblock_spmm"] + 1,
+                            "subblock_spmm_window": before["subblock_spmm_window"] + 1}
+    # bit for bit: the plain version's slot order and roundings, and the earlier body
+    assert torch.equal(y.cpu(), tpk.subblock_spmm_plain(x, sidx, w, n, B, wp))
+    assert torch.equal(y, earlier)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,F,B,wp,w_p", [(2048, 16, 256, 64, 2), (1536, 130, 384, 64, 3)])
-def test_cuda_panel_ell_spmm_matches_plain(cuda_device, n, F, B, wp, w_p):
+@pytest.mark.parametrize("n,wp", [(100_352, 256), (100_352, 512), (1_048_576, 256)])
+def test_cuda_subblock_stream_blocks_per_sm_match_the_geometry(cuda_device, n, wp):
+    # the strip fills one wave only if the card holds as many blocks an SM
+    # as the geometry counts (chip_smoke.py's P3 shapes)
+    g = tpk.subblock_stream_shape(n, 128, 128, wp, 8, 4)
+    blocks = ctypes.c_int(0)
+    query = tpk._fn("subblock_stream_blocks_per_sm", (ctypes.c_int,) * 3 + (ctypes.c_void_p,),
+                    "subblock_stream")
+    assert query(g.vec, g.threads, g.smem_bytes, ctypes.addressof(blocks)) == 0
+    assert blocks.value == g.blocks_per_sm
+    assert torch.cuda.get_device_properties(0).multi_processor_count == tpk.SM_COUNT
+
+
+# (n, F, B, Wp, W_P, misaligned): 6, 9 and 48 slots (a 1536-row window of
+# 12 panels, two 32-slot passes), F = 130 (the VEC = 1 path in 5 column
+# chunks), Wp = 512, and a misaligned x at F = 128 (VEC = 1)
+PANEL_CASES = [(2048, 16, 256, 64, 2, False), (1536, 130, 384, 64, 3, False),
+               (4096, 128, 512, 512, 4, False), (4096, 128, 512, 512, 4, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,F,B,wp,w_p,misaligned", PANEL_CASES)
+def test_cuda_panel_ell_spmm_matches_plain(cuda_device, n, F, B, wp, w_p, misaligned):
     from gcn_maxcut_tpu_torch.experiments.panel_ell_probe import build_panel_tables
 
     rng = np.random.default_rng(9)
-    edges = _banded_edges(n, 4, wp, 3, [(0, n // 2)])
+    edges = _banded_edges(n, 8 if wp == 512 else 4, wp, 3, [(0, n // 2)])
     s, r = edges[:, 0], edges[:, 1]
     wts = (rng.random(s.shape[0]) + 0.5).astype(np.float32)
     idx, wgt, _, _ = build_panel_tables(s, r, wts, n, B, wp, w_p)
     assert (idx < 0).any() and (idx >= 0).any()
+    assert idx.shape[1] == (B + 2 * wp) // tpk.PANEL * w_p
     x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
     ii, wg = torch.tensor(idx), torch.tensor(wgt)
-    before = tpk.LAUNCHES["panel_ell_spmm"]
-    y = tpk.panel_ell_spmm(x.to(cuda_device), ii.to(cuda_device), wg.to(cuda_device),
-                           n, B, wp, w_p)
+    xc = _misaligned(x) if misaligned else x.to(cuda_device)
+    ic, gc = ii.to(cuda_device), wg.to(cuda_device)
+    before = dict(tpk.LAUNCHES)
+    y = tpk.panel_ell_spmm(xc, ic, gc, n, B, wp, w_p)
+    earlier = tpk._panel_window_launch(xc, ic, gc, n, B, wp, w_p)
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES["panel_ell_spmm"] == before + 1
-    assert_kernel_close(y.cpu(), tpk.panel_ell_spmm_plain(x, ii, wg, n, B, wp, w_p))
+    assert tpk.LAUNCHES == {**before, "panel_ell_spmm": before["panel_ell_spmm"] + 1,
+                            "panel_ell_spmm_window": before["panel_ell_spmm_window"] + 1}
+    # bit for bit: the plain version's slot order and roundings, and the earlier body
+    assert torch.equal(y.cpu(), tpk.panel_ell_spmm_plain(x, ii, wg, n, B, wp, w_p))
+    assert torch.equal(y, earlier)
 
 
 @pytest.mark.cuda
@@ -538,6 +589,36 @@ def test_cuda_probe_kernels_reject_what_they_do_not_take(cuda_device):
         tpk.panel_ell_spmm(x, idx, torch.zeros(n, 4).cpu(), n, B, 64, 2)
     with pytest.raises(ValueError, match="float32"):
         tpk.panel_ell_spmm(x.double(), idx, torch.zeros(n, 4, device=cuda_device), n, B, 64, 2)
+    # the earlier bodies take the same rules
+    with pytest.raises(ValueError, match="lie on"):
+        tpk._subblock_window_launch(x, lidx.cpu(), w, n, B, Wp)
+    with pytest.raises(ValueError, match="slots"):
+        tpk._panel_window_launch(x, idx, torch.zeros(n, 4, device=cuda_device), n, B, 64, 3)
+    # the C launchers refuse what their kernels do not take, and launch nothing
+    before = dict(tpk.LAUNCHES)
+    ring = tpk._fn("subblock_stream_launch", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 11
+                   + (ctypes.c_void_p,), "subblock_stream")
+    gather = tpk._fn("panel_ell_gather_launch", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
+                     + (ctypes.c_void_p,))
+    g = tpk.subblock_stream_shape(n, F, 128, Wp, d, 4)
+    y = torch.empty_like(x)
+    ptrs = (x.data_ptr(), lidx.data_ptr(), w.data_ptr(), y.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    geom = (g.r0, g.vec, g.strip, g.cols, g.ring_rows, g.threads)
+    assert ring(*ptrs, n, F, d, Wp, *geom, g.smem_bytes, stream) == 0
+    assert ring(*ptrs, n, F, d, Wp, *geom, g.smem_bytes + 16, stream) != 0    # smem sum
+    assert ring(*ptrs, n, F, d, Wp, 120, *geom[1:], g.smem_bytes, stream) != 0   # r0 ∤ n
+    assert ring(*ptrs, n, 6, d, Wp, *geom, g.smem_bytes, stream) != 0          # F % 4 at vec 4
+    assert ring(*ptrs, n, F, d, Wp, *geom[:4], g.ring_rows - 1, g.threads, g.smem_bytes,
+                stream) != 0                                                    # ring too short
+    assert ring(*ptrs, n, F, d, Wp, g.r0, 2, *geom[2:], g.smem_bytes, stream) != 0   # vec 2
+    assert ring(*ptrs, n, F, d, Wp, *geom[:5], 48, g.smem_bytes, stream) != 0  # threads % 32
+    assert gather(*ptrs, n, F, 4, 2, B, 64, 4, stream) == 0
+    assert gather(*ptrs, n, 6, 4, 2, B, 64, 4, stream) != 0                    # F % 4 at vec 4
+    assert gather(*ptrs, n, F, 5, 2, B, 64, 1, stream) != 0                    # slot count
+    assert gather(*ptrs, n, F, 4, 2, B, 64, 2, stream) != 0                    # vec
+    torch.cuda.synchronize()
+    assert tpk.LAUNCHES == before
     with pytest.raises(ValueError, match="lie on"):
         tpk.banded_spmm_cols(x, torch.ones(2, n), (1, -1))
     with pytest.raises(ValueError, match="float32"):

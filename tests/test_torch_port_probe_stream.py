@@ -1,0 +1,275 @@
+"""P3 and P4 on the card: P3's ring (``csrc/subblock_stream.cu``) and P4's
+warp gather (``panel_ell_gather`` in ``csrc/probe_kernels.cu``), checked
+here on the CPU.  A pure-Python walk of the ring's schedule and a model of
+the gather's ballot walk are held against the plain versions bit for bit,
+and the ring's launch geometry (``subblock_stream_shape``) is checked at
+every shape ``chip_smoke.py`` and the card tests launch.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gcn_maxcut_tpu_torch.experiments.panel_ell_probe import build_panel_tables
+from gcn_maxcut_tpu_torch.ops import block_ell as tbell
+from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
+
+UNROLL = 4          # csrc/probe_kernels.cu PANEL_GATHER_UNROLL
+
+
+def _ring_walk(x, sidx, w, n, r0, wp, strip, cols):
+    """``subblock_stream.cu``'s schedule in Python.  For each (strip, column
+    tile) block: the prologue loads sub-block 0's slice, then each
+    sub-block first loads the next one's r0 new rows into their ring slots
+    (checked to hold no row that this or a later sub-block reads), turns
+    its table's sender ids into ring slots (−1 outside its slice), then
+    sums its rows in slot order (float32, separate multiply and add
+    roundings) from the ring, reading only its own slice (checked: the
+    slot holds that slice row).  Ring slot t mod R holds strip-local row t,
+    R = 2·r0 + 2·Wp."""
+    F, d = x.shape[1], sidx.shape[1]
+    R, slice_rows = 2 * r0 + 2 * wp, r0 + 2 * wp
+    out = torch.full((n, F), float("nan"))
+    n_sub = n // r0
+    for sub0 in range(0, n_sub, strip):
+        subs = min(strip, n_sub - sub0)
+        s0 = sub0 * r0
+        need = subs * r0 + 2 * wp
+        for c0 in range(0, F, cols):
+            fc = min(cols, F - c0)
+            ring = torch.full((R, fc), float("nan"))
+            holds = torch.full((R,), -1, dtype=torch.long)
+            loaded = []
+
+            def load(t_lo, t_hi, j):
+                for t in range(t_lo, min(t_hi, need)):
+                    # sub-block j reads strip-local rows [j·r0, j·r0 + slice_rows)
+                    assert holds[t % R] < j * r0
+                    q = s0 - wp + t
+                    assert -n <= q < 2 * n          # one wrap
+                    ring[t % R] = x[q % n, c0:c0 + fc]
+                    holds[t % R] = t
+                    loaded.append(t)
+
+            load(0, slice_rows, 0)
+            base = 0
+            for j in range(subs):
+                if j + 1 < subs:                # in flight while sub-block j sums
+                    load((j + 1) * r0 + 2 * wp, (j + 2) * r0 + 2 * wp, j)
+                row0 = s0 + j * r0
+                # the slot pass: each sender id becomes its ring slot, or −1
+                l = sidx[row0:row0 + r0].long() - row0 + wp
+                l = torch.where(l < 0, l + n, torch.where(l >= n, l - n, l))
+                slots = torch.where(base + l >= R, base + l - R, base + l)
+                slots = torch.where((l >= 0) & (l < slice_rows), slots, -1)
+                acc = torch.zeros(r0, fc)
+                for jj in range(d):
+                    ok = slots[:, jj] >= 0
+                    slot = slots[ok, jj]
+                    assert torch.equal(holds[slot], j * r0 + l[ok, jj])
+                    wk = w[row0:row0 + r0, jj:jj + 1][ok]
+                    acc[ok] = acc[ok] + wk * ring[slot]
+                out[row0:row0 + r0, c0:c0 + fc] = acc
+                base = base + r0 - (R if base + r0 >= R else 0)
+            assert sorted(loaded) == list(range(need))      # each row once
+    assert not torch.isnan(out).any()
+    return out
+
+
+def _slice_table(n, d, r0, wp, seed, pad_frac=0.2):
+    """Senders around each receiver's slice, up to 40 rows beyond it at
+    both ends (skipped), across the wrap at row 0 and n − 1, and padding
+    slots (sender n − 1, weight 0), as K1's tables have."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n)[:, None]
+    start = i // r0 * r0
+    sidx = (start - wp + rng.integers(-40, r0 + 2 * wp + 40, size=(n, d))) % n
+    w = (rng.random((n, d)) + 0.5).astype(np.float32)
+    pad = rng.random((n, d)) < pad_frac
+    sidx[pad], w[pad] = n - 1, 0.0
+    return torch.from_numpy(sidx.astype(np.int32)), torch.from_numpy(w)
+
+
+# (n, F, block, wp, d, (strip, cols) or None for the shipped geometry):
+# several strips with a ragged last one and several column tiles, R0 = B =
+# 240 at F = 3 (the VEC = 1 path on the card), a slice as wide as n, F = 16
+# and a column tail (F = 20 in tiles of 8)
+WALKS = [
+    (1024, 16, 256, 64, 6, (3, 8)),
+    (1200, 3, 240, 40, 6, (2, 3)),
+    (1200, 3, 240, 40, 6, None),
+    (2048, 16, 256, 128, 8, (16, 16)),
+    (1152, 8, 128, 512, 4, (4, 8)),
+    (768, 20, 256, 96, 5, (5, 8)),
+    (2048, 16, 512, 256, 8, None),
+]
+
+
+@pytest.mark.parametrize("n,F,block,wp,d,geom", WALKS)
+def test_subblock_ring_walk_equals_plain(n, F, block, wp, d, geom):
+    r0 = tbell.sub_block_rows(block)
+    sidx, w = _slice_table(n, d, r0, wp, seed=n + wp)
+    x = torch.from_numpy(np.random.default_rng(d).normal(size=(n, F)).astype(np.float32))
+    if geom is None:
+        g = tpk.subblock_stream_shape(n, F, r0, wp, d, 4 if F % 4 == 0 else 1)
+        geom = (g.strip, g.cols)
+    got = _ring_walk(x, sidx, w, n, r0, wp, *geom)
+    ref = tpk.subblock_spmm_plain(x, sidx, w, n, block, wp)
+    assert torch.equal(got, ref)
+    # some slots lay outside their slice (unless it spans all n rows), and
+    # some rows read across the wrap
+    start = (torch.arange(n) // r0 * r0)[:, None]
+    valid = (sidx.long() - start + wp) % n < r0 + 2 * wp
+    assert bool(valid.all()) == (r0 + 2 * wp == n)
+    assert bool(((sidx.long() - torch.arange(n)[:, None]).abs() > n // 2).any())
+
+
+def _ballot_walk(x, idx, wgt, n, block, wp, w_p, vec):
+    """``panel_ell_gather``'s walk in Python: a warp a row; for each chunk
+    of 32·vec columns, 32 slots a pass, each lane turns its slot into a
+    source row (one wrap) and weight if filled; the ballot's set bits are
+    taken in ascending order, ``UNROLL`` at a time, and summed in float32
+    with separate multiply and add roundings.  Returns the sums and the
+    number of row loads, which is the filled slots' count (per chunk)."""
+    F, slots = x.shape[1], idx.shape[1]
+    xn, idn, wn = x.numpy(), idx.numpy(), wgt.numpy()
+    out = np.empty((n, F), np.float32)
+    loads = 0
+    for i in range(n):
+        first = i // block * block - wp
+        for c0 in range(0, F, 32 * vec):
+            cols = slice(c0, min(F, c0 + 32 * vec))
+            acc = np.zeros(cols.stop - c0, np.float32)
+            for p0 in range(0, slots, 32):
+                src, ws, mask = [0] * 32, [np.float32(0)] * 32, 0
+                for lane in range(32):
+                    s = p0 + lane
+                    if s < slots and 0 <= idn[i, s] < tpk.PANEL:
+                        q = first + s // w_p * tpk.PANEL + int(idn[i, s])
+                        assert -n <= q < 2 * n
+                        src[lane], ws[lane] = q + n if q < 0 else q - n if q >= n else q, wn[i, s]
+                        mask |= 1 << lane
+                while mask:
+                    taken = []
+                    for _ in range(UNROLL):
+                        if mask:
+                            lane = (mask & -mask).bit_length() - 1
+                            taken.append(lane)
+                            mask &= mask - 1
+                    assert taken == sorted(taken)
+                    rows = [xn[src[lane], cols] for lane in taken]      # in flight together
+                    loads += len(taken)
+                    for lane, row in zip(taken, rows):
+                        acc = acc + ws[lane] * row
+            out[i, cols] = acc
+    return torch.from_numpy(out), loads
+
+
+# (n, F, block, wp, w_p, vec): 48 slots (two 32-slot passes, the second
+# half full), 36 and 24 slots, VEC = 1 with column chunks (F = 40 is two
+# chunks of 32), F = 3, and a row wider than one float4 chunk (F = 136)
+BALLOTS = [
+    (1536, 16, 512, 512, 4, 4),
+    (1536, 8, 512, 512, 3, 4),
+    (1024, 16, 256, 256, 4, 4),
+    (768, 40, 256, 64, 2, 1),
+    (1536, 3, 384, 64, 3, 1),
+    (512, 136, 128, 64, 2, 4),
+]
+
+
+@pytest.mark.parametrize("n,F,block,wp,w_p,vec", BALLOTS)
+def test_panel_ballot_walk_equals_plain(n, F, block, wp, w_p, vec):
+    rng = np.random.default_rng(n + F)
+    i = np.repeat(np.arange(n), 8)
+    s = (i + rng.integers(-wp + 1, wp, size=i.shape[0])) % n
+    s[:7] = (i[:7] + n // 2) % n                 # a few edges escape the window
+    wts = (rng.random(i.shape[0]) + 0.5).astype(np.float32)
+    idx, wgt, _, _ = build_panel_tables(s.astype(np.int64), i.astype(np.int64), wts, n,
+                                        block, wp, w_p)
+    ii, wg = torch.from_numpy(idx), torch.from_numpy(wgt)
+    x = torch.from_numpy(rng.normal(size=(n, F)).astype(np.float32))
+    got, loads = _ballot_walk(x, ii, wg, n, block, wp, w_p, vec)
+    assert torch.equal(got, tpk.panel_ell_spmm_plain(x, ii, wg, n, block, wp, w_p))
+    # empty slots cost no load: one row load per filled slot and column chunk
+    filled = int(((ii >= 0) & (ii < tpk.PANEL)).sum())
+    assert loads == filled * -(-F // (32 * vec))
+    assert 0 < filled < ii.numel()
+
+
+def test_panel_gather_shape():
+    # a warp a row, 8 rows a block; float4 lanes where F and the addresses allow
+    assert tpk.panel_gather_shape(100_352, 128) == (4, 12_544)
+    assert tpk.panel_gather_shape(100_352, 128, vec4=False) == (1, 12_544)
+    assert tpk.panel_gather_shape(1536, 130) == (1, 192)
+    assert tpk.panel_gather_shape(1001, 16) == (4, 126)
+
+
+# (n, F, r0, Wp, d, vec) of every P3 launch: chip_smoke.py's two probe
+# configurations and its past-L2 row, and the card tests' tables
+SHAPES = [
+    (100_352, 128, 128, 256, 8, 4), (100_352, 128, 128, 512, 8, 4),
+    (1_048_576, 128, 128, 256, 8, 4),
+    (2048, 16, 128, 64, 6, 4), (2048, 16, 128, 64, 6, 1), (1200, 3, 240, 40, 6, 1),
+    (4096, 128, 128, 512, 8, 4), (2048, 130, 128, 128, 5, 1),
+]
+
+
+@pytest.mark.parametrize("n,F,r0,wp,d,vec", SHAPES)
+def test_subblock_stream_geometry(n, F, r0, wp, d, vec):
+    g = tpk.subblock_stream_shape(n, F, r0, wp, d, vec)
+    # the C launcher's own sum of the shared memory, within a block's limit
+    tables = -(-r0 * d * 4 // 16) * 16
+    assert g.smem_bytes == -(-g.ring_rows * g.cols * 4 // 16) * 16 + 6 * tables
+    assert g.smem_bytes <= 232_448
+    # the ring holds a sub-block's slice and the next sub-block's rows
+    assert g.ring_rows == 2 * r0 + 2 * wp and r0 + 2 * wp <= n
+    # a thread owns vec columns of one row; a block has whole warps, no
+    # more than a sub-block's (row, column group)s
+    assert g.vec == vec
+    groups = g.cols // vec
+    assert g.cols % vec == 0 and groups <= g.threads <= tpk.SUBBLOCK_THREADS
+    assert g.threads % 32 == 0 and g.threads < r0 * groups + 32
+    assert g.cols <= tpk.SUBBLOCK_COLS
+    # the strips cover all n rows, the last one ragged or full, none empty
+    strips, tiles = g.grid
+    assert strips * g.strip * r0 >= n > (strips - 1) * g.strip * r0
+    assert tiles * g.cols >= F > (tiles - 1) * g.cols
+    # the blocks fit the SMs' shared memory, all in one wave
+    assert g.blocks_per_sm >= 1 and g.blocks_per_sm * g.threads <= 2048
+    assert g.blocks_per_sm * (g.smem_bytes + tpk.SM_BLOCK_RESERVED) <= tpk.SM_SMEM
+    assert strips * tiles <= tpk.SM_COUNT * g.blocks_per_sm
+
+
+def test_subblock_stream_geometry_at_the_probe_shapes():
+    # Wp = 256: a 768-row ring of 64 columns (192 KiB) and six 4 KiB table
+    # arrays, one block of 512 threads an SM; 12 sub-blocks a strip: 66
+    # strips × 2 tiles = 132 blocks, x read (12·128 + 512)/(12·128) = 1.33
+    # times, against 5 times by the earlier body
+    g = tpk.subblock_stream_shape(100_352, 128, 128, 256, 8, 4)
+    assert (g.cols, g.threads, g.strip, g.ring_rows) == (64, 512, 12, 768)
+    assert (g.smem_bytes, g.blocks_per_sm, g.grid) == (221_184, 1, (66, 2))
+    assert g.reads == pytest.approx(4 / 3)
+    # Wp = 512: a 64-column ring of 1280 rows does not fit, so 32 columns
+    # (160 KB): 33 strips of 24 sub-blocks × 4 tiles, against 9 reads before
+    g = tpk.subblock_stream_shape(100_352, 128, 128, 512, 8, 4)
+    assert (g.cols, g.threads, g.strip, g.smem_bytes) == (32, 512, 24, 188_416)
+    assert g.grid == (33, 4) and g.reads == pytest.approx(4 / 3)
+    # past the L2 (n = 1,048,576): strips of 125 sub-blocks, x read 1.03 times
+    g = tpk.subblock_stream_shape(1_048_576, 128, 128, 256, 8, 4)
+    assert g.grid == (66, 2) and g.strip == 125 and g.reads == pytest.approx(1.032)
+
+
+def test_subblock_stream_geometry_rejects_what_does_not_fit():
+    # the tile is halved until the ring fits, else the shape is refused
+    g = tpk.subblock_stream_shape(65_536, 128, 128, 2048, 8, 4)
+    assert g.cols < tpk.SUBBLOCK_COLS and g.smem_bytes <= tpk.SMEM_LIMIT
+    assert tpk.subblock_stream_smem_bytes(g.ring_rows, 2 * g.cols, 128, 8) > tpk.SMEM_LIMIT
+    with pytest.raises(ValueError, match="does not fit"):
+        tpk.subblock_stream_shape(128_000, 4, 128, 30_000, 8, 4)
+    with pytest.raises(ValueError, match="bad geometry"):
+        tpk.subblock_stream_shape(1000, 16, 128, 64, 8, 4)        # r0 does not divide n
+    with pytest.raises(ValueError, match="bad geometry"):
+        tpk.subblock_stream_shape(1024, 16, 128, 512, 8, 4)       # slice wider than n
+    with pytest.raises(ValueError, match="vec"):
+        tpk.subblock_stream_shape(1024, 6, 128, 64, 8, 4)

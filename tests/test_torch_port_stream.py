@@ -2,7 +2,8 @@
 ring) and K1 (``csrc/block_ell_gather.cu``, a direct gather), computed in
 Python and checked here on the CPU for every shape ``chip_smoke.py`` runs,
 and the ops' routing: a tensor off the CPU reaches only those launchers,
-while P3 (``subblock_spmm``) keeps the slice kernel it measures.
+and P3 (``subblock_spmm``) and P4 (``panel_ell_spmm``) only their new
+kernels, not their earlier bodies.
 """
 
 import pytest
@@ -149,14 +150,32 @@ def test_ops_off_the_cpu_reach_only_the_streaming_kernels(monkeypatch):
 
 
 def test_subblock_spmm_keeps_the_slice_kernel(monkeypatch):
-    calls = _on_card(monkeypatch, tbell, "_slice_launch")
+    # P3 measures 128-row slices; off the CPU it runs them from its ring
+    # (csrc/subblock_stream.cu), never the earlier slice-staging body
+    calls = _on_card(monkeypatch, tpk, "_subblock_stream_launch")
+    monkeypatch.setattr(tbell, "_slice_launch", _fail)
     monkeypatch.setattr(tbell, "_launch", _fail)
     monkeypatch.setattr(tpk, "_dispatch", lambda name, x: False)
     monkeypatch.setattr(tpk, "_check_cuda", lambda name, *t: None)
     n, block, wp = 2048, 256, 64
     x = torch.zeros(n, 16)
     sidx = torch.zeros(n, 4, dtype=torch.int32)
-    before = tpk.LAUNCHES["subblock_spmm"]
+    before = dict(tpk.LAUNCHES)
     tpk.subblock_spmm(x, sidx, torch.ones(n, 4), n, block, wp)
-    assert calls == ["_slice_launch"]
-    assert tpk.LAUNCHES["subblock_spmm"] == before + 1
+    assert calls == ["_subblock_stream_launch"]
+    assert tpk.LAUNCHES == {**before, "subblock_spmm": before["subblock_spmm"] + 1}
+
+
+def test_panel_ell_spmm_reaches_only_the_gather(monkeypatch):
+    # P4 off the CPU runs panel_ell_gather, never the staging panel_ell_kernel
+    calls = _on_card(monkeypatch, tpk, "_panel_gather_launch")
+    monkeypatch.setattr(tpk, "_fn", _fail)
+    monkeypatch.setattr(tpk, "_dispatch", lambda name, x: False)
+    monkeypatch.setattr(tpk, "_check_cuda", lambda name, *t: None)
+    n, block, wp, w_p = 2048, 256, 64, 3
+    x = torch.zeros(n, 16)
+    idx = torch.full((n, 3 * w_p), -1, dtype=torch.int32)
+    before = dict(tpk.LAUNCHES)
+    tpk.panel_ell_spmm(x, idx, torch.zeros(n, 3 * w_p), n, block, wp, w_p)
+    assert calls == ["_panel_gather_launch"]
+    assert tpk.LAUNCHES == {**before, "panel_ell_spmm": before["panel_ell_spmm"] + 1}
