@@ -13,8 +13,10 @@ Phases; any failure ends the run with a non-zero exit code:
                 halo mode, K5's and K6's;
                 ``block_ell_window.cu``: K1's and P3's earlier body;
                 ``subblock_stream.cu``: P3's ring; ``probe_kernels.cu``: the
-                probes' window_gather, panel_ell_gather (P4) and its earlier
-                body, and banded_spmm_cols) with nvcc for sm_90a, one nvcc
+                probes' warp gathers (P1/P2's window_warp_gather, P4's
+                panel_ell_gather) and the earlier bodies of P1/P2, P4 and
+                P5a; P5a runs on ``banded_stream.cu`` in its column-weight
+                mode) with nvcc for sm_90a, one nvcc
                 per source, started together, and print the card's name and
                 power limit;
   2. kernels    hold K1 (``block_ell_spmm``: the microbenchmark's plan at
@@ -44,16 +46,19 @@ Phases; any failure ends the run with a non-zero exit code:
                 ``torch.sparse.mm`` of the shard's row operator (bf16 on the
                 values widened to float32);
      probes     hold the design probes' kernels against their plain versions
-                at the probes' sizes (``window_gather`` at every P1 (W, B),
-                float32 and bf16 x, and P2's d = 16; ``subblock_spmm`` on
-                P3's ring at both P3 configurations; ``panel_ell_spmm`` on
-                the gather at every P4 (W, W_P) the 5% rule keeps, both bit
-                for bit against their plain versions and their earlier
-                bodies; ``banded_spmm_cols`` and K4 on every P5 variant's
-                weights), time each beside its bound, its plain version and
-                ``torch.sparse.mm`` (P3, P4 in turns with their earlier
-                bodies); time P3's ring in turns with K1's gather past the
-                L2 (n = 1,048,576, F = 128, x 512 MB); then run the five
+                at the probes' sizes, bit for bit, and against their earlier
+                bodies (``window_gather`` on the warp gather at every P1
+                (W, B), float32 and bf16 x, and P2's d = 16;
+                ``subblock_spmm`` on P3's ring at both P3 configurations;
+                ``panel_ell_spmm`` on the gather at every P4 (W, W_P) the
+                5% rule keeps; ``banded_spmm_cols`` on K4's ring with
+                column weights, and K4 on every P5 variant's weights), time
+                each beside its bound, its plain version,
+                ``torch.sparse.mm`` and, in turns, its earlier body; time
+                P1's function at (255, 512) in float32 on the gather, its
+                earlier body and P3's ring in turns; time P3's ring in turns
+                with K1's gather past the L2 (n = 1,048,576, F = 128, x
+                512 MB); then run the five
                 probe entry points (``gcn_maxcut_tpu_torch.experiments``)
                 and check their launch counts (none on an earlier body) and
                 errors;
@@ -883,6 +888,52 @@ def time_past_l2(torch, np, tpk, tbell, gen) -> dict:
     return row
 
 
+def time_window_ring(torch, np, tpk, gp, gen) -> dict:
+    """P1's function at (W, B) = (255, 512) in float32 on three kernels: the
+    warp gather (``window_gather``), its earlier staging body, and P3's ring
+    (``subblock_spmm`` at B = Wp = 256 on the table's global sender ids, x
+    unpadded: every sender lies within ±255 of its receiver, so in its
+    128-row sub-block's slice).  All three are held bit for bit to the
+    plain version, then timed in turns with ``torch.sparse.mm``; one bound
+    (x padded read once, y written once, the table once)."""
+    W, B, ring_b, ring_wp = 255, 512, 256, 256
+    nbr, lidx, n, wp = gp.block_table(W, B)
+    d, F = lidx.shape[1], gp.F
+    dev = torch.device("cuda")
+    x = torch.randn(n, F, generator=gen, device=dev)
+    xpad = gp.pad_rows(x, wp)
+    li = torch.from_numpy(lidx).to(dev)
+    sidx = torch.from_numpy(nbr.astype(np.int32)).to(dev)
+    w = torch.rand(n, d, generator=gen, device=dev) + 0.5
+    with torch.no_grad():
+        ref = tpk.window_gather_plain(xpad, li, w, B, wp)
+        check(torch.equal(tpk.window_gather(xpad, li, w, B, wp), ref)
+              and torch.equal(tpk._window_gather_window_launch(xpad, li, w, B, wp), ref)
+              and torch.equal(tpk.subblock_spmm(x, sidx, w, n, ring_b, ring_wp), ref),
+              "P1's function: the gather, its earlier body and P3's ring equal the plain version")
+        del ref
+        csr = csr_of(torch, torch.arange(n, device=dev).repeat_interleave(d), sidx.reshape(-1),
+                     w.reshape(-1), n)
+        row = ms_in_turns(torch, {
+            "gather_ms": lambda: tpk.window_gather(xpad, li, w, B, wp),
+            "earlier_ms": lambda: tpk._window_gather_window_launch(xpad, li, w, B, wp),
+            "ring_ms": lambda: tpk.subblock_spmm(x, sidx, w, n, ring_b, ring_wp),
+            "library_ms": lambda: torch.sparse.mm(csr, x),
+        })
+    row.update(n=n, F=F, d=d, W=W, B=B, wp=wp, ring_block=ring_b, ring_wp=ring_wp)
+    bytes_ms = ((n + 2 * wp) * F * 4 + n * F * 4 + n * d * 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n * d * F / F32_OPS_PER_S * 1e3
+    row["bound_ms"] = max(bytes_ms, ops_ms)
+    row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"  P1's function n={n} F={F} d={d} (W, B) = ({W}, {B}) float32: warp gather "
+        f"{row['gather_ms']:.4f} ms, earlier body {row['earlier_ms']:.4f} ms, P3 ring (B = Wp "
+        f"= {ring_wp}) {row['ring_ms']:.4f} ms, sparse.mm {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del x, xpad, li, sidx, w, csr
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> dict:
     """The probes' kernels against their plain versions at the probes'
     sizes, forward only, each timed at every shape.  bf16 x is held against
@@ -896,7 +947,8 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
     F = gp.F
     errors, timings = {}, []
 
-    # P1 at every (W, B), float32 and bf16 x; P2's d = 16 case
+    # P1 at every (W, B), float32 and bf16 x; P2's d = 16 case: the warp
+    # gather bit for bit against its plain version and its earlier body
     tables = [(W, B, gp.block_table(W, B)) for W, B in gp.CONFIGS]
     tables.append((255, 256, gp2.block_table(255, 256, d=16)))
     for W, B, (_, lidx, n_use, Wp) in tables:
@@ -911,18 +963,24 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
             xpad = gp.pad_rows(x, Wp).to(dtype)
             xf = xpad.float()
             y = tpk.window_gather(xpad, li, w, B, Wp)
-            err = check_probe(torch, y, tpk.window_gather_plain(xf, li, w, B, Wp), errors,
-                              "window_gather")
+            ref = tpk.window_gather_plain(xf, li, w, B, Wp)
+            err = check_probe(torch, y, ref, errors, "window_gather")
             case = f"W={W} B={B} d={d} {str(dtype)[6:]} x"
+            check(torch.equal(y, ref) and torch.equal(
+                y, tpk._window_gather_window_launch(xpad, li, w, B, Wp)),
+                f"window_gather equals its plain version and its earlier body at {case}")
             log(f"  window_gather n={n_use} F={F} {case}: max |err| {err:.3g}")
             nbytes = (n_use + 2 * Wp) * F * xpad.element_size() + n_use * F * 4 + n_use * d * 8
             row = probe_timing(torch, "window_gather", case,
                                lambda: tpk.window_gather(xpad, li, w, B, Wp),
                                lambda: tpk.window_gather_plain(xpad, li, w, B, Wp),
-                               csr, xf, nbytes, 2 * n_use * d * F)
+                               csr, xf, nbytes, 2 * n_use * d * F,
+                               earlier=lambda: tpk._window_gather_window_launch(xpad, li, w,
+                                                                                B, Wp))
             timings.append({**row, "W": W, "B": B, "d": d, "n": n_use, "F": F,
                             "dtype": str(dtype)[6:]})
-        del x, li, w, csr, rows, cols, xpad, xf, y
+        del x, li, w, csr, rows, cols, xpad, xf, y, ref
+    window_ring = time_window_ring(torch, np, tpk, gp, gen)
 
     # P3 on its ring and P4 on its gather, on the probes' two graphs, each
     # bit for bit against its plain version and its earlier body
@@ -1010,25 +1068,31 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
     nbytes, ops = 2 * n5 * F * 4 + n5 * D * 4, 2 * n5 * D * F
     for variant in wpr.VARIANTS:
         wv = wpr.variant_weights(w, variant)
+        earlier = None
         if variant == "cols":
             name = "banded_spmm_cols"
             fns = (lambda: tpk.banded_spmm_cols(x, wv, offsets),
                    lambda: tpk.banded_spmm_cols_plain(x, wv, offsets))
+            earlier = lambda: tpk._banded_cols_window_launch(x, wv, offsets)  # noqa: E731
         else:
             name = "banded_spmm (P5b)"
             fns = (lambda: tb.banded_spmm(x, wv, offsets),
                    lambda: tb.banded_spmm_plain(x, wv, offsets))
         with torch.no_grad():
-            err = check_probe(torch, fns[0](), fns[1](), errors, name)
+            y, ref = fns[0](), fns[1]()
+            err = check_probe(torch, y, ref, errors, name)
+            if earlier is not None:
+                check(torch.equal(y, ref) and torch.equal(y, earlier()),
+                      "P5a on K4's ring equals its plain version and its earlier body")
         log(f"  P5 {variant} n={n5} F={F} D={D}: max |err| {err:.3g}")
         if variant in ("cols", "blockw"):
             row = probe_timing(torch, name, f"n={n5} F={F} D={D} {variant}", *fns, csr, x,
-                               nbytes, ops)
+                               nbytes, ops, earlier=earlier)
             timings.append({**row, "n": n5, "F": F, "D": D, "dtype": "float32"})
     del x, w, rows, cols, csr
     torch.cuda.empty_cache()
     return {"max_abs_err": errors, "timings": timings, "panel_configs": panel_ran,
-            "past_l2": past_l2}
+            "past_l2": past_l2, "window_ring": window_ring}
 
 
 def phase_probes(torch, tpk, tb, tbell, probes) -> dict:
@@ -1490,18 +1554,21 @@ def main() -> int:
     probe_timings = report["kernels_probes"]["timings"]
     probe_errors = report["kernels_probes"]["max_abs_err"]
     for label, wrapper, source, replaced, run, counter, err_key, case in [
-        ("P1", "window_gather", PROBE_SOURCE, "experiments/gather_probe.py:169", "gather_probe",
-         "window_gather", "window_gather", "W=255 B=512 d=8 float32 x"),
-        ("P2", "window_gather (bf16 x)", PROBE_SOURCE, "experiments/gather_probe2.py:92",
-         "gather_probe2", "window_gather", "window_gather", "W=255 B=256 d=8 bfloat16 x"),
+        ("P1", "window_gather (window_warp_gather)", PROBE_SOURCE,
+         "experiments/gather_probe.py:169", "gather_probe", "window_gather", "window_gather",
+         "W=255 B=512 d=8 float32 x"),
+        ("P2", "window_gather (window_warp_gather, bf16 x)", PROBE_SOURCE,
+         "experiments/gather_probe2.py:92", "gather_probe2", "window_gather", "window_gather",
+         "W=255 B=256 d=8 bfloat16 x"),
         ("P3", "subblock_spmm (ring)", SUBBLOCK_SOURCE,
          "experiments/subblock_probe.py:123", "subblock_probe", "subblock_spmm",
          "subblock_spmm", "W=255 B=256 Wp=256"),
         ("P4", "panel_ell_spmm (panel_ell_gather)", PROBE_SOURCE,
          "experiments/panel_ell_probe.py:157",
          "panel_ell_probe", "panel_ell_spmm", "panel_ell_spmm", "W=255 B=256 Wp=256 W_P=4"),
-        ("P5a", "banded_spmm_cols", PROBE_SOURCE, "experiments/weighted_probe.py:224",
-         "weighted_probe", "banded_spmm_cols", "banded_spmm_cols", f"n={BANDED_N} F=128 D=8 cols"),
+        ("P5a", "banded_spmm_cols (K4's ring, column weights)", K4_SOURCE,
+         "experiments/weighted_probe.py:224", "weighted_probe", "banded_spmm_cols",
+         "banded_spmm_cols", f"n={BANDED_N} F=128 D=8 cols"),
         ("P5b", "banded_spmm (K4 on w')", K4_SOURCE, "experiments/weighted_probe.py:251",
          "weighted_probe", "banded_spmm", "banded_spmm (P5b)", f"n={BANDED_N} F=128 D=8 blockw"),
     ]:

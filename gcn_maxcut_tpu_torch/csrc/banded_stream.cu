@@ -38,6 +38,20 @@
 // contraction): the arithmetic of the plain PyTorch version
 // (ops/banded.py banded_spmm_plain), so results agree with it bit for bit.
 // No TMA or wgmma: there is no matrix product here.
+//
+// Column-weight mode (P5a).  The same ring also replaces
+// experiments/weighted_probe.py::_kernel in its "cols" variant (the
+// pallas_call in weighted_variant that took the weights as D separate
+// column arrays): K4's function with the weights column-major, wc float32
+// [D, n], out[i, c] = sum_k wc[k, i] * x[(i + o_k) mod n, c].  The weight
+// layout is a compile-time parameter of the kernel; only the weights'
+// copy and the sum's read of them differ.  A chunk's weights are D runs of
+// `rows` floats at wc + k*n + r, copied with cp.async into the same two
+// buffers as [D, chunk]: 16-byte copies where n % 4 == 0 and wc is 16-byte
+// aligned (r is a multiple of the chunk, so every run is), else 4-byte
+// copies.  The buffers hold the same bytes as K4's, so the geometry is
+// ops/banded.py stream_shape unchanged.  Bound: K4's, 2*n*F*4 + n*D*4
+// bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,6 +86,11 @@ static size_t bstream_smem_bytes(int ring_rows, int fc, int chunk, int D) {
   return ((size_t)ring_rows * fc * 4 + 15) / 16 * 16 + (size_t)2 * chunk * D * 4;
 }
 
+// The weights' layout: K4's [n, D] rows or P5a's [D, n] columns.
+#define BSTREAM_ROWS 0
+#define BSTREAM_COLS 1
+
+template <int LAYOUT>
 __global__ void __launch_bounds__(BSTREAM_THREADS)
 banded_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      float* __restrict__ out, int n, int F, int Wp, int chunk,
@@ -110,19 +129,40 @@ banded_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    x + (int64_t)q * F + c0 + col);
     }
   };
-  // Chunk j's weights: one contiguous run of rows * D floats.
+  // Chunk j's weights.  Rows: one contiguous run of rows * D floats, as
+  // [chunk, D].  Columns: D runs of rows floats, one an offset, as
+  // [D, chunk].
   auto load_weights = [&](int j) {
     const int r = s0 + j * chunk;
-    const int count = min(chunk, n - r) * D;
-    const float* src = w + (int64_t)r * D;
     float* dst = wbuf + (size_t)(j & 1) * chunk * D;
-    if ((((uintptr_t)src) & 15) == 0 && count % 4 == 0) {
-      for (int e = threadIdx.x * 4; e < count; e += BSTREAM_THREADS * 4) {
-        bstream_cp16(dst + e, src + e);
+    if constexpr (LAYOUT == BSTREAM_ROWS) {
+      const int count = min(chunk, n - r) * D;
+      const float* src = w + (int64_t)r * D;
+      if ((((uintptr_t)src) & 15) == 0 && count % 4 == 0) {
+        for (int e = threadIdx.x * 4; e < count; e += BSTREAM_THREADS * 4) {
+          bstream_cp16(dst + e, src + e);
+        }
+      } else {
+        for (int e = threadIdx.x; e < count; e += BSTREAM_THREADS) {
+          bstream_cp4(dst + e, src + e);
+        }
       }
     } else {
-      for (int e = threadIdx.x; e < count; e += BSTREAM_THREADS) {
-        bstream_cp4(dst + e, src + e);
+      const int rows = min(chunk, n - r);
+      const float* src = w + r;
+      if ((((uintptr_t)w) & 15) == 0 && n % 4 == 0) {   // then rows % 4 == 0
+        const int pieces = rows / 4;
+        for (int e = threadIdx.x; e < D * pieces; e += BSTREAM_THREADS) {
+          const int k = e / pieces;
+          const int i = (e - k * pieces) * 4;
+          bstream_cp16(dst + k * chunk + i, src + (int64_t)k * n + i);
+        }
+      } else {
+        for (int e = threadIdx.x; e < D * rows; e += BSTREAM_THREADS) {
+          const int k = e / rows;
+          const int i = e - k * rows;
+          bstream_cp4(dst + k * chunk + i, src + (int64_t)k * n + i);
+        }
       }
     }
   };
@@ -153,7 +193,7 @@ banded_stream_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int k = 0; k < D; ++k) {
           int slot = base + Wp + i + offs.o[k];
           if (slot >= ring_rows) slot -= ring_rows;
-          const float wk = wc[i * D + k];
+          const float wk = LAYOUT == BSTREAM_ROWS ? wc[i * D + k] : wc[k * chunk + i];
           const float4 v = *reinterpret_cast<const float4*>(ring + (size_t)slot * fc + col);
           acc[0] = __fadd_rn(acc[0], __fmul_rn(wk, v.x));
           acc[1] = __fadd_rn(acc[1], __fmul_rn(wk, v.y));
@@ -184,17 +224,18 @@ static int bstream_offsets(const int* offsets, int n_offsets, int Wp,
   return 0;
 }
 
-// Plain C entry point of K4, bound with ctypes.  x and out float32 [n, F],
-// w float32 [n, n_offsets], all contiguous on the device; F % 4 == 0 and x
-// and out 16-byte aligned.  The geometry (chunk, strip, fc, ring_rows) and
-// smem_bytes come from ops/banded.py stream_shape; smem_bytes must equal
-// what the kernel uses.  Returns the cudaError_t of the launch (0 on
-// success).
-extern "C" int banded_stream_launch(const void* x, const void* w, void* out,
-                                    int n, int F, const int* offsets,
-                                    int n_offsets, int Wp, int chunk,
-                                    int strip, int fc, int ring_rows,
-                                    int smem_bytes, void* stream) {
+// Plain C entry points, bound with ctypes: K4 (banded_stream_launch) and
+// its column-weight mode, P5a (banded_stream_cols_launch).  x and out
+// float32 [n, F], w float32 [n, n_offsets] (K4) or [n_offsets, n] (P5a),
+// all contiguous on the device; F % 4 == 0 and x and out 16-byte aligned.
+// The geometry (chunk, strip, fc, ring_rows) and smem_bytes come from
+// ops/banded.py stream_shape; smem_bytes must equal what the kernel uses.
+// Each returns the cudaError_t of the launch (0 on success).
+template <int LAYOUT>
+static int bstream_launch(const void* x, const void* w, void* out, int n, int F,
+                          const int* offsets, int n_offsets, int Wp, int chunk,
+                          int strip, int fc, int ring_rows, int smem_bytes,
+                          void* stream) {
   BStreamOffsets offs;
   const int bad = bstream_offsets(offsets, n_offsets, Wp, &offs);
   if (bad) return bad;
@@ -208,12 +249,30 @@ extern "C" int banded_stream_launch(const void* x, const void* w, void* out,
   const size_t smem = (size_t)smem_bytes;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        banded_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        banded_stream_kernel<LAYOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((n + strip - 1) / strip, (F + fc - 1) / fc);
-  banded_stream_kernel<<<grid, BSTREAM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  banded_stream_kernel<LAYOUT><<<grid, BSTREAM_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out),
       n, F, Wp, chunk, strip, fc, ring_rows, offs);
   return (int)cudaGetLastError();
+}
+
+extern "C" int banded_stream_launch(const void* x, const void* w, void* out,
+                                    int n, int F, const int* offsets,
+                                    int n_offsets, int Wp, int chunk,
+                                    int strip, int fc, int ring_rows,
+                                    int smem_bytes, void* stream) {
+  return bstream_launch<BSTREAM_ROWS>(x, w, out, n, F, offsets, n_offsets, Wp, chunk,
+                                      strip, fc, ring_rows, smem_bytes, stream);
+}
+
+extern "C" int banded_stream_cols_launch(const void* x, const void* wc, void* out,
+                                         int n, int F, const int* offsets,
+                                         int n_offsets, int Wp, int chunk,
+                                         int strip, int fc, int ring_rows,
+                                         int smem_bytes, void* stream) {
+  return bstream_launch<BSTREAM_COLS>(x, wc, out, n, F, offsets, n_offsets, Wp, chunk,
+                                      strip, fc, ring_rows, smem_bytes, stream);
 }

@@ -4,10 +4,13 @@
 // aggregation kernels' designs: P1-P4 compute K1's function (a windowed
 // block-ELL gather-sum) from different operand layouts, P5 computes K4's
 // (a weighted banded sum) with different ways of delivering the weights.
-// Three of them need a kernel of their own here; P3 has its own source
-// (csrc/subblock_stream.cu) and P5's row-major variants run on K4's
-// (csrc/banded_stream.cu).  P4 is the gather panel_ell_gather; its earlier
-// body panel_ell_kernel stays for comparison.  Each kernel below sums in
+// P1/P2 (window_warp_gather) and P4 (panel_ell_gather) are warp gathers
+// here, sharing one ballot walk (probe_ballot_sum); P3 has its own source
+// (csrc/subblock_stream.cu) and P5 runs on K4's ring (csrc/banded_stream.cu,
+// P5a in its column-weight mode).  The earlier staging bodies of P1/P2
+// (window_gather_kernel), P4 (panel_ell_kernel) and P5a
+// (banded_cols_kernel) stay for comparison, and banded_cols_kernel for
+// P5a's rows that are not whole 16-byte pieces.  Each kernel below sums in
 // float32 in its plain version's order, with separate multiply and add
 // roundings (ops/probe_kernels.py), so results agree with it bit for bit.
 // No TMA or wgmma: there is no matrix product here.
@@ -65,7 +68,7 @@ __device__ __forceinline__ void probe_stage(T* win, const T* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// window_gather (P1, P2)
+// window_gather (P1, P2): the earlier body
 //
 // Replaces experiments/gather_probe.py::_kernel (pallas_call in
 // proto_block_ell) and experiments/gather_probe2.py::_kernel (pallas_call in
@@ -85,6 +88,9 @@ __device__ __forceinline__ void probe_stage(T* win, const T* __restrict__ x,
 // ~110 MB at Wp = 1024; bf16 x takes ~26 MB off; at d = 16 the tables add
 // 6.4 MB.  The operations need ~3-6 us at 67 TFLOP/s.
 //
+// This is P1/P2's earlier body, kept for comparison with
+// window_warp_gather below (ops/probe_kernels.py
+// _window_gather_window_launch).
 // Design: one block per (B-row block, column tile of Fc columns).  It stages
 // the block's whole [B + 2*Wp, Fc] window in shared memory with coalesced
 // loads, then each thread sums its (row, column) outputs over the row's
@@ -184,6 +190,163 @@ panel_ell_kernel(const float* __restrict__ x, const int* __restrict__ idx,
 }
 
 // ---------------------------------------------------------------------------
+// The warp gathers' walk (panel_ell_gather, window_warp_gather)
+//
+// One warp owns one receiver row; each lane holds one slot of a 32-slot
+// pass: its source row `src` and weight `ws`, and the ballot `mask` of the
+// lanes whose slot is summed.  The warp walks the set bits in ascending
+// order, which is slot order, taking each slot's row and weight from its
+// lane by __shfl_sync; PROBE_GATHER_UNROLL slots are taken together, so
+// their row loads are in flight at once, and are summed after in slot
+// order.  Every lane loads VEC adjacent columns from `col` of each row,
+// widened to float32: 16 bytes of float32 or 8 bytes of bfloat16 at
+// VEC = 4.  Empty slots cost no load and no add.
+#define PROBE_GATHER_THREADS 256
+#define PROBE_GATHER_UNROLL 4
+
+template <typename T, int VEC>
+__device__ __forceinline__ void probe_load_row(const T* __restrict__ p, bool on,
+                                               float (&v)[VEC]) {
+  if constexpr (VEC == 4 && sizeof(T) == 4) {
+    float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (on) f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else if constexpr (VEC == 4) {
+    uint2 raw = make_uint2(0u, 0u);
+    if (on) raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    v[0] = lo.x;
+    v[1] = lo.y;
+    v[2] = hi.x;
+    v[3] = hi.y;
+  } else {
+    v[0] = on ? probe_to_f32(__ldg(p)) : 0.0f;
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void probe_ballot_sum(unsigned mask, int src, float ws,
+                                                 const T* __restrict__ x, int F,
+                                                 int col, bool active,
+                                                 float (&acc)[VEC]) {
+  const unsigned full = 0xffffffffu;
+  while (mask) {                                  // warp-uniform
+    int rows[PROBE_GATHER_UNROLL];
+    float wk[PROBE_GATHER_UNROLL];
+    bool take[PROBE_GATHER_UNROLL];
+#pragma unroll
+    for (int u = 0; u < PROBE_GATHER_UNROLL; ++u) {
+      take[u] = mask != 0;
+      const int from = take[u] ? __ffs(mask) - 1 : 0;
+      mask &= mask - 1;
+      rows[u] = __shfl_sync(full, src, from);
+      wk[u] = __shfl_sync(full, ws, from);
+    }
+    float v[PROBE_GATHER_UNROLL][VEC];
+#pragma unroll
+    for (int u = 0; u < PROBE_GATHER_UNROLL; ++u) {
+      probe_load_row<T, VEC>(x + (int64_t)rows[u] * F + col, take[u] && active, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < PROBE_GATHER_UNROLL; ++u) {
+      if (take[u]) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(wk[u], v[u][e]));
+        }
+      }
+    }
+  }
+}
+
+// One warp computes row i of out [n, F]: for each chunk of 32*VEC columns,
+// the row's `slots` slots in passes of 32, lane j taking slot p0 + j;
+// slot(s, src, ws) says whether slot s is summed and, if so, sets its
+// source row and weight.  Then the ballot walk above, and one store.
+template <typename T, int VEC, typename Slot>
+__device__ __forceinline__ void probe_warp_gather_row(const T* __restrict__ x,
+                                                      float* __restrict__ out,
+                                                      int64_t i, int F, int slots,
+                                                      Slot slot) {
+  const int lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < F; c0 += 32 * VEC) {
+    const int col = c0 + lane * VEC;
+    const bool active = col < F;
+    float acc[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+    for (int p0 = 0; p0 < slots; p0 += 32) {
+      const int s = p0 + lane;
+      int src = 0;
+      float ws = 0.0f;
+      const bool on = s < slots && slot(s, src, ws);
+      probe_ballot_sum<T, VEC>(__ballot_sync(0xffffffffu, on), src, ws, x, F, col, active,
+                               acc);
+    }
+    if (active) {
+      float* dst = out + i * F + col;
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+        dst[0] = acc[0];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// window_warp_gather (P1, P2)
+//
+// The same function as window_gather_kernel above, on the same operands,
+// as a direct gather.  It replaces experiments/gather_probe.py::_kernel
+// (pallas_call in proto_block_ell) and experiments/gather_probe2.py::_kernel
+// (pallas_call in proto):
+//   out[i, c] = sum_j w[i, j] * xpad[bi*B + lidx[i, j], c],   bi = i / B,
+// over the slots with 0 <= lidx < B + 2*Wp, in slot order.
+//
+// Bound on this card: bytes, as above: (n + 2*Wp)*F*el + n*F*4 + n*d*8.
+// At the probes' n = 99,840, F = 128, d = 8: 0.0325 ms in float32 at
+// Wp = 256, 0.0248 in bf16; 0.0344 at d = 16 (3.35 TB/s).
+//
+// Design.  Nothing is staged: the staging body read the window's rows
+// (B + 2*Wp) / B times (2-3x) in column tiles that each re-read the table,
+// and its sums waited on the staging.  At the probes' sizes x is 51 MB in
+// float32 (about the 50 MB L2) and 26 MB in bf16, and every sender lies
+// within +-Wp of its receiver, so a gather reads x from device memory about
+// once and its d-fold reuse from L2, as K1's gather and P4's do.  One warp
+// owns one receiver row; its lanes load the row's d slots once, 32 a pass
+// in coalesced 4-byte loads, and the ballot walk above sums the in-window
+// slots.  At F = 128 and VEC = 4 one pass of the warp reads the whole row
+// (512 bytes in float32, 256 in bf16); no column tiles, so the table is
+// read once.  VEC = 1 takes F % 4 != 0 and misaligned operands, walking
+// rows wider than 32 columns in chunks of 32, each re-reading the table
+// (from L1).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(PROBE_GATHER_THREADS)
+window_warp_gather_kernel(const T* __restrict__ xpad, const int* __restrict__ lidx,
+                          const float* __restrict__ w, float* __restrict__ out,
+                          int n, int F, int d, int B, int Wp) {
+  const int i = blockIdx.x * (PROBE_GATHER_THREADS / 32) + (threadIdx.x >> 5);
+  if (i >= n) return;                             // the whole warp
+  const int row0 = i / B * B;
+  const int win_rows = B + 2 * Wp;
+  const int* lrow = lidx + (int64_t)i * d;
+  const float* wrow = w + (int64_t)i * d;
+  // a slot is summed if its window row lies in the window
+  probe_warp_gather_row<T, VEC>(xpad, out, i, F, d, [&](int s, int& src, float& ws) {
+    const int l = __ldg(lrow + s);
+    if ((unsigned)l >= (unsigned)win_rows) return false;
+    src = row0 + l;
+    ws = __ldg(wrow + s);
+    return true;
+  });
+}
+
+// ---------------------------------------------------------------------------
 // panel_ell_gather (P4)
 //
 // The same function as panel_ell_kernel above, on the same tables, as a
@@ -201,111 +364,40 @@ panel_ell_kernel(const float* __restrict__ x, const int* __restrict__ idx,
 // staged ring there.  One warp owns one receiver row.  Its lanes load the
 // row's slot table once, for all of F, 32 slots a pass in coalesced 4-byte
 // loads (lane j takes slot p0 + j), and each lane turns its slot into a
-// source row.  __ballot_sync marks the filled slots; the warp walks the set
-// bits in ascending order, which is slot order, and takes each slot's row
-// and weight from its lane by __shfl_sync.  Empty slots (2/3 to 5/6 of
-// build_panel_tables' slots at d = 8) cost no load of x and no add.  Then
-// every lane loads VEC columns of that row: at F = 128 and VEC = 4 the warp
-// reads the 512-byte row in one coalesced pass.  PANEL_GATHER_UNROLL
-// filled slots are taken together, so their row loads are in flight at
-// once, and are summed after in slot order.  VEC = 1 takes rows that are
-// not whole 16-byte pieces or misaligned operands; rows wider than 32*VEC
-// columns are walked in chunks of that width, each re-reading the table
-// (from L1).
-#define PANEL_GATHER_THREADS 256
-#define PANEL_GATHER_UNROLL 4
-
+// source row; the ballot walk above sums the filled slots.  Empty slots
+// (2/3 to 5/6 of build_panel_tables' slots at d = 8) cost no load of x and
+// no add.  At F = 128 and VEC = 4 the warp reads the 512-byte row in one
+// coalesced pass.  VEC = 1 takes rows that are not whole 16-byte pieces or
+// misaligned operands; rows wider than 32*VEC columns are walked in chunks
+// of that width, each re-reading the table (from L1).
 template <int VEC>
-__global__ void __launch_bounds__(PANEL_GATHER_THREADS)
+__global__ void __launch_bounds__(PROBE_GATHER_THREADS)
 panel_ell_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                         const float* __restrict__ wgt, float* __restrict__ out,
                         int n, int F, int slots, int W_P, int B, int Wp) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * (PANEL_GATHER_THREADS / 32) + (threadIdx.x >> 5);
+  const int i = blockIdx.x * (PROBE_GATHER_THREADS / 32) + (threadIdx.x >> 5);
   if (i >= n) return;                             // the whole warp
   const int first = i / B * B - Wp;
   const int* irow = idx + (int64_t)i * slots;
   const float* wrow = wgt + (int64_t)i * slots;
-
-  for (int c0 = 0; c0 < F; c0 += 32 * VEC) {
-    const int col = c0 + lane * VEC;
-    const bool active = col < F;
-    float acc[VEC];
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
-    for (int p0 = 0; p0 < slots; p0 += 32) {
-      // lane j's slot: its source row and weight, if filled
-      const int s = p0 + lane;
-      int src = 0;
-      float ws = 0.0f;
-      bool filled = false;
-      if (s < slots) {
-        const int k = __ldg(irow + s);
-        filled = (unsigned)k < (unsigned)PROBE_PANEL;
-        if (filled) {
-          int q = first + s / W_P * PROBE_PANEL + k;
-          if (q < 0) {
-            q += n;
-          } else if (q >= n) {
-            q -= n;
-          }
-          src = q;
-          ws = __ldg(wrow + s);
-        }
-      }
-      unsigned mask = __ballot_sync(full, filled);
-      while (mask) {                              // warp-uniform
-        int rows[PANEL_GATHER_UNROLL];
-        float wk[PANEL_GATHER_UNROLL];
-        bool take[PANEL_GATHER_UNROLL];
-#pragma unroll
-        for (int u = 0; u < PANEL_GATHER_UNROLL; ++u) {
-          take[u] = mask != 0;
-          const int from = take[u] ? __ffs(mask) - 1 : 0;
-          mask &= mask - 1;
-          rows[u] = __shfl_sync(full, src, from);
-          wk[u] = __shfl_sync(full, ws, from);
-        }
-        float v[PANEL_GATHER_UNROLL][VEC];
-#pragma unroll
-        for (int u = 0; u < PANEL_GATHER_UNROLL; ++u) {
-          const float* p = x + (int64_t)rows[u] * F + col;
-          if constexpr (VEC == 4) {
-            float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (take[u] && active) f = __ldg(reinterpret_cast<const float4*>(p));
-            v[u][0] = f.x;
-            v[u][1] = f.y;
-            v[u][2] = f.z;
-            v[u][3] = f.w;
-          } else {
-            v[u][0] = (take[u] && active) ? __ldg(p) : 0.0f;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < PANEL_GATHER_UNROLL; ++u) {
-          if (take[u]) {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) {
-              acc[e] = __fadd_rn(acc[e], __fmul_rn(wk[u], v[u][e]));
-            }
-          }
-        }
-      }
+  // a slot is summed if filled; its source row is taken mod n (one wrap)
+  probe_warp_gather_row<float, VEC>(x, out, i, F, slots, [&](int s, int& src, float& ws) {
+    const int k = __ldg(irow + s);
+    if ((unsigned)k >= (unsigned)PROBE_PANEL) return false;
+    int q = first + s / W_P * PROBE_PANEL + k;
+    if (q < 0) {
+      q += n;
+    } else if (q >= n) {
+      q -= n;
     }
-    if (active) {
-      float* dst = out + (int64_t)i * F + col;
-      if constexpr (VEC == 4) {
-        *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-      } else {
-        dst[0] = acc[0];
-      }
-    }
-  }
+    src = q;
+    ws = __ldg(wrow + s);
+    return true;
+  });
 }
 
 // ---------------------------------------------------------------------------
-// banded_spmm_cols (P5a)
+// banded_spmm_cols (P5a): the earlier body
 //
 // Replaces experiments/weighted_probe.py::_kernel in its "cols" variant (the
 // pallas_call in weighted_variant that takes the weights as D separate
@@ -317,7 +409,11 @@ panel_ell_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx
 // at n = 131,072, F = 128, D = 8, ~138 MB, ~0.041 ms at 3.35 TB/s; the
 // operations ~4 us at 67 TFLOP/s.
 //
-// Design: K4's tiling (ops/banded.py tile_shape, the caller's), so the two
+// This is P5a's earlier body.  P5a now runs K4's ring in its column-weight
+// mode (csrc/banded_stream.cu banded_stream_cols_launch); this body runs
+// only rows that are not whole 16-byte pieces or misaligned operands, and,
+// for comparison, ops/probe_kernels.py _banded_cols_window_launch.
+// Design: K4's earlier tiling (ops/banded.py tile_shape, the caller's), so the two
 // differ in the weights' layout alone.  A block stages its [rows + 2*Wp,
 // cols] window (wrap rows included) and its [D, rows] weights in shared
 // memory; in this layout each offset's weights are one contiguous run of
@@ -416,6 +512,48 @@ extern "C" int window_gather_launch(const void* xpad, const void* lidx,
   return (int)cudaGetLastError();
 }
 
+// The same operands as window_gather_launch, for window_warp_gather: vec 4
+// needs F % 4 == 0, xpad aligned to 4 elements (16 bytes in float32, 8 in
+// bfloat16) and out 16-byte aligned, else vec 1.  One warp a row.
+extern "C" int window_warp_gather_launch(const void* xpad, const void* lidx,
+                                         const void* w, void* out, int n_rows,
+                                         int F, int d, int B, int Wp, int vec,
+                                         int dtype, void* stream) {
+  const int el = dtype == 1 ? 2 : 4;
+  if (n_rows < 1 || F < 1 || d < 1 || B < 1 || Wp < 0 || n_rows % B != 0 ||
+      (dtype != 0 && dtype != 1) || (vec != 1 && vec != 4) ||
+      (vec == 4 && (F % 4 || ((uintptr_t)xpad & (4 * el - 1)) ||
+                    ((uintptr_t)out & 15)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int rows_per_block = PROBE_GATHER_THREADS / 32;
+  const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* li = static_cast<const int*>(lidx);
+  const float* wf = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  if (dtype == 0) {
+    const float* xf = static_cast<const float*>(xpad);
+    if (vec == 4) {
+      window_warp_gather_kernel<float, 4><<<blocks, PROBE_GATHER_THREADS, 0, s>>>(
+          xf, li, wf, o, n_rows, F, d, B, Wp);
+    } else {
+      window_warp_gather_kernel<float, 1><<<blocks, PROBE_GATHER_THREADS, 0, s>>>(
+          xf, li, wf, o, n_rows, F, d, B, Wp);
+    }
+  } else {
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(xpad);
+    if (vec == 4) {
+      window_warp_gather_kernel<__nv_bfloat16, 4><<<blocks, PROBE_GATHER_THREADS, 0, s>>>(
+          xb, li, wf, o, n_rows, F, d, B, Wp);
+    } else {
+      window_warp_gather_kernel<__nv_bfloat16, 1><<<blocks, PROBE_GATHER_THREADS, 0, s>>>(
+          xb, li, wf, o, n_rows, F, d, B, Wp);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 // x and out float32 [n, F]; idx int32 and wgt float32 [n, slots] with
 // slots = ((B + 2*Wp) / 128) * W_P; B divides n, B + 2*Wp <= n.
 extern "C" int panel_ell_launch(const void* x, const void* idx,
@@ -451,7 +589,7 @@ extern "C" int panel_ell_gather_launch(const void* x, const void* idx,
       (vec == 4 && (F % 4 || (((uintptr_t)x | (uintptr_t)out) & 15)))) {
     return (int)cudaErrorInvalidValue;
   }
-  const int rows_per_block = PANEL_GATHER_THREADS / 32;
+  const int rows_per_block = PROBE_GATHER_THREADS / 32;
   const int blocks = (n + rows_per_block - 1) / rows_per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
@@ -459,10 +597,10 @@ extern "C" int panel_ell_gather_launch(const void* x, const void* idx,
   const float* wf = static_cast<const float*>(wgt);
   float* of = static_cast<float*>(out);
   if (vec == 4) {
-    panel_ell_gather_kernel<4><<<blocks, PANEL_GATHER_THREADS, 0, s>>>(
+    panel_ell_gather_kernel<4><<<blocks, PROBE_GATHER_THREADS, 0, s>>>(
         xf, ii, wf, of, n, F, slots, W_P, B, Wp);
   } else {
-    panel_ell_gather_kernel<1><<<blocks, PANEL_GATHER_THREADS, 0, s>>>(
+    panel_ell_gather_kernel<1><<<blocks, PROBE_GATHER_THREADS, 0, s>>>(
         xf, ii, wf, of, n, F, slots, W_P, B, Wp);
   }
   return (int)cudaGetLastError();

@@ -20,7 +20,9 @@ tiles, as the TPU kernel stages it (K2: the views x[m - Wp:] and x[:Wp];
 K3: those rows of the [m, r·F] view with their lane groups rotated by ±F),
 and the kernel sums pure row shifts of x and the tiles.  K4 runs
 ``csrc/banded_stream.cu``, which streams each strip of rows through a
-shared-memory ring once (geometry: ``stream_shape``).  Both take only
+shared-memory ring once (geometry: ``stream_shape``); its column-weight
+mode (``_stream_call(cols=True)``) runs P5a, K4's function on [D, n]
+weights (``ops/probe_kernels.banded_spmm_cols``).  Both take only
 rows of whole 16-byte pieces with 16-byte aligned operands; anything else
 (F = 3 float32, a misaligned view) runs the earlier body,
 ``csrc/banded_window.cu`` (``_launch``), by that one rule of shape and
@@ -168,8 +170,10 @@ def _weighted_kernel():
 
 
 @functools.cache
-def _stream_kernel():
-    fn = build.load("banded_stream").banded_stream_launch
+def _stream_kernel(entry: str = "banded_stream_launch"):
+    """K4's C entry point, or P5a's ``banded_stream_cols_launch``: the
+    same arguments, the weights [n, D] or [D, n]."""
+    fn = getattr(build.load("banded_stream"), entry)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
@@ -200,24 +204,33 @@ def _check_weighted(x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int]) ->
     return wp
 
 
-def _stream_launch(x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
-    """K4: ``banded_stream_launch`` on contiguous float32 x [n, F] and
-    w [n, D] on the card, in ``stream_shape``'s geometry, counted under
-    "banded_spmm".  x's rows must be whole 16-byte pieces and x 16-byte
-    aligned (``_vec16``): the kernel refuses anything else."""
-    wp = _check_weighted(x, w, offsets)
+def _stream_call(x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int], wp: int, *,
+                 cols: bool = False) -> torch.Tensor:
+    """One launch of ``banded_stream.cu`` in ``stream_shape``'s geometry on
+    checked contiguous float32 operands on the card: K4's weights w [n, D],
+    or with ``cols`` P5a's column-major wc [D, n].  x's rows must be whole
+    16-byte pieces and x 16-byte aligned (``_vec16``): the kernel refuses
+    anything else.  Raises if the launch fails; the caller counts it."""
     n, F = x.shape
-    out = torch.empty_like(x)
     geom = stream_shape(n, F, wp, len(offsets))
+    out = torch.empty_like(x)
     offs = (ctypes.c_int * len(offsets))(*[int(o) for o in offsets])
+    entry = "banded_stream_cols_launch" if cols else "banded_stream_launch"
     with torch.cuda.device(x.device):
-        err = _stream_kernel()(
+        err = _stream_kernel(entry)(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), n, F, offs, len(offsets), wp,
             geom.chunk, geom.strip, geom.cols, geom.ring_rows, geom.smem_bytes,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"banded_stream_launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
+    return out
+
+
+def _stream_launch(x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
+    """K4: ``banded_stream_launch`` on contiguous float32 x [n, F] and
+    w [n, D] on the card, counted under "banded_spmm"."""
+    out = _stream_call(x, w, offsets, _check_weighted(x, w, offsets))
     LAUNCHES["banded_spmm"] += 1
     return out
 

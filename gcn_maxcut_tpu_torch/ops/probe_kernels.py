@@ -1,6 +1,6 @@
 """The SpMM design probes' kernels (P1–P5): wrappers of
-``csrc/probe_kernels.cu`` and ``csrc/subblock_stream.cu`` and their plain
-PyTorch versions.
+``csrc/probe_kernels.cu``, ``csrc/subblock_stream.cu`` and K4's
+``csrc/banded_stream.cu`` (P5a), and their plain PyTorch versions.
 
 The JAX package's ``experiments/`` probe K1's and K4's designs on the TPU;
 their ports (``gcn_maxcut_tpu_torch/experiments/``) run on these ops:
@@ -8,7 +8,9 @@ their ports (``gcn_maxcut_tpu_torch/experiments/``) run on these ops:
   * ``window_gather`` (P1, P2): y[i] = Σ_j w[i, j]·xpad[bi·B + lidx[i, j]],
     bi = i // B, over slots with 0 ≤ lidx < B + 2·Wp; xpad is x with Wp
     zero rows before and after.  x is float32, or bfloat16 summed in
-    float32 (the TPU's "default" precision); y is float32.
+    float32 (the TPU's "default" precision); y is float32.  Its kernel
+    (``window_warp_gather``) is a warp gather a row that walks only the
+    in-window slots.
   * ``subblock_spmm`` (P3): y[i] = Σ_j w[i, j]·x[sidx[i, j]] over the slots
     whose sender lies in row i's R0-row sub-block slice
     [k·R0 − Wp, k·R0 + R0 + Wp) mod n (R0 = ``block_ell.sub_block_rows``):
@@ -21,14 +23,19 @@ their ports (``gcn_maxcut_tpu_torch/experiments/``) run on these ops:
     x[(bi·B − Wp + t) mod n].  Its kernel (``panel_ell_gather``) is a warp
     gather a row that walks only the filled slots.
   * ``banded_spmm_cols`` (P5a): K4's y[i] = Σ_k wc[k, i]·x[(i + o_k) mod n]
-    with column-major [D, n] weights.
+    with column-major [D, n] weights, on K4's ring in its column-weight
+    mode (``ops/banded._stream_call``).
 
 Each wrapper runs its plain version on CPU tensors only; on a CUDA tensor
 it launches its kernel or raises, and counts the launch.  The ops are
-forward only: the probes differentiate nothing.  P3's and P4's earlier
-bodies (``block_ell_window.cu``, P4's staging ``panel_ell_kernel``) stay
-reachable by ``_subblock_window_launch`` and ``_panel_window_launch``, for
-comparison only, counted under the op's name + ``_window``.
+forward only: the probes differentiate nothing.  The earlier bodies of
+P1/P2 (the staging ``window_gather_kernel``), P3 (``block_ell_window.cu``),
+P4 (the staging ``panel_ell_kernel``) and P5a (``banded_cols_kernel``) stay
+reachable by ``_window_gather_window_launch``, ``_subblock_window_launch``,
+``_panel_window_launch`` and ``_banded_cols_window_launch``, for comparison
+only, counted under the op's name + ``_window``.  P5a's rows that are not
+whole 16-byte pieces, or a misaligned x, run its earlier body by K4's
+shape rule (``halo_stream._vec16``).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from typing import Sequence
 import torch
 
 from gcn_maxcut_tpu_torch import build
+from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
 from gcn_maxcut_tpu_torch.ops.banded import (
     MAX_OFFSETS,
@@ -48,13 +56,16 @@ from gcn_maxcut_tpu_torch.ops.banded import (
     padded_bandwidth,
     tile_shape,
 )
+from gcn_maxcut_tpu_torch.ops.halo_stream import _vec16
 
-# Launches of each CUDA kernel, counted where it launches.
+# Launches of each CUDA kernel, counted where it launches: under the op's
+# name, and under the op's name + "_window" for its earlier body.
 LAUNCHES = {"window_gather": 0, "panel_ell_spmm": 0, "banded_spmm_cols": 0,
-            "subblock_spmm": 0, "subblock_spmm_window": 0, "panel_ell_spmm_window": 0}
+            "subblock_spmm": 0, "window_gather_window": 0, "subblock_spmm_window": 0,
+            "panel_ell_spmm_window": 0, "banded_spmm_cols_window": 0}
 
 PANEL = 128                  # rows of one P4 panel (csrc PROBE_PANEL)
-PANEL_GATHER_ROWS = 8        # rows (warps) of one panel_ell_gather block
+GATHER_ROWS = 8              # rows (warps) of one warp-gather block (csrc PROBE_GATHER_THREADS / 32)
 SMEM_LIMIT = 232_448         # dynamic shared memory one block may use on the H100
 SM_SMEM = 233_472            # the most shared memory one SM holds (of its 256 KB with L1)
 SM_BLOCK_RESERVED = 1024     # shared memory the card reserves for each block
@@ -146,13 +157,56 @@ def window_gather_plain(xpad: torch.Tensor, lidx: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def warp_gather_shape(n: int, F: int, *, vec4: bool = True) -> tuple[int, int]:
+    """The warp gathers' launch (``window_warp_gather``, ``panel_ell_gather``):
+    (vec, blocks).  A warp owns one row and each lane ``vec`` adjacent
+    columns, 4 (16-byte float32 or 8-byte bfloat16 loads, 16-byte stores)
+    when F % 4 == 0 and ``vec4`` (the operands' addresses allow it), else
+    1; blocks of ``GATHER_ROWS`` warps cover the n rows."""
+    return (4 if vec4 and F % 4 == 0 else 1), -(-n // GATHER_ROWS)
+
+
+def _aligned4(*tensors: torch.Tensor) -> bool:
+    """Every operand starts at a multiple of 4 of its elements: the warp
+    gathers' VEC = 4 loads and stores (16 bytes of float32, 8 of bfloat16)
+    are aligned."""
+    return all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+
+
+def _window_warp_launch(xpad: torch.Tensor, lidx: torch.Tensor, w: torch.Tensor,
+                        n: int, block: int, wp: int) -> torch.Tensor:
+    """``window_warp_gather_launch`` on checked operands; raises if it fails."""
+    F, d = xpad.shape[1], lidx.shape[1]
+    out = torch.empty((n, F), dtype=torch.float32, device=xpad.device)
+    vec, _ = warp_gather_shape(n, F, vec4=_aligned4(xpad, out))
+    with torch.cuda.device(xpad.device):
+        err = _fn("window_warp_gather_launch", (_P, _P, _P, _P) + (_I,) * 7 + (_P,))(
+            xpad.data_ptr(), lidx.data_ptr(), w.data_ptr(), out.data_ptr(),
+            n, F, d, block, wp, vec, _DTYPE_CODES[xpad.dtype], _stream(xpad))
+    if err != 0:
+        raise RuntimeError(f"window_warp_gather_launch failed: CUDA error {err}")
+    return out
+
+
 def window_gather(xpad: torch.Tensor, lidx: torch.Tensor, w: torch.Tensor,
                   block: int, wp: int) -> torch.Tensor:
     """P1/P2's kernel: y [n, F] float32 from xpad [n + 2·wp, F] (float32 or
     bfloat16), block-local indices lidx int32 [n, d] and weights w float32
-    [n, d]; n a multiple of ``block``."""
+    [n, d]; n a multiple of ``block``.  Runs ``window_warp_gather``."""
     if _dispatch("window_gather", xpad):
         return window_gather_plain(xpad, lidx, w, block, wp)
+    n = _window_geometry(xpad, lidx, w, block, wp)
+    _check_cuda("window_gather", xpad, lidx, w)
+    out = _window_warp_launch(xpad, lidx, w, n, block, wp)
+    LAUNCHES["window_gather"] += 1
+    return out
+
+
+def _window_gather_window_launch(xpad: torch.Tensor, lidx: torch.Tensor, w: torch.Tensor,
+                                 block: int, wp: int) -> torch.Tensor:
+    """P1/P2's earlier body, ``window_gather_kernel`` (the block window
+    staged in shared memory, in column tiles), on CUDA tensors; for
+    comparison only."""
     n = _window_geometry(xpad, lidx, w, block, wp)
     _check_cuda("window_gather", xpad, lidx, w)
     F, d = xpad.shape[1], lidx.shape[1]
@@ -164,7 +218,7 @@ def window_gather(xpad: torch.Tensor, lidx: torch.Tensor, w: torch.Tensor,
             n, F, d, block, wp, fc, _DTYPE_CODES[xpad.dtype], _stream(xpad))
     if err != 0:
         raise RuntimeError(f"window_gather_launch failed: CUDA error {err}")
-    LAUNCHES["window_gather"] += 1
+    LAUNCHES["window_gather_window"] += 1
     return out
 
 
@@ -332,20 +386,12 @@ def panel_ell_spmm_plain(x: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
     return tbell._ell_sum_exact(x, rows, torch.where(valid, wgt, 0.0))
 
 
-def panel_gather_shape(n: int, F: int, *, vec4: bool = True) -> tuple[int, int]:
-    """``panel_ell_gather``'s launch: (vec, blocks).  A warp owns one row
-    and each lane ``vec`` adjacent columns, 4 (16-byte loads and stores)
-    when F % 4 == 0 and ``vec4`` (the operands' addresses allow it), else
-    1; blocks of ``PANEL_GATHER_ROWS`` warps cover the n rows."""
-    return (4 if vec4 and F % 4 == 0 else 1), -(-n // PANEL_GATHER_ROWS)
-
-
 def _panel_gather_launch(x: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
                          n: int, block: int, wp: int, w_p: int) -> torch.Tensor:
     """``panel_ell_gather_launch`` on checked operands; raises if it fails."""
     F = x.shape[1]
     out = torch.empty_like(x)
-    vec, _ = panel_gather_shape(n, F, vec4=(x.data_ptr() | out.data_ptr()) % 16 == 0)
+    vec, _ = warp_gather_shape(n, F, vec4=_aligned4(x, out))
     with torch.cuda.device(x.device):
         err = _fn("panel_ell_gather_launch", (_P, _P, _P, _P) + (_I,) * 7 + (_P,))(
             x.data_ptr(), idx.data_ptr(), wgt.data_ptr(), out.data_ptr(),
@@ -416,10 +462,29 @@ def banded_spmm_cols_plain(x: torch.Tensor, wc: torch.Tensor,
 def banded_spmm_cols(x: torch.Tensor, wc: torch.Tensor,
                      offsets: Sequence[int]) -> torch.Tensor:
     """P5a's kernel: y[i] = Σ_k wc[k, i]·x[(i + o_k) mod n] on float32
-    x [n, F] and column-major weights wc [D, n], on K4's tiling."""
+    x [n, F] and column-major weights wc [D, n], on K4's ring in its
+    column-weight mode.  K4's rule (``ops/banded._weighted_raw``): rows
+    that are not whole 16-byte pieces, or a misaligned x, run the earlier
+    body.  A failed launch raises."""
     offsets = tuple(int(o) for o in offsets)
     if _dispatch("banded_spmm_cols", x):
         return banded_spmm_cols_plain(x, wc, offsets)
+    wp = _cols_geometry(x, wc, offsets)
+    _check_cuda("banded_spmm_cols", x, wc)
+    if not _vec16(x.shape[1], x.element_size(), x):
+        return _banded_cols_window_launch(x, wc, offsets)
+    out = tb._stream_call(x, wc, offsets, wp, cols=True)
+    LAUNCHES["banded_spmm_cols"] += 1
+    return out
+
+
+def _banded_cols_window_launch(x: torch.Tensor, wc: torch.Tensor,
+                               offsets: Sequence[int]) -> torch.Tensor:
+    """P5a's earlier body, ``banded_cols_kernel`` (K4's earlier tiling, each
+    tile's window and [D, rows] weights staged), on CUDA tensors: the
+    route of rows that are not whole 16-byte pieces, else for comparison
+    only."""
+    offsets = tuple(int(o) for o in offsets)
     wp = _cols_geometry(x, wc, offsets)
     _check_cuda("banded_spmm_cols", x, wc)
     n, F = x.shape
@@ -433,5 +498,5 @@ def banded_spmm_cols(x: torch.Tensor, wc: torch.Tensor,
             wp, rows, cols, _stream(x))
     if err != 0:
         raise RuntimeError(f"banded_cols_launch failed: CUDA error {err}")
-    LAUNCHES["banded_spmm_cols"] += 1
+    LAUNCHES["banded_spmm_cols_window"] += 1
     return out

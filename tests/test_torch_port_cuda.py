@@ -438,9 +438,20 @@ def test_cuda_halo_trainer_matches_cpu_ring(cuda_device):
 
 # ---- the design probes' kernels (ops/probe_kernels.py), forward only
 
-# (n, F, d, B, Wp): the last has a 3072-row window, so F is cut into
-# column tiles (8 columns in float32, 16 in bfloat16) with a ragged last one
+# (n, F, d, B, Wp): the last has a 3072-row window (the earlier body cuts
+# F into column tiles there: 8 columns in float32, 16 in bfloat16, a ragged
+# last one); F = 20 takes the warp gather's VEC = 4 path with a partial
+# warp, F = 40 two float4 chunks of the row
 WINDOW_CASES = [(2048, 16, 8, 256, 64), (600, 20, 5, 200, 24), (2048, 40, 3, 1024, 1024)]
+
+
+def _window_operands(n, F, d, B, Wp, dtype, seed=7):
+    rng = np.random.default_rng(seed)
+    xpad = torch.tensor(rng.normal(size=(n + 2 * Wp, F)).astype(np.float32)).to(dtype)
+    # a few slots outside the window, which every version skips
+    lidx = torch.tensor(rng.integers(-3, B + 2 * Wp + 3, size=(n, d)).astype(np.int32))
+    w = torch.tensor((rng.random((n, d)) + 0.5).astype(np.float32))
+    return xpad, lidx, w
 
 
 @pytest.mark.cuda
@@ -448,22 +459,39 @@ WINDOW_CASES = [(2048, 16, 8, 256, 64), (600, 20, 5, 200, 24), (2048, 40, 3, 102
 @pytest.mark.parametrize("case", WINDOW_CASES, ids=range(len(WINDOW_CASES)))
 def test_cuda_window_gather_matches_plain(cuda_device, case, dtype):
     n, F, d, B, Wp = case
-    rng = np.random.default_rng(7)
-    xpad = torch.tensor(rng.normal(size=(n + 2 * Wp, F)).astype(np.float32)).to(dtype)
-    # a few slots outside the window, which both versions skip
-    lidx = torch.tensor(rng.integers(-3, B + 2 * Wp + 3, size=(n, d)).astype(np.int32))
-    w = torch.tensor((rng.random((n, d)) + 0.5).astype(np.float32))
-    before = tpk.LAUNCHES["window_gather"]
-    y = tpk.window_gather(xpad.to(cuda_device), lidx.to(cuda_device), w.to(cuda_device), B, Wp)
+    xpad, lidx, w = _window_operands(n, F, d, B, Wp, dtype)
+    xc, lc, wc = xpad.to(cuda_device), lidx.to(cuda_device), w.to(cuda_device)
+    before = dict(tpk.LAUNCHES)
+    y = tpk.window_gather(xc, lc, wc, B, Wp)
+    earlier = tpk._window_gather_window_launch(xc, lc, wc, B, Wp)
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES["window_gather"] == before + 1
+    assert tpk.LAUNCHES == {**before, "window_gather": before["window_gather"] + 1,
+                            "window_gather_window": before["window_gather_window"] + 1}
     assert y.dtype == torch.float32
-    assert_kernel_close(y.cpu(), tpk.window_gather_plain(xpad.float(), lidx, w, B, Wp))
+    # bit for bit: the plain version's slot order and roundings, and the earlier body
+    assert torch.equal(y.cpu(), tpk.window_gather_plain(xpad, lidx, w, B, Wp))
+    assert torch.equal(y, earlier)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("F", [16, 3, 130])
+def test_cuda_window_gather_vec1_equals_plain(cuda_device, F, dtype):
+    # a misaligned xpad (F = 16) and rows that are not 4 columns (F = 3,
+    # 130: five 32-column chunks) take the VEC = 1 gather
+    n, d, B, Wp = 1024, 16, 256, 64
+    xpad, lidx, w = _window_operands(n, F, d, B, Wp, dtype, seed=F)
+    xc = _misaligned(xpad) if F == 16 else xpad.to(cuda_device)
+    lc, wc = lidx.to(cuda_device), w.to(cuda_device)
+    assert tpk.warp_gather_shape(n, F, vec4=tpk._aligned4(xc))[0] == 1
+    y = tpk.window_gather(xc, lc, wc, B, Wp)
+    assert torch.equal(y.cpu(), tpk.window_gather_plain(xpad, lidx, w, B, Wp))
+    assert torch.equal(y, tpk._window_gather_window_launch(xc, lc, wc, B, Wp))
 
 
 def _misaligned(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of x on the card that starts 4 bytes past a 16-byte
-    boundary: the kernels take their VEC = 1 path."""
+    """A contiguous copy of x on the card that starts one element past a
+    16-byte boundary: the kernels take their VEC = 1 path."""
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
     y = flat[1:].view(x.shape)
     y.copy_(x)
@@ -549,20 +577,39 @@ def test_cuda_panel_ell_spmm_matches_plain(cuda_device, n, F, B, wp, w_p, misali
     assert torch.equal(y, earlier)
 
 
+# WEIGHTED_CASES, then n % 4 != 0 (4-byte weight copies) with a ragged
+# last strip, F = 130 (the earlier body) and a misaligned x (the earlier body)
+COLS_CASES = [(n, F, offsets, False) for n, F, offsets in WEIGHTED_CASES] + [
+    (5001, 16, (1, -1, 5, -5, 63, -63), False),
+    (1030, 8, (7, -7, 64, -64, 2), False),
+    (4096, 130, (17, -17, 32, -32), False),
+    (4096, 16, (3, -9), True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,F,offsets", WEIGHTED_CASES)
-def test_cuda_banded_spmm_cols_matches_plain(cuda_device, n, F, offsets):
+@pytest.mark.parametrize("n,F,offsets,misaligned", COLS_CASES)
+def test_cuda_banded_spmm_cols_matches_plain(cuda_device, n, F, offsets, misaligned):
     rng = np.random.default_rng(10)
     x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
     wc = torch.tensor((rng.random((len(offsets), n)) + 0.5).astype(np.float32))
-    before = tpk.LAUNCHES["banded_spmm_cols"]
-    y = tpk.banded_spmm_cols(x.to(cuda_device), wc.to(cuda_device), offsets)
+    xc = _misaligned(x) if misaligned else x.to(cuda_device)
+    wcc = wc.to(cuda_device)
+    ring = F % 4 == 0 and not misaligned
+    before = dict(tpk.LAUNCHES)
+    y = tpk.banded_spmm_cols(xc, wcc, offsets)
+    earlier = tpk._banded_cols_window_launch(xc, wcc, offsets)
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES["banded_spmm_cols"] == before + 1
-    assert_kernel_close(y.cpu(), tpk.banded_spmm_cols_plain(x, wc, offsets))
-    # bit for bit K4 on the row-major weights
-    assert torch.equal(y, tb.banded_spmm(x.to(cuda_device), wc.t().contiguous().to(cuda_device),
-                                         offsets))
+    # K4's ring in its column-weight mode where the rows are 16-byte pieces
+    # on an aligned x, else the earlier body; each counted by the kernel that ran
+    key = "banded_spmm_cols" if ring else "banded_spmm_cols_window"
+    assert tpk.LAUNCHES == {**before, key: before[key] + 1,
+                            "banded_spmm_cols_window": before["banded_spmm_cols_window"]
+                            + (1 if ring else 2)}
+    # bit for bit: the plain version, K4 on the row-major weights, the earlier body
+    assert torch.equal(y.cpu(), tpk.banded_spmm_cols_plain(x, wc, offsets))
+    assert torch.equal(y, tb.banded_spmm(xc, wcc.t().contiguous(), offsets))
+    assert torch.equal(y, earlier)
 
 
 @pytest.mark.cuda
@@ -623,6 +670,38 @@ def test_cuda_probe_kernels_reject_what_they_do_not_take(cuda_device):
         tpk.banded_spmm_cols(x, torch.ones(2, n), (1, -1))
     with pytest.raises(ValueError, match="float32"):
         tpk.banded_spmm_cols(x, torch.ones(2, n, device=cuda_device).double(), (1, -1))
+    with pytest.raises(ValueError, match="lie on"):
+        tpk._banded_cols_window_launch(x, torch.ones(2, n), (1, -1))
+    with pytest.raises(ValueError, match="lie on"):
+        tpk._window_gather_window_launch(xpad, lidx.cpu(), w, B, Wp)
+    # window_warp_gather's and the column ring's C launchers refuse what
+    # their kernels do not take, and launch nothing
+    before = dict(tpk.LAUNCHES)
+    warp = tpk._fn("window_warp_gather_launch", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
+                   + (ctypes.c_void_p,))
+    out = torch.empty(n, F, device=cuda_device)
+    wptrs = (xpad.data_ptr(), lidx.data_ptr(), w.data_ptr(), out.data_ptr())
+    assert warp(*wptrs, n, F, d, B, Wp, 4, 0, stream) == 0
+    assert warp(*wptrs, n, F, d, 100, Wp, 4, 0, stream) != 0                 # B ∤ n
+    assert warp(*wptrs, n, 6, d, B, Wp, 4, 0, stream) != 0                   # F % 4 at vec 4
+    assert warp(xpad.data_ptr() + 4, *wptrs[1:], n, F, d, B, Wp, 4, 0, stream) != 0
+    assert warp(*wptrs, n, F, d, B, Wp, 2, 0, stream) != 0                   # vec
+    assert warp(*wptrs, n, F, d, B, Wp, 4, 2, stream) != 0                   # dtype
+    offs = (ctypes.c_int * 2)(1, -1)
+    wcols = torch.ones(2, n, device=cuda_device)
+    geom = tb.stream_shape(n, F, 8, 2)
+    cols = tb._stream_kernel("banded_stream_cols_launch")
+
+    def launch(x_ptr=x.data_ptr(), F=F, smem=geom.smem_bytes):
+        return cols(x_ptr, wcols.data_ptr(), out.data_ptr(), n, F, offs, 2, geom.wp,
+                    geom.chunk, geom.strip, geom.cols, geom.ring_rows, smem, stream)
+
+    assert launch() == 0
+    assert launch(x_ptr=x.data_ptr() + 4) != 0
+    assert launch(F=6) != 0
+    assert launch(smem=geom.smem_bytes + 16) != 0
+    torch.cuda.synchronize()
+    assert tpk.LAUNCHES == before
 
 
 # ---- K4 (csrc/banded_stream.cu, a shared-memory ring), K1 (csrc/block_ell_gather.cu)

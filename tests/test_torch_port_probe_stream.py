@@ -1,9 +1,12 @@
-"""P3 and P4 on the card: P3's ring (``csrc/subblock_stream.cu``) and P4's
-warp gather (``panel_ell_gather`` in ``csrc/probe_kernels.cu``), checked
-here on the CPU.  A pure-Python walk of the ring's schedule and a model of
-the gather's ballot walk are held against the plain versions bit for bit,
-and the ring's launch geometry (``subblock_stream_shape``) is checked at
-every shape ``chip_smoke.py`` and the card tests launch.
+"""P1–P5a's redesigned kernels, checked here on the CPU: P3's ring
+(``csrc/subblock_stream.cu``), the warp gathers of P4 (``panel_ell_gather``)
+and P1/P2 (``window_warp_gather``, both in ``csrc/probe_kernels.cu``), and
+P5a on K4's ring in its column-weight mode (``csrc/banded_stream.cu``).
+Pure-Python walks of the rings' schedules and models of the gathers'
+ballot walk are held against the plain versions bit for bit, the launch
+geometries are checked at every shape ``chip_smoke.py`` and the card tests
+launch, and the wrappers' routes (which shapes take the ring, the VEC = 1
+gather or the earlier body) are checked without a card.
 """
 
 import numpy as np
@@ -11,10 +14,11 @@ import pytest
 import torch
 
 from gcn_maxcut_tpu_torch.experiments.panel_ell_probe import build_panel_tables
+from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
 from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
 
-UNROLL = 4          # csrc/probe_kernels.cu PANEL_GATHER_UNROLL
+UNROLL = 4          # csrc/probe_kernels.cu PROBE_GATHER_UNROLL
 
 
 def _ring_walk(x, sidx, w, n, r0, wp, strip, cols):
@@ -124,13 +128,33 @@ def test_subblock_ring_walk_equals_plain(n, F, block, wp, d, geom):
     assert bool(((sidx.long() - torch.arange(n)[:, None]).abs() > n // 2).any())
 
 
+def _ballot_sum(xn, acc, cols, src, ws, mask):
+    """``probe_ballot_sum`` in Python: the ballot's set lanes in ascending
+    order (slot order), ``UNROLL`` at a time, each slot's row loaded (the
+    ``UNROLL`` loads in flight together) and summed in float32 with
+    separate multiply and add roundings.  Returns the sum and the loads."""
+    loads = 0
+    while mask:
+        taken = []
+        for _ in range(UNROLL):
+            if mask:
+                lane = (mask & -mask).bit_length() - 1
+                taken.append(lane)
+                mask &= mask - 1
+        assert taken == sorted(taken)
+        rows = [xn[src[lane], cols] for lane in taken]      # in flight together
+        loads += len(taken)
+        for lane, row in zip(taken, rows):
+            acc = acc + ws[lane] * row
+    return acc, loads
+
+
 def _ballot_walk(x, idx, wgt, n, block, wp, w_p, vec):
     """``panel_ell_gather``'s walk in Python: a warp a row; for each chunk
     of 32·vec columns, 32 slots a pass, each lane turns its slot into a
-    source row (one wrap) and weight if filled; the ballot's set bits are
-    taken in ascending order, ``UNROLL`` at a time, and summed in float32
-    with separate multiply and add roundings.  Returns the sums and the
-    number of row loads, which is the filled slots' count (per chunk)."""
+    source row (one wrap) and weight if filled; the ballot walk sums them.
+    Returns the sums and the number of row loads, which is the filled
+    slots' count (per chunk)."""
     F, slots = x.shape[1], idx.shape[1]
     xn, idn, wn = x.numpy(), idx.numpy(), wgt.numpy()
     out = np.empty((n, F), np.float32)
@@ -149,18 +173,8 @@ def _ballot_walk(x, idx, wgt, n, block, wp, w_p, vec):
                         assert -n <= q < 2 * n
                         src[lane], ws[lane] = q + n if q < 0 else q - n if q >= n else q, wn[i, s]
                         mask |= 1 << lane
-                while mask:
-                    taken = []
-                    for _ in range(UNROLL):
-                        if mask:
-                            lane = (mask & -mask).bit_length() - 1
-                            taken.append(lane)
-                            mask &= mask - 1
-                    assert taken == sorted(taken)
-                    rows = [xn[src[lane], cols] for lane in taken]      # in flight together
-                    loads += len(taken)
-                    for lane, row in zip(taken, rows):
-                        acc = acc + ws[lane] * row
+                acc, k = _ballot_sum(xn, acc, cols, src, ws, mask)
+                loads += k
             out[i, cols] = acc
     return torch.from_numpy(out), loads
 
@@ -198,11 +212,13 @@ def test_panel_ballot_walk_equals_plain(n, F, block, wp, w_p, vec):
 
 
 def test_panel_gather_shape():
-    # a warp a row, 8 rows a block; float4 lanes where F and the addresses allow
-    assert tpk.panel_gather_shape(100_352, 128) == (4, 12_544)
-    assert tpk.panel_gather_shape(100_352, 128, vec4=False) == (1, 12_544)
-    assert tpk.panel_gather_shape(1536, 130) == (1, 192)
-    assert tpk.panel_gather_shape(1001, 16) == (4, 126)
+    # a warp a row, 8 rows a block; float4 lanes where F and the addresses
+    # allow (the launch of both warp gathers, P4's and P1/P2's)
+    assert tpk.warp_gather_shape(100_352, 128) == (4, 12_544)
+    assert tpk.warp_gather_shape(100_352, 128, vec4=False) == (1, 12_544)
+    assert tpk.warp_gather_shape(1536, 130) == (1, 192)
+    assert tpk.warp_gather_shape(1001, 16) == (4, 126)
+    assert tpk.warp_gather_shape(99_840, 128) == (4, 12_480)       # P1/P2's tables
 
 
 # (n, F, r0, Wp, d, vec) of every P3 launch: chip_smoke.py's two probe
@@ -273,3 +289,274 @@ def test_subblock_stream_geometry_rejects_what_does_not_fit():
         tpk.subblock_stream_shape(1024, 16, 128, 512, 8, 4)       # slice wider than n
     with pytest.raises(ValueError, match="vec"):
         tpk.subblock_stream_shape(1024, 6, 128, 64, 8, 4)
+
+
+# ---- P1/P2: window_warp_gather ---------------------------------------------
+
+def _window_walk(xpad, lidx, w, block, wp, vec):
+    """``window_warp_gather``'s walk in Python: a warp a row; for each chunk
+    of 32·vec columns, d slots in passes of 32, each lane keeps its slot if
+    its window index lies in [0, B + 2·Wp) and turns it into an xpad row;
+    the ballot walk sums them.  xpad is widened to float32 as the lanes
+    widen bf16.  Returns the sums and the row loads."""
+    n, F, d = lidx.shape[0], xpad.shape[1], lidx.shape[1]
+    xn, ln, wn = xpad.float().numpy(), lidx.numpy(), w.numpy()
+    win_rows = block + 2 * wp
+    out = np.empty((n, F), np.float32)
+    loads = 0
+    for i in range(n):
+        row0 = i // block * block
+        for c0 in range(0, F, 32 * vec):
+            cols = slice(c0, min(F, c0 + 32 * vec))
+            acc = np.zeros(cols.stop - c0, np.float32)
+            for p0 in range(0, d, 32):
+                src, ws, mask = [0] * 32, [np.float32(0)] * 32, 0
+                for lane in range(min(32, d - p0)):
+                    l = int(ln[i, p0 + lane])
+                    if 0 <= l < win_rows:
+                        src[lane], ws[lane] = row0 + l, wn[i, p0 + lane]
+                        mask |= 1 << lane
+                acc, k = _ballot_sum(xn, acc, cols, src, ws, mask)
+                loads += k
+            out[i, cols] = acc
+    return torch.from_numpy(out), loads
+
+
+# (n, F, d, B, Wp, vec, dtype): d = 3, 8 and 16 (a pass of 32 slots not
+# full), d = 40 (two passes), F % 4 != 0 (VEC = 1 in chunks of 32: F = 40
+# is two), a row wider than one float4 chunk (F = 136), bf16 at both VECs
+WINDOW_WALKS = [
+    (512, 16, 8, 128, 64, 4, torch.float32),
+    (512, 16, 8, 128, 64, 4, torch.bfloat16),
+    (600, 20, 3, 200, 24, 4, torch.float32),
+    (512, 40, 16, 256, 128, 1, torch.bfloat16),
+    (384, 3, 16, 128, 32, 1, torch.float32),
+    (256, 136, 40, 64, 16, 4, torch.float32),
+]
+
+
+@pytest.mark.parametrize("n,F,d,block,wp,vec,dtype", WINDOW_WALKS)
+def test_window_ballot_walk_equals_plain(n, F, d, block, wp, vec, dtype):
+    rng = np.random.default_rng(n + d)
+    xpad = torch.from_numpy(rng.normal(size=(n + 2 * wp, F)).astype(np.float32)).to(dtype)
+    # slots a few rows outside the window at both ends, which are skipped
+    lidx = torch.from_numpy(rng.integers(-3, block + 2 * wp + 3, size=(n, d)).astype(np.int32))
+    w = torch.from_numpy((rng.random((n, d)) + 0.5).astype(np.float32))
+    got, loads = _window_walk(xpad, lidx, w, block, wp, vec)
+    assert torch.equal(got, tpk.window_gather_plain(xpad, lidx, w, block, wp))
+    # slots outside the window cost no load: one row load per in-window slot
+    # and column chunk
+    inside = int(((lidx >= 0) & (lidx < block + 2 * wp)).sum())
+    assert loads == inside * -(-F // (32 * vec))
+    assert 0 < inside < lidx.numel()
+
+
+def test_window_walk_at_a_probe_table():
+    # P1's own table at a small n (every slot in its window), bf16 x
+    from gcn_maxcut_tpu_torch.experiments import gather_probe as gp
+
+    nbr, lidx, n, wp = gp.block_table(127, 256, n=1024)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32))
+    xpad = gp.pad_rows(x, wp).to(torch.bfloat16)
+    li = torch.from_numpy(lidx)
+    w = torch.from_numpy((rng.random(lidx.shape) + 0.5).astype(np.float32))
+    got, loads = _window_walk(xpad, li, w, 256, wp, 4)
+    assert loads == lidx.size
+    assert torch.equal(got, tpk.window_gather_plain(xpad, li, w, 256, wp))
+
+
+# ---- P5a: K4's ring with column-major weights ------------------------------
+
+def _cols_ring_walk(x, wc, offsets, strip, cols, chunk=tb.STREAM_CHUNK):
+    """``banded_stream.cu``'s schedule in its column-weight mode, in Python.
+    For each (strip, column tile) block: the prologue loads chunk 0's
+    window and weights; each chunk first loads the next chunk's new rows
+    into their ring slots (checked to hold no row this chunk reads) and the
+    next chunk's weights, as D runs of ``rows`` floats at wc[k, r:], into
+    the other [D, chunk] buffer: 16-byte pieces where n % 4 == 0 (checked:
+    each piece whole and aligned), else single floats.  Then it sums its
+    rows in offset order (float32, separate roundings), reading the
+    weight at [k·chunk + i] and the ring slot of strip-local row
+    i + Wp + o_k (checked to hold it).  Ring slot t mod R holds
+    strip-local row t, R = 2·chunk + 2·Wp."""
+    n, F = x.shape
+    D = len(offsets)
+    wp = tb.padded_bandwidth(offsets)
+    R = 2 * chunk + 2 * wp
+    wflat = wc.reshape(-1)
+    out = torch.full((n, F), float("nan"))
+    pieces16 = n % 4 == 0
+    for s0 in range(0, n, strip):
+        rows_here = min(strip, n - s0)
+        need = rows_here + 2 * wp
+        n_chunks = -(-rows_here // chunk)
+        for c0 in range(0, F, cols):
+            fc = min(cols, F - c0)
+            ring = torch.full((R, fc), float("nan"))
+            holds = torch.full((R,), -1, dtype=torch.long)
+            wbuf = torch.full((2, D * chunk), float("nan"))
+            loaded = []
+
+            def load_rows(t_lo, t_hi, reader):
+                for t in range(t_lo, min(t_hi, need)):
+                    # chunk `reader` reads strip-local rows [reader·chunk, +chunk + 2·Wp)
+                    assert holds[t % R] < reader * chunk
+                    q = s0 - wp + t
+                    assert -n <= q < 2 * n          # one wrap
+                    ring[t % R] = x[q % n, c0:c0 + fc]
+                    holds[t % R] = t
+                    loaded.append(t)
+
+            def load_weights(j):
+                r = s0 + j * chunk
+                rows = min(chunk, n - r)
+                buf = wbuf[j & 1]
+                buf.fill_(float("nan"))
+                step = 4 if pieces16 else 1
+                assert rows % step == 0
+                for k in range(D):
+                    for i in range(0, rows, step):
+                        src = k * n + r + i
+                        assert src % step == 0 and (k * chunk + i) % step == 0
+                        buf[k * chunk + i:k * chunk + i + step] = wflat[src:src + step]
+
+            load_rows(0, chunk + 2 * wp, 0)
+            load_weights(0)
+            base = 0
+            for j in range(n_chunks):
+                if j + 1 < n_chunks:            # in flight while chunk j sums
+                    load_rows((j + 1) * chunk + 2 * wp, (j + 2) * chunk + 2 * wp, j)
+                    load_weights(j + 1)
+                r = s0 + j * chunk
+                rows = min(chunk, n - r)
+                acc = torch.zeros(rows, fc)
+                wb = wbuf[j & 1]
+                for k, o in enumerate(offsets):
+                    i = torch.arange(rows)
+                    slot = (base + wp + i + o) % R
+                    assert torch.equal(holds[slot], j * chunk + wp + i + o)
+                    acc = acc + wb[k * chunk + i][:, None] * ring[slot]
+                out[r:r + rows, c0:c0 + fc] = acc
+                base = (base + chunk) % R
+            assert sorted(loaded) == list(range(need))      # each row once
+    assert not torch.isnan(out).any()
+    return out
+
+
+# (n, F, offsets, (strip, cols) or None for stream_shape's): several strips
+# with a ragged last one (n % strip != 0) and chunks ragged at its end,
+# column tiles with a tail, n % 4 != 0 (4-byte weight copies), 2·Wp = n,
+# and the shipped geometry
+COLS_WALKS = [
+    (1000, 8, (1, -1, 5, -5, 63, -63), (192, 4)),
+    (1001, 12, (7, -7, 60, -60), (128, 8)),
+    (128, 8, (64, -64, 3), (64, 8)),
+    (1536, 16, (17, -17, 32, -32), None),
+    (1030, 4, (5,), (256, 4)),
+]
+
+
+@pytest.mark.parametrize("n,F,offsets,geom", COLS_WALKS)
+def test_cols_ring_walk_equals_plain(n, F, offsets, geom):
+    rng = np.random.default_rng(n + F)
+    x = torch.from_numpy(rng.normal(size=(n, F)).astype(np.float32))
+    wc = torch.from_numpy((rng.random((len(offsets), n)) + 0.5).astype(np.float32))
+    if geom is None:
+        g = tb.stream_shape(n, F, tb.padded_bandwidth(offsets), len(offsets))
+        geom = (g.strip, g.cols)
+    got = _cols_ring_walk(x, wc, offsets, *geom)
+    assert torch.equal(got, tpk.banded_spmm_cols_plain(x, wc, offsets))
+    # K4's ring on the row-major weights computes the same, bit for bit
+    assert torch.equal(got, tb.banded_spmm_plain(x, wc.t().contiguous(), offsets))
+
+
+def test_cols_ring_geometry_is_k4s():
+    # P5a runs in K4's geometry: the weight buffers hold the same bytes
+    # ([D, chunk] against [chunk, D]); at the probe's shape a 1024-row strip
+    # of 64-row chunks, 64-column tiles, x read (1024 + 128)/1024 = 1.125 times
+    g = tb.stream_shape(131_072, 128, 64, 8)
+    assert (g.chunk, g.strip, g.cols, g.grid) == (64, 1024, 64, (128, 2))
+    assert g.smem_bytes == tb.stream_smem_bytes(g.ring_rows, g.cols, 8) <= tpk.SMEM_LIMIT
+    assert (g.strip + 2 * g.wp) / g.strip == pytest.approx(1.125)
+
+
+# ---- routes: which shapes take the ring, the VEC = 1 gather, the earlier body
+
+def _misaligned_cpu(x):
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _off_the_cpu(monkeypatch):
+    """Let CPU tensors through the wrappers' device checks, so that their
+    routes can be read without a card."""
+    monkeypatch.setattr(tpk, "_dispatch", lambda name, x: False)
+    monkeypatch.setattr(tpk, "_check_cuda", lambda name, *t: None)
+
+
+def _record(monkeypatch, module, name, calls):
+    def fake(x, *args, **kw):
+        calls.append(name)
+        return torch.zeros(x.shape)
+
+    monkeypatch.setattr(module, name, fake)
+
+
+@pytest.mark.parametrize("F,misaligned,route", [
+    (16, False, "ring"), (128, False, "ring"), (3, False, "earlier"),
+    (130, False, "earlier"), (16, True, "earlier")])
+def test_banded_spmm_cols_route(monkeypatch, F, misaligned, route):
+    # K4's rule: rows of whole 16-byte pieces on an aligned x take the ring
+    # in its column-weight mode, anything else the earlier body; each
+    # counted under the kernel that ran
+    _off_the_cpu(monkeypatch)
+    calls = []
+    monkeypatch.setattr(tb, "_stream_call",
+                        lambda x, w, offsets, wp, cols=False: calls.append(("ring", cols))
+                        or torch.zeros(x.shape))
+    _record(monkeypatch, tpk, "_banded_cols_window_launch", calls)
+    n, offsets = 256, (1, -1, 9)
+    x = torch.zeros(n, F)
+    x = _misaligned_cpu(x) if misaligned else x
+    before = dict(tpk.LAUNCHES)
+    tpk.banded_spmm_cols(x, torch.ones(len(offsets), n), offsets)
+    if route == "ring":
+        assert calls == [("ring", True)]
+        assert tpk.LAUNCHES == {**before, "banded_spmm_cols": before["banded_spmm_cols"] + 1}
+    else:
+        assert calls == ["_banded_cols_window_launch"]
+        assert tpk.LAUNCHES == before        # the earlier body counts its own launch
+
+
+def test_window_gather_reaches_only_the_warp_gather(monkeypatch):
+    # P1/P2 off the CPU run window_warp_gather at every shape, never the
+    # staging body
+    _off_the_cpu(monkeypatch)
+    calls = []
+    _record(monkeypatch, tpk, "_window_warp_launch", calls)
+    monkeypatch.setattr(tpk, "_fn", lambda *a, **kw: pytest.fail("the staging body ran"))
+    n, block, wp = 512, 128, 16
+    for F, dtype in ((16, torch.float32), (3, torch.float32), (8, torch.bfloat16)):
+        xpad = torch.zeros(n + 2 * wp, F, dtype=dtype)
+        lidx = torch.zeros(n, 4, dtype=torch.int32)
+        before = dict(tpk.LAUNCHES)
+        tpk.window_gather(xpad, lidx, torch.ones(n, 4), block, wp)
+        assert tpk.LAUNCHES == {**before, "window_gather": before["window_gather"] + 1}
+    assert calls == ["_window_warp_launch"] * 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_gather_vec_rule(dtype):
+    # VEC = 4 needs F % 4 == 0 and every operand at a multiple of 4 of its
+    # elements (16 bytes in float32, 8 in bfloat16); else VEC = 1
+    x = torch.zeros(64, 16, dtype=dtype)
+    out = torch.zeros(64, 16)
+    assert tpk._aligned4(x, out)
+    assert not tpk._aligned4(_misaligned_cpu(x), out)
+    assert not tpk._aligned4(x, _misaligned_cpu(out))
+    assert tpk._aligned4(x[4:], out[8:])
+    assert tpk.warp_gather_shape(64, 16, vec4=tpk._aligned4(_misaligned_cpu(x), out))[0] == 1
+    assert tpk.warp_gather_shape(64, 18, vec4=tpk._aligned4(x, out))[0] == 1
