@@ -13,19 +13,27 @@ first use; on CPU tensors each op runs its plain PyTorch version.
 So far the port holds:
   core/        padded Graph container (COO sorted by receiver, ELL tables,
                block-ELL plans, locality relabeling)
-  data/        seeded regular / G(n,p) graphs, terminal normalisation, RCM
+  data/        seeded regular / G(n,p) graphs, terminal normalisation, RCM,
+               npz datasets (the JAX package's layout) and the text format
   ops/         block-ELL / ELL / COO SpMM, SDDMM, STE ops; the banded SpMM
                kernels (K2, K3, weighted K4), the block-ELL kernel (K1) and
                the sharded halo kernels over a device ring (K5, K6)
   models/      GraphConv (norm='both') and the GCNSoftmax module
   objectives/  edge-form cut loss and hard cut value
-  train/       TrainingConfig, per-graph Adam loop with early stopping
-  eval/        argmax and sampled decoders
-  baselines/   randomized k-way max-cut
+  train/       TrainingConfig, per-graph Adam loop with early stopping,
+               npz checkpoints (the JAX package's layout) and resume
+  eval/        argmax and sampled decoders, the multi-start greedy-flip
+               refine, the class-relabeling search and the evaluation
+               harness (per-graph tests, size buckets, analysis, reports)
+  baselines/   randomized k-way max-cut; greedy flips, simulated
+               annealing, BLS and the recursive 2-way split
   parallel/    device rings (meshes) and the node-sharded giant trainers
-  bench/       giant banded trainers, the locality trainer, SpMM
-               microbenchmarks and the H100 roofline
-  cli.py       ``pipeline`` and ``bench --what giant|locality|spmm|banded``
+  bench/       the cut-quality suite, giant banded trainers, the locality
+               trainer, the recipe's epoch and post-processing timings,
+               SpMM microbenchmarks and the H100 roofline
+  utils/       the per-epoch JSONL metrics logger
+  cli.py       ``generate``, ``train``, ``test``, ``pipeline`` and ``bench
+               --what quality|train|post|giant|locality|spmm|banded``
 """
 
 __version__ = "0.1.0"

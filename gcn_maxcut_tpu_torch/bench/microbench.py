@@ -1,12 +1,12 @@
 """SpMM microbenchmarks: edges/s of the sparse aggregation paths, with
 roofline fractions.
 
-Port of ``bench_spmm`` and ``bench_spmm_banded`` of
-``gcn_maxcut_tpu/bench/microbench.py``; the results carry the JAX
-package's keys, plus ``device``.  Times are CUDA events around each call on
-the card (best of ``iters`` after warm-up; ``{best_s, mean_s, spread_s,
-spread_frac, n, n_valid}``), the host clock on the CPU, where the numbers
-are no device metric.  The roofline is ``bench/roofline.py``'s least-bytes
+Port of ``bench_spmm``, ``bench_spmm_banded``, ``bench_train_epoch`` and
+``bench_post_processing`` of ``gcn_maxcut_tpu/bench/microbench.py``; the
+results carry the JAX package's keys, plus ``device``.  Times are CUDA
+events around each call on the card (best of ``iters`` after warm-up;
+``{best_s, mean_s, spread_s, spread_frac, n, n_valid}``), the host clock on
+the CPU, where the numbers are no device metric.  The roofline is ``bench/roofline.py``'s least-bytes
 bound on an H100.
 """
 
@@ -271,3 +271,117 @@ def bench_spmm_banded(
         hbm_regime_weighted_fwd_stats=st_big_w,
     )
     return res
+
+
+def recipe_trainer(
+    num_graphs: int = 20,
+    n: int = 500,
+    d_range=(6, 8),
+    max_nodes: int = 1000,
+    seed: int = 1000,
+    device: str | torch.device | None = None,
+):
+    """The reference recipe's training set-up (``num_graphs`` d-regular
+    graphs, 1000-wide features, the default ``TrainingConfig``) on the
+    device.  Returns ``(state, run_epoch)``: the train state and a function
+    that runs one epoch as ``train_model`` does and returns its loss."""
+    from gcn_maxcut_tpu_torch.core.graph import pad_graph_batch
+    from gcn_maxcut_tpu_torch.data.generate import generate_graph
+    from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+    from gcn_maxcut_tpu_torch.train.config import TrainingConfig
+    from gcn_maxcut_tpu_torch.train.loop import _dense_inputs, _run_epoch, setup_train_state
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    specs = []
+    while len(specs) < num_graphs:
+        deg = int(rng.integers(d_range[0], d_range[1] + 1))
+        if (n * deg) % 2:
+            continue
+        specs.append(generate_graph(n=n, d=deg, graph_type="reg", seed=seed + len(specs)))
+    ds = process_graphs(specs, DataConfig(max_nodes=max_nodes))
+    batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)]).to(dev)
+    cfg = TrainingConfig(n_nodes=max_nodes)
+    state = setup_train_state(cfg, device=dev)
+    graphs = [batch.index(i) for i in range(num_graphs)]
+    dense = _dense_inputs(graphs, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return state, lambda: _run_epoch(state, graphs, dense, gen)
+
+
+def bench_train_epoch(
+    num_graphs: int = 20,
+    n: int = 500,
+    d_range=(6, 8),
+    max_nodes: int = 1000,
+    epochs_timed: int = 10,
+    seed: int = 1000,
+    device: str | torch.device | None = None,
+) -> Dict[str, float]:
+    """The reference recipe's epoch (20 graphs n = 500, d ∈ [6, 8],
+    1000-wide features, per-graph Adam steps) as the trainer runs it.
+
+    One warm-up epoch (``compile_time_s``: the first epoch's host-clock
+    seconds), then three rounds of ``epochs_timed`` epochs, each round
+    timed with CUDA events on the card (the host clock on the CPU); the
+    epoch time is the best round's mean.  ``speedup_vs_reference`` divides
+    the reference's CPU epoch, 171.81 s / 486 epochs (BASELINE.md §4).
+    """
+    dev = resolve_device(device)
+    _, run_epoch = recipe_trainer(num_graphs, n, d_range, max_nodes, seed, dev)
+
+    def run_epochs():
+        return [run_epoch() for _ in range(epochs_timed)]
+
+    t0 = time.perf_counter()
+    run_epoch()
+    compile_time = time.perf_counter() - t0
+    stats = time_stats(run_epochs, dev, 3, warmup=0)
+    losses = run_epochs()
+    ref_epoch_time = 171.81 / 486.0
+    epoch_time = stats["best_s"] / epochs_timed
+    return {
+        "num_graphs": num_graphs,
+        "n": n,
+        "epoch_time_s": epoch_time,
+        "epoch_time_stats": {
+            "best_s": epoch_time,
+            "mean_s": stats["mean_s"] / epochs_timed,
+            "spread_s": stats["spread_s"] / epochs_timed,
+            "n": stats["n"],
+            "n_valid": stats["n_valid"],
+        },
+        "compile_time_s": compile_time,
+        "final_epoch_loss": float(losses[-1]),
+        "reference_epoch_time_s": ref_epoch_time,
+        "speedup_vs_reference": ref_epoch_time / epoch_time,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }
+
+
+def bench_post_processing(
+    n: int = 500, d: int = 8, iterations: int = 200, iters: int = 10,
+    device: str | torch.device | None = None,
+) -> Dict[str, float]:
+    """Post-processing (``iterations`` sampled rollouts, scored, best
+    kept) on one n-node d-regular graph with random probabilities: the
+    best of ``iters`` timed calls after warm-up."""
+    from gcn_maxcut_tpu_torch.data.generate import generate_graph
+    from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+    from gcn_maxcut_tpu_torch.eval.decode import post_process
+
+    dev = resolve_device(device)
+    spec = generate_graph(n=n, d=d, graph_type="reg", seed=0)
+    g = process_graphs([spec], DataConfig(max_nodes=n)).graphs[0].to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    probs = torch.softmax(torch.randn((g.n_pad, 3), generator=gen, device=dev), dim=-1)
+    stats = time_stats(lambda: post_process(g, probs, gen, iterations), dev, iters)
+    t = stats["best_s"]
+    return {
+        "n": n,
+        "iterations": iterations,
+        "time_s": t,
+        "samples_per_s": iterations / t,
+        "time_stats": stats,
+        "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }

@@ -1,12 +1,25 @@
-"""Command-line entry point of the port: ``pipeline`` and ``bench``.
+"""Command-line entry point of the port.
 
 Port of the subcommands of ``gcn_maxcut_tpu/cli.py`` that the port covers
-so far, with the same flags plus ``--device`` (default: the CUDA device;
-``--device cpu`` runs on the CPU):
+so far, with the same flags plus ``--device`` on every command that runs
+on a device (default: the CUDA device; ``--device cpu`` runs on the CPU):
 
+  python -m gcn_maxcut_tpu_torch generate --num-graphs 20 --output ds.npz
+      generate and process a dataset, saved as the JAX package's npz
+  python -m gcn_maxcut_tpu_torch train --dataset ds.npz --model-name m
+      train GCNSoftmax; checkpoints epoch_*_m.npz and final_m.npz
+      (``--resume`` warm-starts from a checkpoint, ``--metrics`` writes
+      per-epoch JSONL)
+  python -m gcn_maxcut_tpu_torch test --dataset ds.npz --checkpoint final_m.npz
+      the evaluation harness; the multi-start refine is on by default
   python -m gcn_maxcut_tpu_torch pipeline --workdir out/
-      generate -> process -> train -> evaluate -> randomized baseline ->
-      SUMMARY.md (no dataset npz or checkpoint yet)
+      generate -> process (dataset npz) -> train (checkpoints) -> evaluate
+      held-out graphs (argmax, post-processing, refine) -> randomized
+      baseline -> SUMMARY.md
+  python -m gcn_maxcut_tpu_torch bench --what quality [--recipe mixed]
+      the cut-quality suite (bench/quality.py)
+  python -m gcn_maxcut_tpu_torch bench --what train|post
+      the recipe's epoch time; post-processing time
   python -m gcn_maxcut_tpu_torch bench --what giant
       the single-device giant banded trainer (packed layout by default)
   python -m gcn_maxcut_tpu_torch bench --what spmm [--n 100000 --d 8]
@@ -22,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import sys
 import time
 from pathlib import Path
@@ -34,6 +48,87 @@ import torch
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _cmd_generate(args) -> int:
+    from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset
+    from gcn_maxcut_tpu_torch.data.io import save_dataset
+    from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+
+    graphs, _ = generate_graph_dataset(
+        num_graphs=args.num_graphs,
+        min_nodes=args.min_nodes,
+        max_nodes=args.max_nodes,
+        min_degree=args.min_degree,
+        max_degree=args.max_degree,
+        graph_type=args.graph_type,
+        base_seed=args.seed,
+    )
+    ds = process_graphs(graphs, DataConfig(max_nodes=args.pad_to))
+    save_dataset(ds, args.output)
+    print(f"wrote {len(ds)} graphs to {args.output}")
+    return 0
+
+
+def _cmd_train(args) -> int:
+    from gcn_maxcut_tpu_torch.data.io import load_dataset
+    from gcn_maxcut_tpu_torch.train.loop import train_dataset
+
+    ds = load_dataset(args.dataset)
+    callback = None
+    if args.metrics:
+        from gcn_maxcut_tpu_torch.utils.profiling import MetricsLogger
+
+        ml = MetricsLogger(args.metrics)
+        callback = lambda epoch, loss: ml.log(epoch, loss=loss)  # noqa: E731
+    _, best_loss, epochs, _, history = train_dataset(
+        ds,
+        model_name=args.model_name,
+        callback=callback,
+        device=args.device,
+        resume_from=args.resume,
+        number_epochs=args.epochs,
+        learning_rate=args.learning_rate,
+        dropout=args.dropout,
+        patience=args.patience,
+        save_frequency=args.save_frequency,
+        seed=args.seed,
+        loss_mode=args.loss_mode,
+        quantile_c=args.quantile_c,
+        entropy_weight=args.entropy_weight,
+        lr_schedule=args.lr_schedule,
+    )
+    print(json.dumps({"best_loss": best_loss, "epochs": epochs + 1, "final_loss": history[-1]}))
+    return 0
+
+
+def _cmd_test(args) -> int:
+    from gcn_maxcut_tpu_torch.data.io import load_dataset
+    from gcn_maxcut_tpu_torch.eval import harness
+    from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint
+    from gcn_maxcut_tpu_torch.train.config import TrainingConfig
+    from gcn_maxcut_tpu_torch.train.loop import setup_train_state
+
+    ds = load_dataset(args.dataset)
+    sizes = (
+        [int(s) for s in args.sizes.split(",")]
+        if args.sizes
+        else sorted({s.n_nodes for s in ds.specs.values()})
+    )
+    state = setup_train_state(TrainingConfig(n_nodes=ds.config.max_nodes), device=args.device)
+    params = load_checkpoint(args.checkpoint, state.params())[0]
+    results, by_size = harness.test_multiple_graphs(
+        params, ds, sizes,
+        post_processing_iterations=args.iterations,
+        refine=args.refine,
+        refine_starts=args.refine_starts,
+    )
+    analysis = harness.analyze_results(results, by_size, sizes)
+    harness.print_analysis_report(analysis, sizes)
+    if args.output:
+        harness.save_results(args.output, results, by_size, analysis, vars(args))
+        print(f"results saved to {args.output}")
+    return 0
 
 
 def run_pipeline(
@@ -49,26 +144,27 @@ def run_pipeline(
     seed: int = 1000,
     device: str | torch.device | None = None,
 ) -> Dict[str, Any]:
-    """The complete training recipe end to end; writes
-    ``<workdir>/<name>_SUMMARY.md`` and returns its numbers."""
+    """The complete training recipe end to end.  Writes
+    ``<workdir>/<name>_dataset.npz``, the checkpoints
+    ``<workdir>/epoch_*_<name>_model.npz`` and ``final_<name>_model.npz``,
+    and ``<workdir>/<name>_SUMMARY.md``; returns its numbers.  The held-out
+    graphs are decoded by the harness with the argmax, the post-processing
+    and the default decode, the multi-start refine."""
     from gcn_maxcut_tpu_torch.baselines.randomized import randomized_k_way_maxcut
-    from gcn_maxcut_tpu_torch.core.graph import dense_adjacency
     from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset
+    from gcn_maxcut_tpu_torch.data.io import save_dataset
     from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
     from gcn_maxcut_tpu_torch.device import resolve_device
-    from gcn_maxcut_tpu_torch.eval.decode import post_process, simple_assignment
-    from gcn_maxcut_tpu_torch.models.gcn import gcn_softmax_apply
-    from gcn_maxcut_tpu_torch.objectives.cut_loss import hard_cut_value
-    from gcn_maxcut_tpu_torch.train.loop import (
-        _resolve_dense_aggregation,
-        train_dataset,
-    )
+    from gcn_maxcut_tpu_torch.eval import harness
+    from gcn_maxcut_tpu_torch.train.checkpoint import checkpoint_name
+    from gcn_maxcut_tpu_torch.train.loop import train_dataset
 
     dev = resolve_device(device)
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     phases: Dict[str, float] = {}
     name = f"maxcut_{classes}way_n{nodes}_d{min_degree}_{max_degree}"
+    model_name = str(workdir / f"{name}_model")
 
     t0 = time.perf_counter()
     graphs, _ = generate_graph_dataset(
@@ -78,12 +174,14 @@ def run_pipeline(
 
     t0 = time.perf_counter()
     ds = process_graphs(graphs, DataConfig(max_nodes=pad_to))
+    dataset_path = workdir / f"{name}_dataset.npz"
+    save_dataset(ds, dataset_path)
     phases["processing"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     params, best_loss, final_epoch, _, history = train_dataset(
-        ds, device=dev, number_epochs=epochs, learning_rate=learning_rate,
-        save_frequency=max(1, epochs // 5), seed=seed,
+        ds, model_name=model_name, device=dev, number_epochs=epochs,
+        learning_rate=learning_rate, save_frequency=max(1, epochs // 5), seed=seed,
     )
     _sync(dev)
     phases["training"] = time.perf_counter() - t0
@@ -94,36 +192,18 @@ def run_pipeline(
         base_seed=seed + 5000,
     )
     tds = process_graphs(test_graphs, DataConfig(max_nodes=pad_to))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    simple, post, simple_s, post_s = [], [], [], []
-    for k in sorted(tds.graphs):
-        g = tds.graphs[k].to(dev)
-        with torch.no_grad():
-            a = (dense_adjacency(g, values="mask")
-                 if _resolve_dense_aggregation("auto", g.n_pad) else None)
-            probs = gcn_softmax_apply(
-                params, g, dense_adjacency(g, width=params["conv1"]["w"].shape[0]),
-                a_dense=a,
-            )
-            _sync(dev)
-            t1 = time.perf_counter()
-            simple.append(float(hard_cut_value(g, simple_assignment(probs))))
-            t2 = time.perf_counter()
-            post.append(float(post_process(g, probs, gen, iterations=200)[1]))
-            t3 = time.perf_counter()
-        simple_s.append(t2 - t1)
-        post_s.append(t3 - t2)
+    results, by_size = harness.test_multiple_graphs(
+        params, tds, [nodes], post_processing_iterations=200, verbose=False, refine=True,
+    )
+    analysis = harness.analyze_results(results, by_size, [nodes])
     rand = [
         randomized_k_way_maxcut(tds.graphs[k].to(dev), classes, 1000, seed=k)[1]
         for k in sorted(tds.graphs)
     ]
     phases["evaluation"] = time.perf_counter() - t0
 
-    avg_simple, avg_post = float(np.mean(simple)), float(np.mean(post))
-    improvement_pct = float(np.mean(
-        [(p - s) / s * 100 if s > 0 else 0.0 for s, p in zip(simple, post)]
-    ))
-    overhead = float(np.mean(post_s) / np.mean(simple_s))
+    avg_refined = float(np.mean([r["refined_cut"] for r in results]))
+    avg_refine_s = float(np.mean([r["refined_time"] for r in results]))
     avg_deg = float(np.mean([2 * s.n_edges / s.n_nodes for s in ds.specs.values()]))
     epochs_run = final_epoch + 1
     summary = "\n".join([
@@ -143,10 +223,11 @@ def run_pipeline(
         f"- Best loss: {best_loss:.1f}  (≈ cut {-best_loss:.0f} summed over graphs)",
         "",
         "## Evaluation (held-out graphs)",
-        f"- GCN argmax avg cut: {avg_simple:.1f}",
-        f"- GCN + post-processing avg cut: {avg_post:.1f} ({improvement_pct:+.1f}%)",
+        f"- GCN argmax avg cut: {analysis['avg_simple_cut']:.1f}",
+        f"- GCN + post-processing avg cut: {analysis['avg_post_cut']:.1f} ({analysis['avg_improvement_pct']:+.1f}%)",
+        f"- GCN + multi-start refine avg cut: {avg_refined:.1f} ({avg_refine_s:.4f} s a graph)",
         f"- Randomized baseline avg cut: {float(np.mean(rand)):.1f}",
-        f"- Post-processing overhead: {overhead:.1f}x",
+        f"- Post-processing overhead: {analysis['avg_overhead']:.1f}x",
     ])
     (workdir / f"{name}_SUMMARY.md").write_text(summary)
     return {
@@ -156,9 +237,13 @@ def run_pipeline(
         "epoch_ms": phases["training"] / epochs_run * 1e3,
         "best_loss": best_loss,
         "history": history,
-        "avg_simple_cut": avg_simple,
-        "avg_post_cut": avg_post,
+        "avg_simple_cut": analysis["avg_simple_cut"],
+        "avg_post_cut": analysis["avg_post_cut"],
+        "avg_refined_cut": avg_refined,
+        "avg_refine_s": avg_refine_s,
         "avg_randomized_cut": float(np.mean(rand)),
+        "dataset": str(dataset_path),
+        "final_checkpoint": checkpoint_name(model_name) + ".npz",
     }
 
 
@@ -178,6 +263,21 @@ def _cmd_bench(args) -> int:
         train_banded_giant_packed,
     )
 
+    if args.what == "quality":
+        from gcn_maxcut_tpu_torch.bench.quality import run_quality_suite
+
+        res = run_quality_suite(recipe=args.recipe, device=args.device)
+        print(json.dumps({"quality": res}, default=float))
+        return 0
+    if args.what in ("train", "post"):
+        from gcn_maxcut_tpu_torch.bench import microbench
+
+        if args.what == "train":
+            res = microbench.bench_train_epoch(device=args.device)
+        else:
+            res = microbench.bench_post_processing(device=args.device)
+        print(json.dumps({args.what: res}, default=float))
+        return 0
     if args.what == "spmm":
         from gcn_maxcut_tpu_torch.bench.microbench import bench_spmm
 
@@ -216,8 +316,62 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="gcn_maxcut_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
-    b = sub.add_parser("bench", help="microbenchmarks and the single-device trainers")
-    b.add_argument("--what", choices=["giant", "spmm", "banded", "locality"], default="giant")
+    g = sub.add_parser("generate", help="generate + process a graph dataset")
+    g.add_argument("--num-graphs", type=int, default=20)
+    g.add_argument("--min-nodes", type=int, default=500)
+    g.add_argument("--max-nodes", type=int, default=500)
+    g.add_argument("--min-degree", type=int, default=6)
+    g.add_argument("--max-degree", type=int, default=8)
+    g.add_argument("--graph-type", default="reg")
+    g.add_argument("--pad-to", type=int, default=1000)
+    g.add_argument("--seed", type=int, default=1000)
+    g.add_argument("--output", default="dataset.npz")
+    g.set_defaults(fn=_cmd_generate)
+
+    t = sub.add_parser("train", help="train GCNSoftmax on a dataset")
+    t.add_argument("--dataset", required=True)
+    t.add_argument("--model-name", default="maxcut_model")
+    t.add_argument("--epochs", type=int, default=1000)
+    t.add_argument("--learning-rate", type=float, default=1e-3)
+    t.add_argument("--dropout", type=float, default=0.0)
+    t.add_argument("--patience", type=int, default=20)
+    t.add_argument("--save-frequency", type=int, default=100)
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--loss-mode", default="ste", choices=("ste", "quantile"),
+                   help="only ste is ported; quantile raises NotImplementedError")
+    t.add_argument("--quantile-c", type=float, default=2.6)
+    t.add_argument("--entropy-weight", type=float, default=0.0,
+                   help="only 0 is ported; other values raise NotImplementedError")
+    t.add_argument("--lr-schedule", default="constant", choices=("constant", "cosine"),
+                   help="only constant is ported; cosine raises NotImplementedError")
+    t.add_argument("--metrics", default=None,
+                   help="write per-epoch JSONL metrics (loss, step time) to this path")
+    t.add_argument("--resume", default=None,
+                   help="warm-start from a checkpoint (.npz) incl. optimizer state")
+    t.add_argument("--device", default=None, help="default: the CUDA device")
+    t.set_defaults(fn=_cmd_train)
+
+    e = sub.add_parser("test", help="evaluate a checkpoint on a dataset")
+    e.add_argument("--dataset", required=True)
+    e.add_argument("--checkpoint", required=True)
+    e.add_argument("--sizes", default=None, help="comma-separated size buckets")
+    e.add_argument("--iterations", type=int, default=200)
+    e.add_argument("--refine", action=argparse.BooleanOptionalAction, default=True,
+                   help="greedy-flip refinement after post-processing (default: on; "
+                        "--no-refine gives the reference's two decoders)")
+    e.add_argument("--refine-starts", type=int, default=4,
+                   help="refine starts: the top N-1 sampled assignments + the argmax, "
+                        "climbed in one batched pass (1 = one climb from the post best)")
+    e.add_argument("--output", default=None)
+    e.add_argument("--device", default=None, help="default: the CUDA device")
+    e.set_defaults(fn=_cmd_test)
+
+    b = sub.add_parser("bench", help="microbenchmarks, the quality suite and the "
+                                     "single-device trainers")
+    b.add_argument("--what", choices=["giant", "spmm", "banded", "locality", "quality",
+                                      "train", "post"], default="giant")
+    b.add_argument("--recipe", choices=["n500", "mixed", "per_size"], default="mixed",
+                   help="quality-suite training recipe (see bench/quality.py)")
     b.add_argument("--n", type=int, default=100_000, help="nodes (spmm, locality)")
     b.add_argument("--d", type=int, default=8)
     b.add_argument("--epochs", type=int, default=200, help="locality trainer epochs")
@@ -249,6 +403,12 @@ def main(argv=None) -> int:
     pl.set_defaults(fn=_cmd_pipeline)
 
     args = p.parse_args(argv)
+    log = logging.getLogger("gcn_maxcut_tpu_torch")
+    if not log.handlers:
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s"))
+        log.addHandler(handler)
+        log.setLevel(logging.INFO)
     return args.fn(args)
 
 

@@ -6,8 +6,7 @@ Field-for-field superset of the reference dataclass
 ``dim_embedding // 2``.  The fields and their checks are the JAX
 package's, so one configuration means the same run in both; the training
 loop of this port raises on the values it does not run yet (``batched``
-steps, the cosine schedule, the quantile and entropy losses, checkpoint
-saving).  ``epochs_per_call`` has no effect here: PyTorch runs eagerly and
+steps, the cosine schedule, the quantile and entropy losses).  ``epochs_per_call`` has no effect here: PyTorch runs eagerly and
 the loop reads every epoch's loss on the host.
 """
 

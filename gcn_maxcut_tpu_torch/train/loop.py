@@ -16,6 +16,13 @@ parameters follow the JAX package's semantics exactly:
 
 In adjacency-feature mode the node features are the padded adjacency and
 the embedding table gets no update, as in the reference.
+
+With ``config.save_directory`` set, the loop writes a checkpoint
+(``train/checkpoint.py``) every ``save_frequency`` epochs with the
+parameters and optimizer state after that epoch, and a final one with the
+best epoch's parameters; ``resume_from`` restores parameters, optimizer
+state, epoch and history from a checkpoint of either package, as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ from gcn_maxcut_tpu_torch.models.gcn import (
 )
 from gcn_maxcut_tpu_torch.objectives.cut_loss import compute_loss
 from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
+from gcn_maxcut_tpu_torch.train.checkpoint import (
+    checkpoint_name,
+    flatten_tree,
+    load_checkpoint,
+    save_checkpoint,
+)
 from gcn_maxcut_tpu_torch.train.config import TrainingConfig
 from gcn_maxcut_tpu_torch.train.optim import Adam
 
@@ -58,6 +71,42 @@ class TrainState:
             "embed": self.embed.detach().clone(),
         }
 
+    def _adam_paths(self) -> List[str]:
+        """The parameter path of each tensor the optimizer steps."""
+        by_id = {id(t): k for k, t in flatten_tree(_params_tree(self)).items()}
+        return [by_id[id(p)] for p in self.optimizer.params]
+
+    def opt_state(self) -> Dict[str, Any]:
+        """The Adam state in the JAX package's optax layout: ``{"0":
+        {".count", ".mu", ".nu"}}``, under ``.inner_state`` when the
+        embedding is masked out (adjacency-feature mode)."""
+        mu: Dict[str, Any] = {}
+        nu: Dict[str, Any] = {}
+        for path, m, v in zip(self._adam_paths(), self.optimizer.mu, self.optimizer.nu):
+            *parents, leaf = path.split("/")
+            dm, dv = mu, nu
+            for p in parents:
+                dm, dv = dm.setdefault(p, {}), dv.setdefault(p, {})
+            dm[leaf], dv[leaf] = m.detach().clone(), v.detach().clone()
+        count = torch.tensor(self.optimizer.count, dtype=torch.int32)
+        inner = {"0": {".count": count, ".mu": mu, ".nu": nu}}
+        return {".inner_state": inner} if self.config.feature_mode == "adjacency" else inner
+
+    @torch.no_grad()
+    def load(self, params: Dict[str, Any], opt_state: Dict[str, Any]) -> None:
+        """Copy parameters (JAX layout) and an ``opt_state()``-shaped Adam
+        state into this state."""
+        for k in ("conv1", "conv2"):
+            for n, t in getattr(self.model, k).params().items():
+                t.copy_(params[k][n])
+        self.embed.copy_(params["embed"])
+        flat = flatten_tree(opt_state)
+        prefix = ".inner_state/0" if self.config.feature_mode == "adjacency" else "0"
+        self.optimizer.count = int(flat[f"{prefix}/.count"])
+        for i, path in enumerate(self._adam_paths()):
+            self.optimizer.mu[i] = flat[f"{prefix}/.mu/{path}"].clone()
+            self.optimizer.nu[i] = flat[f"{prefix}/.nu/{path}"].clone()
+
 
 def _check_ported(config: TrainingConfig) -> None:
     waiting = {
@@ -65,7 +114,6 @@ def _check_ported(config: TrainingConfig) -> None:
         "lr_schedule": (config.lr_schedule, "constant"),
         "loss_mode": (config.loss_mode, "ste"),
         "entropy_weight": (config.entropy_weight, 0.0),
-        "save_directory": (config.save_directory, None),
     }
     for name, (value, ported) in waiting.items():
         if value != ported:
@@ -211,13 +259,16 @@ def train_model(
     state: TrainState | None = None,
     callback: Optional[Callable[[int, float], None]] = None,
     device: str | torch.device | None = None,
+    resume_from: str | None = None,
 ) -> Tuple[Dict[str, Any], float, int, torch.Tensor, List[float]]:
-    """Epoch loop with early stopping and best-restore.
+    """Epoch loop with early stopping, best-restore and checkpoints.
 
     ``dataset_batch`` is the stacked `Graph` from ``pad_graph_batch``; it is
     moved to the state's device.  Returns ``(params, best_loss,
     final_epoch, embed, history)`` with ``params`` the best epoch's, in the
-    JAX layout.
+    JAX layout.  ``resume_from`` continues from a checkpoint: its epoch + 1,
+    its history (the best and previous losses taken from it, patience
+    from 0) and its parameters as the best so far.
     """
     _check_ported(config)
     state = state or setup_train_state(config, device=device)
@@ -229,10 +280,20 @@ def train_model(
 
     history: List[float] = []
     best_loss = prev_loss = np.float32(_F32_MAX)
+    start_epoch = 0
+    if resume_from is not None:
+        params, opt_state, _, meta = load_checkpoint(
+            resume_from, state.params(), state.opt_state()
+        )
+        state.load(params, opt_state)
+        history = list(meta.get("loss_history") or [])
+        start_epoch = int(meta.get("epoch", 0)) + 1
+        if history:
+            prev_loss, best_loss = np.float32(history[-1]), np.float32(min(history))
     tolerance = np.float32(config.tolerance)
     patience = 0
     best_params = state.params()
-    for epoch in range(config.number_epochs):
+    for epoch in range(start_epoch, config.number_epochs):
         loss = np.float32(_run_epoch(state, graphs, dense, generator))
         history.append(float(loss))
         worse = epoch > 0 and (loss > prev_loss or abs(prev_loss - loss) <= tolerance)
@@ -242,11 +303,23 @@ def train_model(
             best_loss = loss
             best_params = state.params()
         prev_loss = loss
+        if config.save_directory and epoch % config.save_frequency == 0:
+            save_checkpoint(
+                checkpoint_name(config.save_directory, epoch, float(loss)),
+                params=state.params(), opt_state=state.opt_state(), epoch=epoch,
+                loss_history=history, config=config,
+            )
         if callback is not None:
             callback(epoch, float(loss))
         if stop:
             break
 
+    if config.save_directory:
+        save_checkpoint(
+            checkpoint_name(config.save_directory), params=best_params,
+            opt_state=state.opt_state(), epoch=len(history) - 1,
+            loss_history=history, config=config,
+        )
     best = float(best_loss)
     return best_params, (float("inf") if best >= _F32_MAX else best), \
         len(history) - 1, best_params["embed"], history
@@ -257,17 +330,20 @@ def train_dataset(
     model_name: str | None = None,
     callback: Optional[Callable[[int, float], None]] = None,
     device: str | torch.device | None = None,
+    resume_from: str | None = None,
     **config_kwargs,
 ) -> Tuple[Dict[str, Any], float, int, torch.Tensor, List[float]]:
     """Train on a processed dataset; ``n_nodes`` (the feature width)
-    defaults to the dataset's ``max_nodes``."""
+    defaults to the dataset's ``max_nodes``, and ``model_name`` is the
+    checkpoints' name stem (None: no checkpoints)."""
     config = TrainingConfig(**{
         "n_nodes": dataset.config.max_nodes,
         "save_directory": model_name,
         **config_kwargs,
     })
     batch = pad_graph_batch([dataset.graphs[k] for k in sorted(dataset.graphs)])
-    return train_model(batch, config, callback=callback, device=device)
+    return train_model(batch, config, callback=callback, device=device,
+                       resume_from=resume_from)
 
 
 @torch.no_grad()

@@ -18,8 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from gcn_maxcut_tpu_torch.baselines.local_search import greedy_flip_local_search
 from gcn_maxcut_tpu_torch.bench import giant_demo as tgiant
 from gcn_maxcut_tpu_torch.core.graph import graph_from_dense, graph_from_edges
+from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset
+from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+from gcn_maxcut_tpu_torch.eval.decode import refine_multi_start_from_uniforms
 from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
 from gcn_maxcut_tpu_torch.ops import halo as th
@@ -979,3 +983,33 @@ def test_cuda_halo_stream_rejects_what_it_does_not_take(cuda_device):
         th._launch(x, pre, post, (9, -1), op=op)
     with pytest.raises(ValueError, match="weights"):
         th._launch(x, pre, post, offsets, torch.ones(1024, 3, device=cuda_device), op=op)
+
+
+def _recipe_graphs(count=3):
+    """Graphs of the recipe's kind: n = 500, d in [6, 8], padded to 1000."""
+    specs, _ = generate_graph_dataset(count, 500, 500, 6, 8, base_seed=77)
+    return [g for _, g in sorted(process_graphs(specs, DataConfig(max_nodes=1000)).graphs.items())]
+
+
+@pytest.mark.cuda
+def test_cuda_batched_greedy_flip_equals_cpu(cuda_device):
+    rng = np.random.default_rng(0)
+    for g in _recipe_graphs():
+        starts = torch.tensor(rng.integers(0, 3, (6, g.n_pad)))
+        starts[:, :3] = torch.arange(3)
+        asn, cut = greedy_flip_local_search(g, starts, max_steps=500)
+        asn_c, cut_c = greedy_flip_local_search(g.to(cuda_device), starts.to(cuda_device),
+                                                max_steps=500)
+        assert torch.equal(asn_c.cpu(), asn) and torch.equal(cut_c.cpu(), cut)
+
+
+@pytest.mark.cuda
+def test_cuda_refine_multi_start_equals_cpu(cuda_device):
+    gen = torch.Generator().manual_seed(1)
+    for g in _recipe_graphs(2):
+        probs = torch.softmax(2 * torch.randn((g.n_pad, 3), generator=gen), dim=-1)
+        u = torch.rand((200, g.n_pad, 1), generator=gen)
+        asn, cut = refine_multi_start_from_uniforms(g, probs, u, 4)
+        asn_c, cut_c = refine_multi_start_from_uniforms(
+            g.to(cuda_device), probs.to(cuda_device), u.to(cuda_device), 4)
+        assert torch.equal(asn_c.cpu(), asn) and float(cut_c) == float(cut)

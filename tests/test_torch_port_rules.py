@@ -9,7 +9,14 @@ import torch
 from gcn_maxcut_tpu_torch import device as tdevice
 from gcn_maxcut_tpu_torch.bench.giant_demo import train_banded_giant_packed
 from gcn_maxcut_tpu_torch.bench.locality import train_locality
-from gcn_maxcut_tpu_torch.bench.microbench import bench_spmm, bench_spmm_banded
+from gcn_maxcut_tpu_torch.bench.microbench import (
+    bench_post_processing,
+    bench_spmm,
+    bench_spmm_banded,
+    bench_train_epoch,
+)
+from gcn_maxcut_tpu_torch.bench.quality import run_quality_suite
+from gcn_maxcut_tpu_torch.cli import main as cli_main
 from gcn_maxcut_tpu_torch.convert import params_from_jax
 from gcn_maxcut_tpu_torch.experiments import (
     gather_probe,
@@ -93,3 +100,20 @@ def test_halo_ops_raise_on_a_shard_off_its_mesh_device():
     meta = make_mesh(devices=["meta"] * 2)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         th.halo_banded_spmm_unit([torch.zeros(64, 8, device="meta")] * 2, (1, -1), meta, 16)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda path: run_quality_suite(sizes=(20,), graphs_per_size=1),
+    lambda path: bench_train_epoch(num_graphs=1, n=20, max_nodes=24),
+    lambda path: bench_post_processing(n=20, d=4),
+    lambda path: cli_main(["train", "--dataset", path, "--model-name", path + "m"]),
+    lambda path: cli_main(["test", "--dataset", path, "--checkpoint", path + "ck"]),
+], ids=["quality", "train_epoch", "post_processing", "train_command", "test_command"])
+def test_recipe_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
+    path = str(tmp_path / "ds.npz")
+    assert cli_main(["generate", "--num-graphs", "1", "--min-nodes", "20", "--max-nodes",
+                     "20", "--min-degree", "4", "--max-degree", "4", "--pad-to", "24",
+                     "--output", path]) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry(path)

@@ -91,8 +91,7 @@ def test_evaluate_model_matches_jax(datasets):
 
 def test_unported_options_raise(datasets):
     for kw in ({"step_mode": "batched"}, {"lr_schedule": "cosine"},
-               {"loss_mode": "quantile"}, {"entropy_weight": 0.1},
-               {"save_directory": "m"}):
+               {"loss_mode": "quantile"}, {"entropy_weight": 0.1}):
         with pytest.raises(NotImplementedError):
             tloop.train_model(datasets[3], TrainingConfig(n_nodes=64, **kw), device="cpu")
 
