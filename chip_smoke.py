@@ -102,6 +102,20 @@ Phases; any failure ends the run with a non-zero exit code:
                 cut on the same graph (checked by its digest; the RCM
                 relabeling is saved for the reference) and initial
                 parameters;
+     kway       BASELINE config 4 on the node-sharded trainer
+                (``parallel/giant.py``): n = 4096, k = 3, 20 epochs on a
+                4-shard ring on the card against a CPU ring (histories
+                rtol 1e-3, assignments agree on 99.9%); ``kway_sweep`` at
+                n = 100,000, d = 8, k = 3..8, 100 epochs on one shard, each
+                k's margin over its (k - 1)/k floor at least half of
+                PARITY.md section 5's JAX margin, and k = 3 on a 4-shard
+                virtual ring above its floor (the expander's shards do not
+                band: no kernel launches); the banded-random graph in 4
+                contiguous shards with hop 0 on K1 (per-shard RCM): K1's
+                launches counted exactly, no other kernel, the cut above
+                2/3, and K1 on one shard's plan held against its plain
+                version and timed; ``bench --what scaling`` at its
+                defaults (D = 1) and the sharded conv on the 4-shard ring;
   6. microbench ``bench --what spmm`` (K1) and ``bench --what banded`` (K2,
                 K4) at their defaults.
 
@@ -171,6 +185,14 @@ REFERENCE_SIMPLE_MEAN = 547.1   # the reference's own simple-decode mean
 REFERENCE_LOCALITY_CUT = 390_629.0
 REFERENCE_LOCALITY_GRAPH = "cf6f0c38cf606dbc"
 LOCALITY_N = 100_000
+# BASELINE config 4: the k-way sweep on one 100,000-node 8-regular graph, 100
+# epochs a k, as PARITY.md section 5 ran it.  Its JAX cut fractions and
+# margins over the (k - 1)/k floor, in points; the gate is half of each
+# margin, rounded down to 0.1.
+KWAY_N, KWAY_D, KWAY_EPOCHS, KWAY_SHARDS = 100_000, 8, 100, 4
+REFERENCE_KWAY = {3: (82.8, 16.1), 4: (85.7, 10.7), 5: (91.1, 11.1), 6: (92.1, 8.8),
+                  7: (94.4, 8.7), 8: (95.8, 8.3)}
+KWAY_GATE = {3: 8.0, 4: 5.3, 5: 5.5, 6: 4.4, 7: 4.3, 8: 4.1}
 MICRO_N = 100_000
 BANDED_N, BANDED_BIG_N = 131_072, 1_250_304
 
@@ -1464,6 +1486,185 @@ def phase_locality(torch, np, tbell, tb, loc) -> dict:
             "reference_graph": REFERENCE_LOCALITY_GRAPH, "small_agreement": agree}
 
 
+def all_launches(counters) -> dict:
+    out = {}
+    for c in counters:
+        out.update(c.LAUNCHES)
+    return out
+
+
+def reset_all(counters) -> None:
+    for c in counters:
+        c.reset_launches()
+
+
+def time_shard_k1(torch, tbell, sg, d: int, F: int, gen) -> dict:
+    """K1 on shard d's hop-0 plan: the op, the kernel alone, the plain
+    version and ``torch.sparse.mm`` of the shard's hop-0 rows, in turns,
+    beside K1's bound."""
+    n, B, wp = sg.n_shard, sg.bell_block, sg.bell_wp
+    ops = (sg.bell_senders[d], sg.bell_weights[d], sg.bell_out_senders[d],
+           sg.bell_out_receivers[d], sg.bell_out_weights[d])
+    width, o_pad = ops[0].shape[1], ops[2].shape[0]
+    x = torch.randn(n, F, generator=gen, device="cuda")
+    real = sg.edge_mask[d][0] > 0
+    csr = csr_of(torch, sg.receivers[d][0][real], sg.senders[d][0][real],
+                 sg.weights[d][0][real], n)
+    with torch.no_grad():
+        row = {"name": "K1", "case": f"kway shard {d}", "n": n, "F": F, "block": B, "wp": wp,
+               "width": width, "o_pad": o_pad, "n_outliers": int((ops[4] != 0).sum()),
+               "dtype": "float32"}
+        row.update(ms_in_turns(torch, {
+            "ms": lambda: tbell.block_ell_spmm(x, *ops, n, B, wp),
+            "kernel_only_ms": lambda: tbell._launch(x, ops[0], ops[1], n, B, wp),
+            "plain_ms": lambda: tbell.block_ell_spmm_plain(x, *ops, n, B, wp),
+            "library_ms": lambda: torch.sparse.mm(csr, x),
+        }))
+    bytes_ms = (2 * n * F * 4 + n * width * 8 + o_pad * (2 * F * 4 + 12)) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n * width * F / F32_OPS_PER_S * 1e3
+    row["bound_ms"] = max(bytes_ms, ops_ms)
+    row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    log(f"  K1 on shard {d}'s hop-0 plan n={n} F={F} B={B} Wp={wp} width={width} "
+        f"o_pad={o_pad}: op {row['ms']:.4f} ms, kernel alone {row['kernel_only_ms']:.4f}, plain "
+        f"{row['plain_ms']:.4f}, sparse.mm {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']})")
+    return row
+
+
+def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway_sweep, scaling,
+               random_regular_edges) -> dict:
+    """BASELINE config 4 on the node-sharded trainer: card against CPU, the
+    sweep at full size, the 4-shard ring, K1 on the sharded path, scaling."""
+    log("== kway")
+    card = card_line()
+    ring = make_mesh(devices=["cuda:0"] * KWAY_SHARDS)
+    cpu_ring = make_mesh(devices=["cpu"] * KWAY_SHARDS)
+
+    # 1. card against CPU on a 4-shard ring, the same numpy initial draw
+    edges = random_regular_edges(4096, KWAY_D, seed=0)
+    src = np.concatenate([edges[:, 0], edges[:, 1]])
+    dst = np.concatenate([edges[:, 1], edges[:, 0]])
+    small = tgiant.GiantConfig(number_epochs=20, log_every=1)
+    runs = {}
+    for name, mesh in (("card", ring), ("cpu", cpu_ring)):
+        reset_all(counters)
+        runs[name] = tgiant.train_giant_graph(src, dst, 4096, small, mesh=mesh,
+                                              return_assignment=True)
+        runs[name]["launches"] = all_launches(counters)
+    agree = float((runs["card"]["assignment"] == runs["cpu"]["assignment"]).mean())
+    log(f"  n=4096 k=3 on {KWAY_SHARDS} shards, card vs CPU ring: history "
+        f"{runs['card']['loss_history']} vs {runs['cpu']['loss_history']}, assignments agree "
+        f"on {agree:.6f}")
+    torch.testing.assert_close(torch.tensor(runs["card"]["loss_history"]),
+                               torch.tensor(runs["cpu"]["loss_history"]), rtol=1e-3, atol=0)
+    check(agree >= 0.999, "small k-way run: card and CPU assignments agree")
+    check(not any(runs["card"]["launches"].values()),
+          "the expander's shards do not band: no hand-written kernel runs")
+
+    # 2. the sweep at full size on one card (one shard), then k = 3 on the ring
+    reset_all(counters)
+    one = make_mesh(devices=["cuda:0"])
+    sweep = kway_sweep(n=KWAY_N, d=KWAY_D, ks=tuple(REFERENCE_KWAY), epochs=KWAY_EPOCHS,
+                            mesh=one)
+    sweep_launches = all_launches(counters)
+    log(f"  n={KWAY_N} d={KWAY_D}, {KWAY_EPOCHS} epochs a k, 1 shard; card: {card}")
+    log("  k | cut fraction | floor | margin (gate; JAX) | epoch ms | edges/s (amortized) | "
+        "partition s | assembly s")
+    for r in sweep:
+        k = r["k"]
+        r["margin_points"] = 100 * (r["cut_fraction"] - r["random_fraction"])
+        r["gate_points"] = KWAY_GATE[k]
+        r["reference_cut_percent"], r["reference_margin_points"] = REFERENCE_KWAY[k]
+        log(f"  {k} | {r['cut_fraction']:.5f} | {r['random_fraction']:.5f} | "
+            f"{r['margin_points']:+.2f} ({KWAY_GATE[k]:+.1f}; JAX {REFERENCE_KWAY[k][1]:+.1f}) | "
+            f"{r['epoch_time_s_amortized'] * 1e3:.4f} | {r['edges_per_s']:.4g} "
+            f"({r['edges_per_s_amortized']:.4g}) | {r['partition_s']:.4f} | {r['assembly_s']:.4f}")
+        check(r["timing_reliable"], f"k={k}: the amortized epoch time is reliable")
+        check(r["margin_points"] >= KWAY_GATE[k],
+              f"k={k}: margin {r['margin_points']:.2f} points >= half of PARITY.md's")
+    check(not any(sweep_launches.values()), "the sweep's expander runs the gather tables only")
+    reset_all(counters)
+    (ring3,) = kway_sweep(n=KWAY_N, d=KWAY_D, ks=(3,), epochs=KWAY_EPOCHS, mesh=ring)
+    ring3["margin_points"] = 100 * (ring3["cut_fraction"] - ring3["random_fraction"])
+    log(f"  k=3 on a {KWAY_SHARDS}-shard virtual ring (one card): cut fraction "
+        f"{ring3['cut_fraction']:.5f}, margin {ring3['margin_points']:+.2f}, epoch "
+        f"{ring3['epoch_time_s_amortized'] * 1e3:.4f} ms, {ring3['edges_per_s_amortized']:.4g} "
+        f"edges/s amortized, assembly {ring3['assembly_s']:.4f} s; card: {card}")
+    check(ring3["cut_fraction"] > ring3["random_fraction"], "4-shard ring k=3 above its floor")
+    check(not any(all_launches(counters).values()), "the ring's expander runs no kernel")
+
+    # 3. K1 on the sharded path: the banded-random graph in 4 contiguous
+    # shards, each banded after its RCM, hop 0 on K1
+    e = micro.banded_random_edges(KWAY_N, KWAY_D, 255, 0)
+    src = np.concatenate([e[:, 0], e[:, 1]])
+    dst = np.concatenate([e[:, 1], e[:, 0]])
+    cfg = tgiant.GiantConfig(number_epochs=KWAY_EPOCHS, block_ell=True, local_reorder="rcm")
+    reset_all(counters)
+    banded = tgiant.train_giant_graph(src, dst, KWAY_N, cfg, mesh=ring, return_assignment=True)
+    k1_launches = all_launches(counters)
+    asn = banded["assignment"]
+    decoded = float(np.sum(asn[e[:, 0]] != asn[e[:, 1]])) / e.shape[0]
+    log(f"  banded-random n={KWAY_N} on {KWAY_SHARDS} shards (n_shard {banded['n_shard']}), "
+        f"hop 0 on K1: {banded['epochs']} epochs, {banded['edges_per_s']:.4g} edges/s, cut "
+        f"fraction {banded['final_cut'] / banded['total_edges']:.5f} (decoded {decoded:.5f}), "
+        f"assembly {banded['assembly_s']:.3f} s; card: {card}; launches {k1_launches}")
+    check(banded["block_ell"], "every shard got a hop-0 plan")
+    # each shard: hop 0 of conv1, conv2 and the loss's A·S, forward and
+    # backward, every epoch; conv1 and conv2 forward in the decode
+    check(k1_launches["block_ell_spmm"] == KWAY_SHARDS * (6 * KWAY_EPOCHS + 2),
+          "K1 launched 6 times an epoch on each shard, plus 2 each for the decode")
+    check(all(v == 0 for k, v in k1_launches.items() if k != "block_ell_spmm"),
+          "no banded, halo or probe kernel runs on the sharded path")
+    check(banded["final_cut"] / banded["total_edges"] > 2 / 3 and decoded > 2 / 3,
+          "the banded sharded run beats the 2/3 floor")
+    sg, _ = tpart.shard_graph(src, dst, KWAY_N, KWAY_SHARDS, local_reorder="rcm",
+                              block_ell=True)
+    sg = sg.to(ring)
+    check(sg.bell_senders is not None and len(sg.bell_senders) == KWAY_SHARDS,
+          "a plan on each of the 4 shards")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    args = (sg.n_shard, sg.bell_block, sg.bell_wp)
+    err = 0.0
+    for F in (64, 3):
+        ops = (sg.bell_senders[0], sg.bell_weights[0], sg.bell_out_senders[0],
+               sg.bell_out_receivers[0], sg.bell_out_weights[0])
+        x = torch.randn(sg.n_shard, F, generator=gen, device="cuda", requires_grad=True)
+        dy = torch.randn(sg.n_shard, F, generator=gen, device="cuda")
+        y = tbell.block_ell_spmm(x, *ops, *args)
+        (dx,) = torch.autograd.grad(y, x, dy)
+        with torch.no_grad():
+            err = max(err, max_err_within_tolerance(
+                torch, y.detach(), tbell.block_ell_spmm_plain(x, *ops, *args)))
+            # hop 0 of a symmetric graph is symmetric: dx = A·dy
+            err = max(err, max_err_within_tolerance(
+                torch, dx, tbell.block_ell_spmm_plain(dy, *ops, *args)))
+    log(f"  K1 on shard 0's plan (F = 64 and 3), forward and gradient against the plain "
+        f"version: max |err| {err:.3g}")
+    timings = [time_shard_k1(torch, tbell, sg, 0, F, gen) for F in (64, 3)]
+    log(f"  (K1 times on {card})")
+
+    # 4. bench --what scaling at its defaults (D = 1 on one card), then the
+    # sharded conv on the virtual ring
+    reset_all(counters)
+    scale = scaling.scaling_sweep(n=KWAY_N, d=KWAY_D, feature_dim=128)
+    scale.append(scaling.bench_sharded_conv(KWAY_N, KWAY_D, 128, 128,
+                                            devices=["cuda:0"] * KWAY_SHARDS))
+    for r in scale:
+        label = "virtual ring, one card" if r["virtual_ring"] else "scaling point"
+        log(f"  sharded conv n={r['n']} F=128 D={r['num_devices']} ({label}): fwd "
+            f"{r['fwd_edges_per_s']:.4g} edges/s ({r['fwd_time_s'] * 1e3:.4f} ms), fwd+bwd "
+            f"{r['fwdbwd_edges_per_s']:.4g} ({r['fwdbwd_time_s'] * 1e3:.4f} ms); card: {card}")
+    check([r["num_devices"] for r in scale[:-1]] == [1] and scale[-1]["virtual_ring"],
+          "one scaling point on one card, and the virtual ring")
+    torch.cuda.empty_cache()
+    for r in runs.values():
+        r.pop("assignment")
+    banded.pop("assignment")
+    return {"card_vs_cpu": {**runs, "agreement": agree}, "sweep": sweep, "ring_k3": ring3,
+            "banded": {**banded, "decoded_cut_fraction": decoded, "launches": k1_launches},
+            "k1_max_abs_err": err, "k1_timings": timings, "scaling": scale, "card": card}
+
+
 def phase_microbench(tbell, tb, micro) -> dict:
     log("== microbench")
     tbell.reset_launches()
@@ -1525,12 +1726,15 @@ def main() -> int:
 
     from gcn_maxcut_tpu_torch import build
     from gcn_maxcut_tpu_torch.bench import giant_demo as giant
+    from gcn_maxcut_tpu_torch.bench import scaling
+    from gcn_maxcut_tpu_torch.bench.kway_sweep import kway_sweep
     from gcn_maxcut_tpu_torch.bench import locality as loc
     from gcn_maxcut_tpu_torch.bench import microbench as micro
     from gcn_maxcut_tpu_torch.bench import quality
     from gcn_maxcut_tpu_torch.cli import main as cli_main
     from gcn_maxcut_tpu_torch.cli import run_pipeline
     from gcn_maxcut_tpu_torch.core import graph as tgraph
+    from gcn_maxcut_tpu_torch.data.generate import random_regular_edges
     from gcn_maxcut_tpu_torch.device import resolve_device
     from gcn_maxcut_tpu_torch.experiments import (
         gather_probe,
@@ -1545,7 +1749,9 @@ def main() -> int:
     from gcn_maxcut_tpu_torch.ops import halo_stream as hs
     from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
     from gcn_maxcut_tpu_torch.ops import segment as seg
+    from gcn_maxcut_tpu_torch.parallel import giant as tgiant
     from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
+    from gcn_maxcut_tpu_torch.parallel import partition as tpart
     from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
 
     resolve_device()                      # turns TF32 off
@@ -1572,6 +1778,8 @@ def main() -> int:
     report["quality"] = phase_quality(tb, quality)
     report["timings"] = phase_timings(micro, report["quality"]["per_size"][500]["refine_time_s"])
     report["locality"] = phase_locality(torch, np, tbell, tb, loc)
+    report["kway"] = phase_kway(torch, np, (tbell, tb, th, tpk), tbell, make_mesh, micro, tpart,
+                                tgiant, kway_sweep, scaling, random_regular_edges)
     report["microbench"] = phase_microbench(tbell, tb, micro)
     report["seconds"] = time.perf_counter() - t_start
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
@@ -1597,7 +1805,9 @@ def main() -> int:
           "K2 at F = 16 and K3 run halo_stream.cu, K2 at F = 3 the earlier body")
     for name in ("K5", "K6", "K5 window"):
         rows[name]["n"] = rows[name]["n_shard"]
-    launches = {"K1": report["locality"]["launches"]["block_ell_spmm"],
+    k1_paths = {"locality": report["locality"]["launches"]["block_ell_spmm"],
+                "kway (banded, 4 shards)": report["kway"]["banded"]["launches"]["block_ell_spmm"]}
+    launches = {"K1": sum(k1_paths.values()),
                 "K2": report["giant"]["plain"]["launches"]["banded_spmm_unit"],
                 "K2 window": report["giant"]["plain"]["launches"]["banded_spmm_unit_window"],
                 "K3": report["giant"]["packed"]["launches"]["banded_spmm_unit_packed"],
@@ -1637,6 +1847,7 @@ def main() -> int:
             "exchange_ms": rows[name]["exchange_ms"]} if name.startswith(("K5", "K6")) else {}),
         "earlier_ms": rows[name]["earlier_ms"],
     } for name in ("K1", "K2", "K2 window", "K3", "K4", "K5", "K5 window", "K6")]
+    kernels[0]["launches_by_path"] = k1_paths
 
     # the probes' rows: (label, wrapper, source, pallas_call, probe run,
     # launch counter, error key, timing case)

@@ -27,13 +27,19 @@ So far the port holds:
                harness (per-graph tests, size buckets, analysis, reports)
   baselines/   randomized k-way max-cut; greedy flips, simulated
                annealing, BLS and the recursive 2-way split
-  parallel/    device rings (meshes) and the node-sharded giant trainers
-  bench/       the cut-quality suite, giant banded trainers, the locality
+  native/      ctypes bindings of native/libgraphtools.so (the regular
+               sampler, partitions, symmetry check, shard assembly)
+  parallel/    device rings (meshes), the node-sharded banded giant
+               trainers, graph partitioning, the ring / all-gather sharded
+               SpMM and the giant trainer of BASELINE config 4
+  bench/       the cut-quality suite, the k-way sweep, the sharded conv's
+               scaling harness, giant banded trainers, the locality
                trainer, the recipe's epoch and post-processing timings,
                SpMM microbenchmarks and the H100 roofline
   utils/       the per-epoch JSONL metrics logger
   cli.py       ``generate``, ``train``, ``test``, ``pipeline`` and ``bench
-               --what quality|train|post|giant|locality|spmm|banded``
+               --what quality|train|post|giant|locality|spmm|banded|kway|
+               scaling``
 """
 
 __version__ = "0.1.0"

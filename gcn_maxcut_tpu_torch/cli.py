@@ -29,6 +29,12 @@ on a device (default: the CUDA device; ``--device cpu`` runs on the CPU):
       banded SpMM edges/s: the unit and weighted kernels
   python -m gcn_maxcut_tpu_torch bench --what locality [--n 100000]
       the locality trainer (bench/locality.py): RCM, plan, train, decode
+  python -m gcn_maxcut_tpu_torch bench --what kway [--n 100000 --d 8]
+      the k-way sweep k = 3..8 on the node-sharded trainer
+      (bench/kway_sweep.py; --giant-epochs, --partition, --block-ell)
+  python -m gcn_maxcut_tpu_torch bench --what scaling [--n 100000 --d 8]
+      one sharded conv's edges/s at 1, 2, 4, ... CUDA devices
+      (bench/scaling.py)
 """
 
 from __future__ import annotations
@@ -296,6 +302,20 @@ def _cmd_bench(args) -> int:
         res.pop("assignment")
         print(json.dumps({"locality": res}, default=float))
         return 0
+    if args.what == "kway":
+        from gcn_maxcut_tpu_torch.bench.kway_sweep import kway_sweep
+
+        res = kway_sweep(n=args.n, d=args.d, epochs=args.giant_epochs,
+                         partition=args.partition, block_ell=args.block_ell,
+                         device=args.device)
+        print(json.dumps({"kway": res}, default=float))
+        return 0
+    if args.what == "scaling":
+        from gcn_maxcut_tpu_torch.bench.scaling import scaling_sweep
+
+        print(json.dumps({"scaling": scaling_sweep(n=args.n, d=args.d, device=args.device)},
+                         default=float))
+        return 0
     if args.giant_layout == "packed":
         res = train_banded_giant_packed(
             n=args.giant_nodes, d=args.d, epochs=args.giant_epochs,
@@ -369,14 +389,16 @@ def main(argv=None) -> int:
     b = sub.add_parser("bench", help="microbenchmarks, the quality suite and the "
                                      "single-device trainers")
     b.add_argument("--what", choices=["giant", "spmm", "banded", "locality", "quality",
-                                      "train", "post"], default="giant")
+                                      "train", "post", "kway", "scaling"], default="giant")
     b.add_argument("--recipe", choices=["n500", "mixed", "per_size"], default="mixed",
                    help="quality-suite training recipe (see bench/quality.py)")
-    b.add_argument("--n", type=int, default=100_000, help="nodes (spmm, locality)")
+    b.add_argument("--n", type=int, default=100_000,
+                   help="nodes (spmm, locality, kway, scaling)")
     b.add_argument("--d", type=int, default=8)
     b.add_argument("--epochs", type=int, default=200, help="locality trainer epochs")
     b.add_argument("--giant-nodes", type=int, default=10_002_432)
-    b.add_argument("--giant-epochs", type=int, default=40)
+    b.add_argument("--giant-epochs", type=int, default=40,
+                   help="epochs of the giant trainer and of each k of the kway sweep")
     b.add_argument(
         "--giant-layout", choices=["packed", "plain"], default="packed",
         help="packed = interleaved node order, every aggregation 16 wide",
@@ -384,6 +406,15 @@ def main(argv=None) -> int:
     b.add_argument(
         "--act-dtype", choices=["float32", "bfloat16"], default="float32",
         help="packed giant activation dtype",
+    )
+    b.add_argument(
+        "--partition", choices=["contiguous", "bfs", "metis"], default="contiguous",
+        help="node -> shard partitioner of the kway sweep's sharded trainer",
+    )
+    b.add_argument(
+        "--block-ell", action="store_true",
+        help="kway: hop-0 aggregation on the block-ELL kernel where every shard bands "
+             "after a per-shard RCM (expanders keep the gather tables)",
     )
     b.add_argument("--device", default=None, help="default: the CUDA device")
     b.set_defaults(fn=_cmd_bench)

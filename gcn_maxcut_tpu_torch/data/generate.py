@@ -1,11 +1,14 @@
 """Graph generation: seeded random regular / G(n,p) graphs with terminals.
 
-Port of ``gcn_maxcut_tpu/data/generate.py`` (host side).  The samplers are
-pure numpy with one ``numpy.random.Generator`` per call, so the same seed
-gives the same edges as the JAX package.  The JAX package switches to its
-native C++ regular sampler for n ≥ 20,000; this port keeps the numpy
-pairing model at every size for now.  ``regular_graph_on_device`` builds the
-circulant benchmark graph with torch on a given device.
+Port of ``gcn_maxcut_tpu/data/generate.py`` (host side).  Below n = 20,000
+the samplers are pure numpy with one ``numpy.random.Generator`` per call;
+from n = 20,000 the regular sampler is the native C++ one
+(``native/graphtools.cpp`` through ``native/bindings.py``), as in the JAX
+package.  Either way the same seed gives the same edges as the JAX package.
+An unseeded regular draw at that size takes a fresh 64-bit seed (the JAX
+package passes seed 0 there, so its unseeded draws are all one graph).
+``regular_graph_on_device`` builds the circulant benchmark graph with torch
+on a given device.
 """
 
 from __future__ import annotations
@@ -41,6 +44,11 @@ def random_regular_edges(
     the suitable pairs and reshuffling the rest, restarting when only
     unsuitable pairs (self-loops / multi-edges) remain (Steger–Wormald).
     Returns the sorted [n·d/2, 2] edge array with u < v.
+
+    For n ≥ 20,000 the native sampler draws the graph (same scheme, another
+    RNG stream); it raises when the native library neither loads nor
+    builds.  Only when that sampler gives up (its restart budget) does the
+    pairing model below take over, as in the JAX package.
     """
     if n * d % 2 != 0:
         raise ValueError(f"n*d must be even (n={n}, d={d})")
@@ -48,6 +56,17 @@ def random_regular_edges(
         raise ValueError(f"need 0 <= d < n (n={n}, d={d})")
     if d == 0:
         return np.empty((0, 2), dtype=np.int64)
+
+    if n >= 20_000:
+        from gcn_maxcut_tpu_torch.native.bindings import library, random_regular_edges_native
+
+        library()
+        if seed is None:
+            seed = int(np.random.default_rng().integers(2**64, dtype=np.uint64))
+        try:
+            return random_regular_edges_native(n, d, seed=int(seed))
+        except RuntimeError:
+            pass
 
     rng = np.random.default_rng(seed)
     for _ in range(max_restarts):

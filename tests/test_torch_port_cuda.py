@@ -20,8 +20,9 @@ import torch
 
 from gcn_maxcut_tpu_torch.baselines.local_search import greedy_flip_local_search
 from gcn_maxcut_tpu_torch.bench import giant_demo as tgiant
+from gcn_maxcut_tpu_torch.bench.microbench import banded_random_edges
 from gcn_maxcut_tpu_torch.core.graph import graph_from_dense, graph_from_edges
-from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset
+from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset, random_regular_edges
 from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
 from gcn_maxcut_tpu_torch.eval.decode import refine_multi_start_from_uniforms
 from gcn_maxcut_tpu_torch.ops import banded as tb
@@ -30,6 +31,8 @@ from gcn_maxcut_tpu_torch.ops import halo as th
 from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
 from gcn_maxcut_tpu_torch.ops.segment import spmm
 from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
+from gcn_maxcut_tpu_torch.parallel import partition as tpart
+from gcn_maxcut_tpu_torch.parallel import spmm as tspmm
 from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
 
 CASES = [
@@ -1013,3 +1016,56 @@ def test_cuda_refine_multi_start_equals_cpu(cuda_device):
         asn_c, cut_c = refine_multi_start_from_uniforms(
             g.to(cuda_device), probs.to(cuda_device), u.to(cuda_device), 4)
         assert torch.equal(asn_c.cpu(), asn) and float(cut_c) == float(cut)
+
+
+def _sharded(n, edges, D, mesh, **kw):
+    s = np.concatenate([edges[:, 0], edges[:, 1]])
+    r = np.concatenate([edges[:, 1], edges[:, 0]])
+    sg, _ = tpart.shard_graph(s, r, n, D, **kw)
+    return sg, sg.to(mesh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["ring", "allgather"])
+@pytest.mark.parametrize("build_ell", [True, False], ids=["ell", "coo"])
+def test_cuda_sharded_spmm_on_a_virtual_ring_matches_the_cpu_ring(cuda_device, schedule,
+                                                                   build_ell):
+    D, n, F = 4, 4096, 64
+    card, cpu = make_mesh(devices=[cuda_device] * D), make_mesh(devices=["cpu"] * D)
+    host, sg = _sharded(n, random_regular_edges(n, 8, seed=3), D, card, build_ell=build_ell)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(D, sg.n_shard, F)).astype(np.float32)
+    dy = rng.normal(size=x.shape).astype(np.float32)
+    outs = []
+    for mesh, g in ((card, sg), (cpu, host.to(cpu))):
+        xs = [torch.tensor(a, device=dev, requires_grad=True) for a, dev in zip(x, mesh.devices)]
+        ys = tspmm.sharded_spmm_sym(g, xs, mesh, schedule)
+        loss = sum(torch.sum(y * torch.tensor(t, device=y.device)) for y, t in zip(ys, dy))
+        grads = torch.autograd.grad(loss, xs)
+        outs.append([torch.stack([t.detach().cpu() for t in v]) for v in (ys, grads)])
+    for got, ref in zip(*outs):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [64, 3])
+def test_cuda_k1_on_a_hop0_shard_plan_matches_plain(cuda_device, F):
+    D, n = 4, 16_384
+    card = make_mesh(devices=[cuda_device] * D)
+    edges = banded_random_edges(n, 8, 255, 0)
+    _, sg = _sharded(n, edges, D, card, local_reorder="rcm", block_ell=True)
+    assert sg.bell_block is not None
+    rng = np.random.default_rng(5)
+    tbell.reset_launches()
+    for d in range(D):
+        x = torch.tensor(rng.normal(size=(sg.n_shard, F)).astype(np.float32), device=cuda_device,
+                         requires_grad=True)
+        args = (sg.bell_senders[d], sg.bell_weights[d], sg.bell_out_senders[d],
+                sg.bell_out_receivers[d], sg.bell_out_weights[d], sg.n_shard, sg.bell_block,
+                sg.bell_wp)
+        y = tbell.block_ell_spmm(x, *args)
+        (dx,) = torch.autograd.grad(torch.sum(y * y), x)
+        ref = tbell.block_ell_spmm_plain(x.detach(), *args)
+        assert_kernel_close(y, ref)
+        assert_kernel_close(dx, tbell.block_ell_spmm_plain(2 * ref, *args))
+    assert tbell.LAUNCHES["block_ell_spmm"] == 2 * D

@@ -3,11 +3,13 @@
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from gcn_maxcut_tpu_torch import device as tdevice
 from gcn_maxcut_tpu_torch.bench.giant_demo import train_banded_giant_packed
+from gcn_maxcut_tpu_torch.bench.kway_sweep import kway_sweep
 from gcn_maxcut_tpu_torch.bench.locality import train_locality
 from gcn_maxcut_tpu_torch.bench.microbench import (
     bench_post_processing,
@@ -16,8 +18,10 @@ from gcn_maxcut_tpu_torch.bench.microbench import (
     bench_train_epoch,
 )
 from gcn_maxcut_tpu_torch.bench.quality import run_quality_suite
+from gcn_maxcut_tpu_torch.bench.scaling import bench_sharded_conv, scaling_sweep
 from gcn_maxcut_tpu_torch.cli import main as cli_main
 from gcn_maxcut_tpu_torch.convert import params_from_jax
+from gcn_maxcut_tpu_torch.data.generate import random_regular_edges
 from gcn_maxcut_tpu_torch.experiments import (
     gather_probe,
     gather_probe2,
@@ -27,6 +31,7 @@ from gcn_maxcut_tpu_torch.experiments import (
 )
 from gcn_maxcut_tpu_torch.ops import halo as th
 from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
+from gcn_maxcut_tpu_torch.parallel.giant import GiantConfig, train_giant_graph
 from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -117,3 +122,32 @@ def test_recipe_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry(path)
+
+
+def test_sharded_entry_points_raise_without_cuda(monkeypatch):
+    edges = random_regular_edges(64, 4, seed=0)
+    s = np.concatenate([edges[:, 0], edges[:, 1]])
+    r = np.concatenate([edges[:, 1], edges[:, 0]])
+    cfg = GiantConfig(dim_embedding=8, hidden_dim=4, number_epochs=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="devices="):
+        train_giant_graph(s, r, 64, cfg)
+    with pytest.raises(RuntimeError):
+        train_giant_graph(s, r, 64, cfg, mesh=make_mesh(devices=["cuda:0"]))
+    with pytest.raises(RuntimeError, match="devices="):
+        kway_sweep(n=64, d=4, ks=(3,), epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_sharded_conv(64, 4, feature_dim=8, out_dim=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scaling_sweep(64, 4, feature_dim=8)
+    for argv in (["bench", "--what", "kway", "--n", "64", "--d", "4"],
+                 ["bench", "--what", "scaling", "--n", "64", "--d", "4"]):
+        with pytest.raises(RuntimeError):
+            cli_main(argv)
+    # asked for by name, the CPU runs them
+    assert train_giant_graph(s, r, 64, cfg, mesh=make_mesh(devices=["cpu"] * 2))["num_shards"] == 2
+    (res,) = kway_sweep(n=64, d=4, ks=(3,), epochs=1, dim_embedding=8, hidden_dim=4,
+                        device="cpu")
+    assert res["num_shards"] == 1
+    assert bench_sharded_conv(64, 4, feature_dim=8, out_dim=4, iters=1,
+                              device="cpu")["device"] == "cpu"
