@@ -18,10 +18,14 @@ So far the port holds:
   ops/         block-ELL / ELL / COO SpMM, SDDMM, STE ops; the banded SpMM
                kernels (K2, K3, weighted K4), the block-ELL kernel (K1) and
                the sharded halo kernels over a device ring (K5, K6)
-  models/      GraphConv (norm='both') and the GCNSoftmax module
-  objectives/  edge-form cut loss and hard cut value
-  train/       TrainingConfig, per-graph Adam loop with early stopping,
-               npz checkpoints (the JAX package's layout) and resume
+  models/      GraphConv (norm='both'), the GCNSoftmax module and the
+               legacy sigmoid QUBO model
+  objectives/  edge-form cut loss, sampled-decode quantile loss, hard cut
+               value, the loss-variant zoo and the max-cut QUBO
+  train/       TrainingConfig, the Adam loop (per-graph or batched steps,
+               constant or cosine rate, STE / quantile / entropy losses)
+               with early stopping, npz checkpoints (the JAX package's
+               layout) and resume; the single-graph QUBO loop
   eval/        argmax and sampled decoders, the multi-start greedy-flip
                refine, the class-relabeling search and the evaluation
                harness (per-graph tests, size buckets, analysis, reports)

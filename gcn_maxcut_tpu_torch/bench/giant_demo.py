@@ -19,12 +19,15 @@ and three backward (the adjoint is the kernel with negated offsets).
 Optimisation is Adam (``train/optim.py``), optionally with a bfloat16 first
 moment.  Both trainers take initial parameters in the JAX layout
 (``convert.params_from_jax``) through ``params=``; by default they are
-drawn from ``seed`` with a ``torch.Generator``.  Checkpoint and resume are
-not ported yet.
+drawn from ``seed`` with a ``torch.Generator``.  The packed trainer writes
+and resumes checkpoints in the JAX package's layout (``train/checkpoint.py``;
+the Adam state as optax's ``{"0": {".count", ".mu", ".nu"}}``), so a run of
+either package resumes in the other.
 
 Epoch time is the mean over the epochs after the first (which includes the
 kernel build and warm-up), from CUDA events on the card and the host clock
-on the CPU.
+on the CPU; checkpoint writes fall outside the timed stretches and are
+timed on their own.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from gcn_maxcut_tpu_torch.device import resolve_device
 from gcn_maxcut_tpu_torch.models.gcn import gcn_conv_init
 from gcn_maxcut_tpu_torch.ops.banded import banded_spmm_unit, banded_spmm_unit_packed
 from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
+from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from gcn_maxcut_tpu_torch.train.optim import Adam
 
 G = 16  # lane-group width of the packed layout (classes padded to it)
@@ -130,46 +134,90 @@ def _synchronize(devices: Sequence[torch.device]) -> None:
             torch.cuda.synchronize(dev)
 
 
+def _seconds(fn: Callable[[], None], devices: Sequence[torch.device]) -> float:
+    """Seconds ``fn``'s work takes: CUDA events on ``devices[0]``'s stream
+    after every device is synchronised, or the host clock on the CPU."""
+    dev = devices[0]
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(torch.cuda.current_stream(dev))
+    fn()
+    _synchronize(devices)
+    end.record(torch.cuda.current_stream(dev))
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
 def _train(
     loss_fn: Callable[[], torch.Tensor],
     leaves: List[torch.Tensor],
     epochs: int,
     optimizer: Adam,
     devices: Sequence[torch.device],
+    pause_at: Sequence[int] = (),
+    on_pause: Callable[[int, List[float]], None] | None = None,
 ) -> tuple[List[float], float, float]:
     """Run ``epochs`` Adam steps on ``leaves``; returns (loss history,
-    first-epoch seconds, mean seconds of the later epochs).  The loss lives
-    on ``devices[0]``; every device is synchronised before a time is read."""
+    first-epoch seconds, mean seconds of the later epochs, or the first
+    epoch's when it is the only one).  The loss lives on ``devices[0]``;
+    every device is synchronised before a time is read.  After each epoch
+    count in ``pause_at`` (counted from 1), ``on_pause(count, history so
+    far)`` runs outside the timed stretches."""
 
     def step() -> torch.Tensor:
         loss = loss_fn()
         optimizer.step(torch.autograd.grad(loss, leaves))
         return loss.detach()
 
-    dev = devices[0]
-    cuda = dev.type == "cuda"
+    def history() -> List[float]:
+        return [float(v) for v in torch.stack(losses).cpu()]
+
     t0 = time.perf_counter()
     losses = [step()]
     _synchronize(devices)
     first = time.perf_counter() - t0
-    if epochs > 1:
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
-        losses += [step() for _ in range(epochs - 1)]
-        if cuda:
-            _synchronize(devices)
-            end.record(torch.cuda.current_stream(dev))
-            end.synchronize()
-            steady = start.elapsed_time(end) / 1e3 / (epochs - 1)
-        else:
-            steady = (time.perf_counter() - t0) / (epochs - 1)
-    else:
-        steady = first
-    history = [float(v) for v in torch.stack(losses).cpu()]
-    return history, first, steady
+    stops = sorted({e for e in pause_at if 1 <= e < epochs} | {epochs})
+    done, timed = 1, 0.0
+    for stop in stops:
+        if done in pause_at and on_pause is not None:
+            on_pause(done, history())
+        if stop > done:
+            timed += _seconds(lambda: losses.extend(step() for _ in range(stop - done)),
+                              devices)
+            done = stop
+    steady = timed / (epochs - 1) if epochs > 1 else first
+    return history(), first, steady
+
+
+def _tree(leaves: Sequence[torch.Tensor]) -> Dict[str, Any]:
+    """The five leaves of ``_leaves`` as the JAX parameter tree."""
+    w1, b1, w2, b2, embed = leaves
+    return {"conv1": {"w": w1, "b": b1}, "conv2": {"w": w2, "b": b2}, "embed": embed}
+
+
+def _adam_state(optimizer: Adam) -> Dict[str, Any]:
+    """The Adam state in optax's layout for ``optax.adam`` over the tree."""
+    return {"0": {".count": torch.tensor(optimizer.count, dtype=torch.int32),
+                  ".mu": _tree(optimizer.mu), ".nu": _tree(optimizer.nu)}}
+
+
+@torch.no_grad()
+def _resume(path: str, params: Dict[str, Any], optimizer: Adam) -> tuple[int, List[float]]:
+    """Load a checkpoint into ``params`` and ``optimizer`` (each leaf in
+    its own dtype: a bfloat16 first moment comes back as bfloat16); returns
+    (epochs done, loss history)."""
+    loaded, opt, _, meta = load_checkpoint(path, params, _adam_state(optimizer))
+    for t, v in zip(_leaves(params), _leaves(loaded)):
+        t.copy_(v)
+    state = opt["0"]
+    optimizer.count = int(state[".count"])
+    optimizer.mu = _leaves(state[".mu"])
+    optimizer.nu = _leaves(state[".nu"])
+    return int(meta["epoch"]), list(meta["loss_history"])
 
 
 def _result(n, d, epochs, history, first, steady, layout, offsets):
@@ -257,6 +305,9 @@ def train_banded_giant_packed(
     act_dtype: str | None = None,
     mu_dtype: str | None = "bfloat16",
     return_assignment: bool = False,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int | None = None,
+    resume_from: str | None = None,
     params: Dict[str, Any] | None = None,
     device: str | torch.device | None = None,
 ) -> Dict[str, Any]:
@@ -272,6 +323,19 @@ def train_banded_giant_packed(
     {"w": [16, 16], "b"}, "embed": [n/r, r·emb]}`` (the JAX layout).
     ``return_assignment`` adds the decoded class of every node, in node
     order.
+
+    ``checkpoint_path``: write the parameters, the Adam state (the first
+    moment in ``mu_dtype``, stored as float32) and the loss history there
+    after every ``checkpoint_every``-th epoch short of ``epochs`` (epochs,
+    not the JAX package's chunks: this trainer steps eagerly) and at the
+    end, each time over the same file; ``meta["epoch"]`` is the count of
+    epochs done.  ``checkpoint_writes`` lists each write's epoch, seconds
+    and bytes.  ``resume_from``: continue from such a checkpoint (of either
+    package; ``resume_s`` is the load's seconds) and train exactly to
+    ``epochs``; raises when the checkpoint is already at or past
+    ``epochs``.  The history then starts with the checkpoint's, and the
+    epoch time is that of the epochs this call ran: the first epoch's own
+    when it ran only one.
     """
     if hidden_dim != G or dim_embedding % G:
         raise ValueError("packed trainer expects hidden_dim=16, emb % 16 == 0")
@@ -320,9 +384,35 @@ def train_banded_giant_packed(
         _leaves(params), learning_rate,
         mu_dtype=None if mu_dtype is None else getattr(torch, mu_dtype),
     )
-    history, first, steady = _train(
-        lambda: loss_fn(params), _leaves(params), epochs, optimizer, [dev])
+    history: List[float] = []
+    start, resume_s = 0, None
+    if resume_from is not None:
+        t0 = time.perf_counter()
+        start, history = _resume(resume_from, params, optimizer)
+        resume_s = time.perf_counter() - t0
+        if start >= epochs:
+            raise ValueError(f"checkpoint already at epoch {start} >= epochs={epochs}")
+    writes: List[Dict[str, Any]] = []
+
+    def save(done: int, hist: List[float]) -> None:
+        t0 = time.perf_counter()
+        path = save_checkpoint(checkpoint_path, params=params,
+                               opt_state=_adam_state(optimizer), epoch=done,
+                               loss_history=hist)
+        writes.append({"epoch": done, "seconds": time.perf_counter() - t0,
+                       "bytes": path.stat().st_size})
+
+    pause_at = ()
+    if checkpoint_path is not None and checkpoint_every:
+        pause_at = [e - start for e in range(start + 1, epochs) if e % checkpoint_every == 0]
+    new, first, steady = _train(
+        lambda: loss_fn(params), _leaves(params), epochs - start, optimizer, [dev],
+        pause_at, lambda done, hist: save(start + done, history + hist))
+    history += new
+    if checkpoint_path is not None:
+        save(epochs, history)
     res = _result(n, d, epochs, history, first, steady, "packed", offsets)
+    res.update(resumed_from_epoch=start, resume_s=resume_s, checkpoint_writes=writes)
     if return_assignment:
         with torch.no_grad():
             cls = group_argmax(pinned_probs(params), class_ok)   # position order

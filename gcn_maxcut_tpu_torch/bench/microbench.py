@@ -289,7 +289,7 @@ def recipe_trainer(
     from gcn_maxcut_tpu_torch.data.generate import generate_graph
     from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
     from gcn_maxcut_tpu_torch.train.config import TrainingConfig
-    from gcn_maxcut_tpu_torch.train.loop import _dense_inputs, _run_epoch, setup_train_state
+    from gcn_maxcut_tpu_torch.train.loop import _run_epoch, epoch_inputs, setup_train_state
 
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -303,10 +303,9 @@ def recipe_trainer(
     batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)]).to(dev)
     cfg = TrainingConfig(n_nodes=max_nodes)
     state = setup_train_state(cfg, device=dev)
-    graphs = [batch.index(i) for i in range(num_graphs)]
-    dense = _dense_inputs(graphs, cfg)
+    inputs = epoch_inputs(batch, cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
-    return state, lambda: _run_epoch(state, graphs, dense, gen)
+    return state, lambda: _run_epoch(state, inputs, gen)
 
 
 def bench_train_epoch(

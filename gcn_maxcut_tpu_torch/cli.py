@@ -358,12 +358,14 @@ def main(argv=None) -> int:
     t.add_argument("--save-frequency", type=int, default=100)
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--loss-mode", default="ste", choices=("ste", "quantile"),
-                   help="only ste is ported; quantile raises NotImplementedError")
+                   help="ste = the reference's STE argmax loss; quantile = train on "
+                        "mean + c*std of the sampled decode (best-of-N objective)")
     t.add_argument("--quantile-c", type=float, default=2.6)
     t.add_argument("--entropy-weight", type=float, default=0.0,
-                   help="only 0 is ported; other values raise NotImplementedError")
+                   help="reward per-node entropy (sampled-decode diversity lever)")
     t.add_argument("--lr-schedule", default="constant", choices=("constant", "cosine"),
-                   help="only constant is ported; cosine raises NotImplementedError")
+                   help="cosine: decay the learning rate to lr_final_fraction of it "
+                        "over the run's steps")
     t.add_argument("--metrics", default=None,
                    help="write per-epoch JSONL metrics (loss, step time) to this path")
     t.add_argument("--resume", default=None,

@@ -10,7 +10,11 @@ product in the other order).  Weights are Glorot-uniform ``[in, out]`` (the
 JAX layout, kept as is), biases zero.  ``gcn_conv_apply`` and
 ``gcn_softmax_apply`` are plain functions over a parameter dict
 ``{"conv1": {"w", "b"}, "conv2": {"w", "b"}}``; ``GCNSoftmax`` is the
-``nn.Module`` that owns those parameters.
+``nn.Module`` that owns those parameters.  Both take a batch as well: a
+stacked graph (``pad_graph_batch``) with ``x`` [G, n_pad, in] and
+``a_dense`` [G, n_pad, n_pad] runs every aggregation as one batched GEMM.
+``gcn_dev_*`` is the legacy 2-way QUBO model, conv → ReLU → conv →
+sigmoid, on the same layer and its order rule.
 """
 
 from __future__ import annotations
@@ -53,8 +57,9 @@ def gcn_conv_apply(
     """Symmetric-normalised graph convolution.  ``a_dense`` is an optional
     [n_pad, n_pad] unweighted adjacency (``dense_adjacency(g, values=
     "mask")``): aggregation is then one dense matmul instead of the sparse
-    path."""
-    norm = torch.rsqrt(torch.clamp(g.degrees, min=1.0))[:, None]
+    path; with a leading batch dimension on ``g``, ``x`` and ``a_dense`` it
+    is a batched matmul."""
+    norm = torch.rsqrt(torch.clamp(g.degrees, min=1.0))[..., None]
     if a_dense is not None:
         aggregate = lambda h: a_dense @ h  # noqa: E731
     else:
@@ -136,6 +141,33 @@ class GCNSoftmax(nn.Module):
             self.params(), g, x, dropout=self.dropout, train=self.training,
             generator=generator, a_dense=a_dense,
         )
+
+
+def gcn_dev_init(
+    in_feats: int, hidden: int, out: int = 1, *,
+    generator: torch.Generator, device=None,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Parameters of the legacy QUBO model, ``{"conv1", "conv2"}``."""
+    return {
+        "conv1": gcn_conv_init(in_feats, hidden, generator, device),
+        "conv2": gcn_conv_init(hidden, out, generator, device),
+    }
+
+
+def gcn_dev_apply(
+    params: Dict[str, Dict[str, torch.Tensor]], g: Graph, x: torch.Tensor
+) -> torch.Tensor:
+    """conv → ReLU → conv → sigmoid; each layer projects first when
+    in > out, as ``gcn_conv_apply`` does."""
+    h = torch.relu(gcn_conv_apply(params["conv1"], g, x))
+    return torch.sigmoid(gcn_conv_apply(params["conv2"], g, h))
+
+
+def count_params(params) -> int:
+    """Number of scalars in a nested dict of tensors."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return int(params.numel())
 
 
 def embedding_init(

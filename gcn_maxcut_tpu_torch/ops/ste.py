@@ -1,4 +1,5 @@
-"""Straight-through estimator ops: terminal pinning and hard argmax.
+"""Straight-through estimator ops: terminal pinning, hard argmax and
+threshold.
 
 Port of ``gcn_maxcut_tpu/ops/ste.py``.  ``detach`` plays the role of
 ``stop_gradient``: forward(x) = hard(x) and d forward / d x = I.
@@ -27,4 +28,12 @@ def ste_argmax_onehot(h: torch.Tensor) -> torch.Tensor:
     to the lowest index, as ``torch.argmax`` and ``jnp.argmax`` resolve them."""
     idx = torch.argmax(h, dim=-1)
     hard = torch.nn.functional.one_hot(idx, h.shape[-1]).to(h.dtype)
+    return (hard - h).detach() + h
+
+
+def ste_threshold(h: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """Elementwise hard threshold with straight-through gradient: values at
+    or above ``threshold`` (ties included) go to 1, the rest to 0 (the
+    legacy QUBO path's ``probs >= prob_threshold``)."""
+    hard = (h >= threshold).to(h.dtype)
     return (hard - h).detach() + h

@@ -4,9 +4,9 @@ Field-for-field superset of the reference dataclass
 (``Training/TrainingNeural.py:36-67``), with the same defaulting rules:
 ``dim_embedding`` defaults to ``n_nodes``; ``hidden_dim`` to
 ``dim_embedding // 2``.  The fields and their checks are the JAX
-package's, so one configuration means the same run in both; the training
-loop of this port raises on the values it does not run yet (``batched``
-steps, the cosine schedule, the quantile and entropy losses).  ``epochs_per_call`` has no effect here: PyTorch runs eagerly and
+package's, so one configuration means the same run in both, every value
+included (``batched`` steps, the cosine schedule, the quantile and entropy
+losses).  ``epochs_per_call`` has no effect here: PyTorch runs eagerly and
 the loop reads every epoch's loss on the host.
 """
 

@@ -1,11 +1,16 @@
-"""Training loop: per-graph Adam steps, early stopping, best-restore.
+"""Training loop: Adam steps, early stopping, best-restore.
 
-Port of ``gcn_maxcut_tpu/train/loop.py`` (``per_graph`` step mode, STE
-loss).  One epoch runs the reference loss chain — GCNSoftmax →
-``pin_terminals`` → ``ste_argmax_onehot`` → ``compute_loss`` — and one
-Adam step per graph, in dataset order; the epoch's loss is the sum of the
-per-graph losses.  Early stopping and the restore of the best epoch's
-parameters follow the JAX package's semantics exactly:
+Port of ``gcn_maxcut_tpu/train/loop.py``.  The reference loss chain is
+GCNSoftmax → ``pin_terminals`` → ``ste_argmax_onehot`` → ``compute_loss``;
+``loss_mode="quantile"`` trains on the sampled decode's mean + c·std of
+the pinned probabilities instead, and ``entropy_weight`` subtracts that
+weight times the real nodes' entropy.  ``step_mode="per_graph"`` (the
+reference) takes one Adam step per graph, in dataset order; ``"batched"``
+one step an epoch on the summed loss.  Either way the epoch's loss is the
+sum of the per-graph losses.  ``lr_schedule="cosine"`` decays the
+learning rate over the run's steps as optax's ``cosine_decay_schedule``.
+Early stopping and the restore of the best epoch's parameters follow the
+JAX package's semantics exactly:
 
   * patience grows when the epoch loss is worse than the previous epoch's
     or moves by at most ``tolerance`` (from the second epoch on), and
@@ -41,7 +46,11 @@ from gcn_maxcut_tpu_torch.models.gcn import (
     embedding_init,
     gcn_softmax_apply,
 )
-from gcn_maxcut_tpu_torch.objectives.cut_loss import compute_loss
+from gcn_maxcut_tpu_torch.objectives.cut_loss import (
+    compute_loss,
+    quantile_cut_loss,
+    terminal_independence_penalty,
+)
 from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
 from gcn_maxcut_tpu_torch.train.checkpoint import (
     checkpoint_name,
@@ -50,7 +59,7 @@ from gcn_maxcut_tpu_torch.train.checkpoint import (
     save_checkpoint,
 )
 from gcn_maxcut_tpu_torch.train.config import TrainingConfig
-from gcn_maxcut_tpu_torch.train.optim import Adam
+from gcn_maxcut_tpu_torch.train.optim import Adam, cosine_decay_schedule
 
 _F32_MAX = float(np.finfo(np.float32).max)
 
@@ -78,7 +87,8 @@ class TrainState:
 
     def opt_state(self) -> Dict[str, Any]:
         """The Adam state in the JAX package's optax layout: ``{"0":
-        {".count", ".mu", ".nu"}}``, under ``.inner_state`` when the
+        {".count", ".mu", ".nu"}}``, and ``{"1": {".count"}}`` for the
+        cosine schedule's step count, under ``.inner_state`` when the
         embedding is masked out (adjacency-feature mode)."""
         mu: Dict[str, Any] = {}
         nu: Dict[str, Any] = {}
@@ -90,6 +100,8 @@ class TrainState:
             dm[leaf], dv[leaf] = m.detach().clone(), v.detach().clone()
         count = torch.tensor(self.optimizer.count, dtype=torch.int32)
         inner = {"0": {".count": count, ".mu": mu, ".nu": nu}}
+        if self.config.lr_schedule == "cosine":
+            inner["1"] = {".count": count.clone()}
         return {".inner_state": inner} if self.config.feature_mode == "adjacency" else inner
 
     @torch.no_grad()
@@ -108,30 +120,22 @@ class TrainState:
             self.optimizer.nu[i] = flat[f"{prefix}/.nu/{path}"].clone()
 
 
-def _check_ported(config: TrainingConfig) -> None:
-    waiting = {
-        "step_mode": (config.step_mode, "per_graph"),
-        "lr_schedule": (config.lr_schedule, "constant"),
-        "loss_mode": (config.loss_mode, "ste"),
-        "entropy_weight": (config.entropy_weight, 0.0),
-    }
-    for name, (value, ported) in waiting.items():
-        if value != ported:
-            raise NotImplementedError(f"{name}={value!r} is not ported yet")
-
-
 def setup_train_state(
     config: TrainingConfig,
+    steps_per_epoch: int = 1,
     params: Optional[Dict[str, Any]] = None,
     device: str | torch.device | None = None,
 ) -> TrainState:
     """Model, embedding table and Adam (torch's defaults: b1 = 0.9,
     b2 = 0.999, eps = 1e-8).
 
-    ``params``: initial parameters in the JAX layout (``convert.
-    params_from_jax``); by default they are drawn from ``config.seed`` with
-    a ``torch.Generator``.  The embedding joins the optimizer only in
-    embedding-feature mode.
+    ``steps_per_epoch``: Adam steps an epoch (the graph count in
+    ``per_graph`` step mode), which sizes the cosine schedule's horizon,
+    ``number_epochs · steps_per_epoch`` steps, under ``lr_schedule=
+    "cosine"``.  ``params``: initial parameters in the JAX layout
+    (``convert.params_from_jax``); by default they are drawn from
+    ``config.seed`` with a ``torch.Generator``.  The embedding joins the
+    optimizer only in embedding-feature mode.
     """
     dev = resolve_device(device)
     if params is None:
@@ -152,7 +156,14 @@ def setup_train_state(
     if config.feature_mode == "embedding":
         embed.requires_grad_(True)
         trained.append(embed)
-    optimizer = Adam(trained, config.learning_rate, b1=0.9, b2=0.999, eps=1e-8)
+    lr: float | Callable[[int], float] = config.learning_rate
+    if config.lr_schedule == "cosine":
+        lr = cosine_decay_schedule(
+            config.learning_rate,
+            decay_steps=max(1, config.number_epochs * steps_per_epoch),
+            alpha=config.lr_final_fraction,
+        )
+    optimizer = Adam(trained, lr, b1=0.9, b2=0.999, eps=1e-8)
     return TrainState(model, embed, optimizer, config)
 
 
@@ -178,7 +189,7 @@ def _resolve_dense_aggregation(
     return n_pad <= 2048 and n_graphs * n_pad * n_pad <= (1 << 27)
 
 
-def _graph_loss(
+def _graph_probs(
     params: Dict[str, Any],
     g: Graph,
     config: TrainingConfig,
@@ -186,9 +197,11 @@ def _graph_loss(
     a_mask: torch.Tensor | None = None,
     a_feat: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Reference loss chain for one graph.  ``a_feat`` is the weighted
-    adjacency as [n_pad, min(n_pad, dim_embedding)] features: the reference's
-    feature columns past n_pad are zero, so ``x @ W1 == a_feat @ W1[:width]``."""
+    """GCNSoftmax's training forward for one graph, or for a stacked batch
+    (``g`` from ``pad_graph_batch``, ``a_mask``/``a_feat`` [G, ...]).
+    ``a_feat`` is the weighted adjacency as [n_pad, min(n_pad,
+    dim_embedding)] features: the reference's feature columns past n_pad
+    are zero, so ``x @ W1 == a_feat @ W1[:width]``."""
     conv1 = params["conv1"]
     if config.feature_mode == "adjacency":
         if a_feat is not None:
@@ -198,57 +211,103 @@ def _graph_loss(
             x = dense_adjacency(g, width=config.dim_embedding)
     else:
         x = _embed_rows(params["embed"], g.n_pad)
-    probs = gcn_softmax_apply(
+    return gcn_softmax_apply(
         {"conv1": conv1, "conv2": params["conv2"]}, g, x,
         dropout=config.dropout, train=True, generator=generator,
         a_dense=a_mask,
     )
-    onehot = ste_argmax_onehot(pin_terminals(probs))
-    return compute_loss(
-        g, onehot, A=config.A, C=config.C,
-        penalty=config.penalty if config.use_penalty else 0.0,
-        num_terminals=3,
-    )
 
 
-def _dense_inputs(
-    graphs: List[Graph], config: TrainingConfig
-) -> List[Tuple[torch.Tensor | None, torch.Tensor | None]]:
-    """Per-graph (a_mask, a_feat), built once per run on the dense path."""
-    n_pad = graphs[0].n_pad
-    if not _resolve_dense_aggregation(config.aggregation, n_pad, len(graphs)):
-        return [(None, None)] * len(graphs)
-    width = min(n_pad, config.dim_embedding)
-    return [
-        (
-            dense_adjacency(g, values="mask"),
-            dense_adjacency(g, width=width)
-            if config.feature_mode == "adjacency" else None,
-        )
-        for g in graphs
-    ]
+def _probs_loss(g: Graph, probs: torch.Tensor, config: TrainingConfig) -> torch.Tensor:
+    """One graph's training loss from its class probabilities: the STE
+    argmax cut (``loss_mode="ste"``) or the sampled decode's quantile
+    (``"quantile"``, on the pinned probabilities), the terminal penalty
+    under ``use_penalty``, less ``entropy_weight`` times the summed entropy
+    of the real nodes' pinned rows."""
+    pinned = pin_terminals(probs)
+    penalty = config.penalty if config.use_penalty else 0.0
+    if config.loss_mode == "quantile":
+        loss = quantile_cut_loss(g, pinned, c=config.quantile_c, C=config.C)
+        if penalty:
+            loss = loss + penalty * terminal_independence_penalty(pinned, 3)
+    else:
+        loss = compute_loss(g, ste_argmax_onehot(pinned), A=config.A, C=config.C,
+                            penalty=penalty, num_terminals=3)
+    if config.entropy_weight:
+        ent = -torch.sum(pinned * torch.log(pinned + 1e-12), dim=-1)
+        loss = loss - config.entropy_weight * torch.sum(ent * g.node_mask)
+    return loss
+
+
+def _graph_loss(
+    params: Dict[str, Any],
+    g: Graph,
+    config: TrainingConfig,
+    generator: torch.Generator | None,
+    a_mask: torch.Tensor | None = None,
+    a_feat: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The reference loss chain for one graph."""
+    return _probs_loss(g, _graph_probs(params, g, config, generator, a_mask, a_feat), config)
+
+
+@dataclasses.dataclass
+class EpochInputs:
+    """What every epoch reads: the stacked batch, its graphs, and on the
+    dense path the stacked unweighted adjacency ``a_mask`` [G, n_pad,
+    n_pad] and, in adjacency-feature mode, the weighted one as features
+    ``a_feat`` [G, n_pad, min(n_pad, dim_embedding)]; built once a run."""
+
+    batch: Graph
+    graphs: List[Graph]
+    a_mask: torch.Tensor | None
+    a_feat: torch.Tensor | None
+
+    def dense(self, i: int) -> Tuple[torch.Tensor | None, torch.Tensor | None]:
+        return (None if self.a_mask is None else self.a_mask[i],
+                None if self.a_feat is None else self.a_feat[i])
+
+
+def epoch_inputs(batch: Graph, config: TrainingConfig) -> EpochInputs:
+    """The ``EpochInputs`` of a stacked batch already on its device."""
+    graphs = [batch.index(i) for i in range(batch.n_nodes.shape[0])]
+    if not _resolve_dense_aggregation(config.aggregation, batch.n_pad, len(graphs)):
+        return EpochInputs(batch, graphs, None, None)
+    width = min(batch.n_pad, config.dim_embedding)
+    a_mask = torch.stack([dense_adjacency(g, values="mask") for g in graphs])
+    a_feat = (torch.stack([dense_adjacency(g, width=width) for g in graphs])
+              if config.feature_mode == "adjacency" else None)
+    return EpochInputs(batch, graphs, a_mask, a_feat)
 
 
 def _params_tree(state: TrainState) -> Dict[str, Any]:
     return {**state.model.params(), "embed": state.embed}
 
 
-def _run_epoch(
-    state: TrainState,
-    graphs: List[Graph],
-    dense: List[Tuple[torch.Tensor | None, torch.Tensor | None]],
-    generator: torch.Generator,
-) -> float:
-    """One Adam step per graph; returns the summed float32 loss."""
+def _run_epoch(state: TrainState, inputs: EpochInputs, generator: torch.Generator) -> float:
+    """One epoch; returns its summed float32 loss.  ``per_graph``: an Adam
+    step per graph, in dataset order.  ``batched``: one Adam step on the
+    summed loss of every graph; on the dense path the forward runs on the
+    whole batch at once, every aggregation one batched GEMM (``torch.bmm``
+    over the stacked operators)."""
     config = state.config
     state.model.train()
+    params = _params_tree(state)
+    if config.step_mode == "batched":
+        if inputs.a_mask is not None:
+            probs = _graph_probs(params, inputs.batch, config, generator,
+                                 inputs.a_mask, inputs.a_feat)
+        else:
+            probs = torch.stack([_graph_probs(params, g, config, generator)
+                                 for g in inputs.graphs])
+        loss = torch.stack([_probs_loss(g, probs[i], config)
+                            for i, g in enumerate(inputs.graphs)]).sum()
+        state.optimizer.step(torch.autograd.grad(loss, state.optimizer.params))
+        return float(loss.detach())
     losses = []
-    for g, (a_mask, a_feat) in zip(graphs, dense):
-        loss = _graph_loss(
-            _params_tree(state), g, config, generator, a_mask, a_feat
-        )
-        grads = torch.autograd.grad(loss, state.optimizer.params)
-        state.optimizer.step(grads)
+    for i, g in enumerate(inputs.graphs):
+        loss = _graph_loss(params, g, config, generator, *inputs.dense(i))
+        state.optimizer.step(torch.autograd.grad(loss, state.optimizer.params))
         losses.append(loss.detach())
     return float(torch.stack(losses).sum())
 
@@ -270,12 +329,13 @@ def train_model(
     its history (the best and previous losses taken from it, patience
     from 0) and its parameters as the best so far.
     """
-    _check_ported(config)
-    state = state or setup_train_state(config, device=device)
+    n_graphs = int(dataset_batch.n_nodes.shape[0])
+    state = state or setup_train_state(
+        config, steps_per_epoch=n_graphs if config.step_mode == "per_graph" else 1,
+        device=device,
+    )
     dev = state.embed.device
-    batch = dataset_batch.to(dev)
-    graphs = [batch.index(i) for i in range(batch.n_nodes.shape[0])]
-    dense = _dense_inputs(graphs, config)
+    inputs = epoch_inputs(dataset_batch.to(dev), config)
     generator = torch.Generator(device=dev).manual_seed(config.seed + 1)
 
     history: List[float] = []
@@ -294,7 +354,7 @@ def train_model(
     patience = 0
     best_params = state.params()
     for epoch in range(start_epoch, config.number_epochs):
-        loss = np.float32(_run_epoch(state, graphs, dense, generator))
+        loss = np.float32(_run_epoch(state, inputs, generator))
         history.append(float(loss))
         worse = epoch > 0 and (loss > prev_loss or abs(prev_loss - loss) <= tolerance)
         patience = patience + 1 if worse else 0
@@ -346,12 +406,33 @@ def train_dataset(
                        resume_from=resume_from)
 
 
+def train_from_files(
+    dataset_paths: List[str],
+    model_name: str | None = None,
+    device: str | torch.device | None = None,
+    **config_kwargs,
+) -> Tuple[Dict[str, Any], float, int, torch.Tensor, List[float]]:
+    """Train on several dataset files as one batch: the graph specs merged
+    in file order, processed again with the first file's ``DataConfig``."""
+    from gcn_maxcut_tpu_torch.data.io import load_dataset
+    from gcn_maxcut_tpu_torch.data.process import process_graphs
+
+    datasets = [load_dataset(p) for p in dataset_paths]
+    specs = {}
+    for ds in datasets:
+        for _, spec in sorted(ds.specs.items()):
+            specs[len(specs)] = spec
+    merged = process_graphs(specs, datasets[0].config)
+    return train_dataset(merged, model_name=model_name, device=device, **config_kwargs)
+
+
 @torch.no_grad()
 def evaluate_model(
     params: Dict[str, Any], dataset_batch: Graph, config: TrainingConfig
 ) -> Dict[str, float]:
-    """Average no-grad loss over the dataset; ``-average_loss`` reads as the
-    estimated average cut.  Runs on the device that holds ``params``."""
+    """Average no-grad STE loss over the dataset, whatever the training
+    ``loss_mode``; ``-average_loss`` reads as the estimated average cut.
+    Runs on the device that holds ``params``."""
     dev = params["conv1"]["w"].device
     batch = dataset_batch.to(dev)
     n = int(batch.n_nodes.shape[0])

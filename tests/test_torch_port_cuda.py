@@ -21,10 +21,11 @@ import torch
 from gcn_maxcut_tpu_torch.baselines.local_search import greedy_flip_local_search
 from gcn_maxcut_tpu_torch.bench import giant_demo as tgiant
 from gcn_maxcut_tpu_torch.bench.microbench import banded_random_edges
-from gcn_maxcut_tpu_torch.core.graph import graph_from_dense, graph_from_edges
+from gcn_maxcut_tpu_torch.core.graph import graph_from_dense, graph_from_edges, pad_graph_batch
 from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset, random_regular_edges
 from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
 from gcn_maxcut_tpu_torch.eval.decode import refine_multi_start_from_uniforms
+from gcn_maxcut_tpu_torch.models.gcn import embedding_init, gcn_dev_init
 from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
 from gcn_maxcut_tpu_torch.ops import halo as th
@@ -34,6 +35,9 @@ from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
 from gcn_maxcut_tpu_torch.parallel import partition as tpart
 from gcn_maxcut_tpu_torch.parallel import spmm as tspmm
 from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
+from gcn_maxcut_tpu_torch.train import loop as tloop
+from gcn_maxcut_tpu_torch.train import qubo_loop as tqubo
+from gcn_maxcut_tpu_torch.train.config import TrainingConfig
 
 CASES = [
     (4096, 16, 8, (1, -1, 5, -5)),
@@ -1069,3 +1073,43 @@ def test_cuda_k1_on_a_hop0_shard_plan_matches_plain(cuda_device, F):
         assert_kernel_close(y, ref)
         assert_kernel_close(dx, tbell.block_ell_spmm_plain(2 * ref, *args))
     assert tbell.LAUNCHES["block_ell_spmm"] == 2 * D
+
+
+TRAINING_VARIANTS = {
+    "batched": dict(step_mode="batched"),
+    "cosine": dict(lr_schedule="cosine", learning_rate=2e-2),
+    "quantile": dict(loss_mode="quantile"),
+    "entropy": dict(entropy_weight=0.5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(TRAINING_VARIANTS))
+def test_cuda_training_variant_matches_cpu(cuda_device, variant):
+    specs, _ = generate_graph_dataset(num_graphs=3, min_nodes=40, max_nodes=56, min_degree=3,
+                                      max_degree=6, base_seed=21)
+    ds = process_graphs(specs, DataConfig(max_nodes=64))
+    batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
+    cfg = TrainingConfig(**{**dict(n_nodes=64, number_epochs=10, learning_rate=5e-3,
+                                   patience=100), **TRAINING_VARIANTS[variant]})
+    steps = 3 if cfg.step_mode == "per_graph" else 1
+    start = tloop.setup_train_state(cfg, steps, device="cpu").params()
+    hist = [tloop.train_model(batch, cfg, state=tloop.setup_train_state(
+        cfg, steps, params=start, device=dev))[4] for dev in ("cpu", cuda_device)]
+    np.testing.assert_allclose(hist[1], hist[0], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_qubo_loop_matches_cpu(cuda_device):
+    specs, _ = generate_graph_dataset(num_graphs=1, min_nodes=60, max_nodes=60, min_degree=3,
+                                      max_degree=3, base_seed=6)
+    g = process_graphs(specs, DataConfig(max_nodes=64)).graphs[0]
+    cfg = tqubo.QuboConfig(dim_embedding=16, hidden_dim=8, learning_rate=1e-2,
+                           number_epochs=10, seed=1)
+    gen = torch.Generator().manual_seed(1)
+    start = gcn_dev_init(16, 8, 1, generator=gen)
+    start["embed"] = embedding_init(g.n_pad, 16, gen)
+    runs = [tqubo.run_gnn_training(g, cfg, device=dev, params=start)[1]
+            for dev in ("cpu", cuda_device)]
+    np.testing.assert_allclose(runs[1]["loss_history"], runs[0]["loss_history"], rtol=1e-4)
+    assert runs[1]["best_cut"] == runs[0]["best_cut"]

@@ -110,8 +110,12 @@ def test_generate_train_test_pipeline_commands(tmp_path, capsys):
     ck = next((tmp_path / "m").glob("epoch_2_*"))
     assert main(["train", *common, "--epochs", "7", "--resume", str(ck)]) == 0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["epochs"] == 7
-    with pytest.raises(NotImplementedError):
-        main(["train", *common, "--epochs", "2", "--lr-schedule", "cosine"])
+    # the training variants run from the command line (a model of their own)
+    assert main(["train", "--dataset", str(ds), "--model-name", str(tmp_path / "v" / "vv"),
+                 "--device", "cpu", "--epochs", "2", "--lr-schedule", "cosine",
+                 "--loss-mode", "quantile", "--entropy-weight", "0.5"]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["epochs"] == 2
+    assert (tmp_path / "v" / "final_vv.npz").exists()
 
     out = tmp_path / "res.json"
     assert main(["test", "--dataset", str(ds), "--checkpoint", str(stem.parent / "final_mm.npz"),

@@ -89,13 +89,6 @@ def test_evaluate_model_matches_jax(datasets):
     assert et["total_loss"] == pytest.approx(ej["total_loss"], rel=1e-5)
 
 
-def test_unported_options_raise(datasets):
-    for kw in ({"step_mode": "batched"}, {"lr_schedule": "cosine"},
-               {"loss_mode": "quantile"}, {"entropy_weight": 0.1}):
-        with pytest.raises(NotImplementedError):
-            tloop.train_model(datasets[3], TrainingConfig(n_nodes=64, **kw), device="cpu")
-
-
 def test_decoders_match_jax_on_copied_uniforms(datasets):
     dj, dt, _, _ = datasets
     gj, gt = dj.graphs[0], dt.graphs[0]
