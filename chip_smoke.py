@@ -134,6 +134,27 @@ Phases; any failure ends the run with a non-zero exit code:
                 2/3, and K1 on one shard's plan held against its plain
                 version and timed; ``bench --what scaling`` at its
                 defaults (D = 1) and the sharded conv on the 4-shard ring;
+     hybrid     the hybrid data x graph trainer (``parallel/hybrid.py``) on
+                a 2 x 4 mesh of the card: n = 4096, 2 graphs, 20 epochs
+                against a 2 x 4 CPU mesh (histories and per-graph cuts rtol
+                1e-3); one graph twice with equal embeddings against the
+                giant trainer on a 4-shard ring (rtol 1e-5, both copies
+                equal); two of the kway phase's banded-random graphs at
+                full width (emb 128, hidden 64, 100 epochs, per-shard RCM,
+                hop 0 on K1): a plan on every shard, K1's launches counted
+                exactly, no other kernel, both cuts above 2/3, the epoch
+                ms from CUDA events; K1 on a hybrid shard's plan held
+                against its plain version and timed; ``bench --what
+                hybrid`` on the card;
+     dp         data-parallel recipe training (``parallel/data_parallel.py``)
+                on 4 data entries of the card: n_pad 64 against the CPU
+                (rtol 1e-4), the recipe's data (20 graphs, 1000-wide, 300
+                epochs; the loss improves, the default decode on 5
+                held-out graphs beats a 10k randomized baseline, the epoch
+                ms beside the variants phase's), and one DP and one hybrid
+                epoch through NCCL's all_reduce on a process group of one
+                (``multi_host_init`` on 127.0.0.1), bit for bit against
+                the same epochs without a group;
   6. microbench ``bench --what spmm`` (K1) and ``bench --what banded`` (K2,
                 K4) at their defaults.
 
@@ -251,6 +272,15 @@ KWAY_N, KWAY_D, KWAY_EPOCHS, KWAY_SHARDS = 100_000, 8, 100, 4
 REFERENCE_KWAY = {3: (82.8, 16.1), 4: (85.7, 10.7), 5: (91.1, 11.1), 6: (92.1, 8.8),
                   7: (94.4, 8.7), 8: (95.8, 8.3)}
 KWAY_GATE = {3: 8.0, 4: 5.3, 5: 5.5, 6: 4.4, 7: 4.3, 8: 4.1}
+# the hybrid phase: a 2 x 4 mesh of one card; the small runs' graphs; the
+# duplicated graph's epochs; the full-width run on two of the kway phase's
+# banded-random graphs (emb 128, hidden 64).  The dp phase: a data mesh of 4
+# entries of one card on the recipe's data.
+HYBRID_SHAPE = (2, 4)
+HYBRID_SMALL_N = 4096
+HYBRID_DUP_EPOCHS = 10
+HYBRID_EPOCHS = 100
+DP_ENTRIES = 4
 MICRO_N = 100_000
 BANDED_N, BANDED_BIG_N = 131_072, 1_250_304
 
@@ -1743,7 +1773,28 @@ def reset_all(counters) -> None:
         c.reset_launches()
 
 
-def time_shard_k1(torch, tbell, sg, d: int, F: int, gen) -> dict:
+def check_shard_k1(torch, tbell, sg, d: int, gen) -> float:
+    """K1 on shard d's hop-0 plan at F = 64 and 3 against its plain
+    version, forward and gradient; the largest error."""
+    args = (sg.n_shard, sg.bell_block, sg.bell_wp)
+    ops = (sg.bell_senders[d], sg.bell_weights[d], sg.bell_out_senders[d],
+           sg.bell_out_receivers[d], sg.bell_out_weights[d])
+    err = 0.0
+    for F in (64, 3):
+        x = torch.randn(sg.n_shard, F, generator=gen, device="cuda", requires_grad=True)
+        dy = torch.randn(sg.n_shard, F, generator=gen, device="cuda")
+        y = tbell.block_ell_spmm(x, *ops, *args)
+        (dx,) = torch.autograd.grad(y, x, dy)
+        with torch.no_grad():
+            err = max(err, max_err_within_tolerance(
+                torch, y.detach(), tbell.block_ell_spmm_plain(x, *ops, *args)))
+            # hop 0 of a symmetric graph is symmetric: dx = A·dy
+            err = max(err, max_err_within_tolerance(
+                torch, dx, tbell.block_ell_spmm_plain(dy, *ops, *args)))
+    return err
+
+
+def time_shard_k1(torch, tbell, sg, d: int, F: int, gen, case: str = "kway") -> dict:
     """K1 on shard d's hop-0 plan: the op, the kernel alone, the plain
     version and ``torch.sparse.mm`` of the shard's hop-0 rows, in turns,
     beside K1's bound."""
@@ -1756,7 +1807,7 @@ def time_shard_k1(torch, tbell, sg, d: int, F: int, gen) -> dict:
     csr = csr_of(torch, sg.receivers[d][0][real], sg.senders[d][0][real],
                  sg.weights[d][0][real], n)
     with torch.no_grad():
-        row = {"name": "K1", "case": f"kway shard {d}", "n": n, "F": F, "block": B, "wp": wp,
+        row = {"name": "K1", "case": f"{case} shard {d}", "n": n, "F": F, "block": B, "wp": wp,
                "width": width, "o_pad": o_pad, "n_outliers": int((ops[4] != 0).sum()),
                "dtype": "float32"}
         row.update(ms_in_turns(torch, {
@@ -1868,21 +1919,7 @@ def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway
     check(sg.bell_senders is not None and len(sg.bell_senders) == KWAY_SHARDS,
           "a plan on each of the 4 shards")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    args = (sg.n_shard, sg.bell_block, sg.bell_wp)
-    err = 0.0
-    for F in (64, 3):
-        ops = (sg.bell_senders[0], sg.bell_weights[0], sg.bell_out_senders[0],
-               sg.bell_out_receivers[0], sg.bell_out_weights[0])
-        x = torch.randn(sg.n_shard, F, generator=gen, device="cuda", requires_grad=True)
-        dy = torch.randn(sg.n_shard, F, generator=gen, device="cuda")
-        y = tbell.block_ell_spmm(x, *ops, *args)
-        (dx,) = torch.autograd.grad(y, x, dy)
-        with torch.no_grad():
-            err = max(err, max_err_within_tolerance(
-                torch, y.detach(), tbell.block_ell_spmm_plain(x, *ops, *args)))
-            # hop 0 of a symmetric graph is symmetric: dx = A·dy
-            err = max(err, max_err_within_tolerance(
-                torch, dx, tbell.block_ell_spmm_plain(dy, *ops, *args)))
+    err = check_shard_k1(torch, tbell, sg, 0, gen)
     log(f"  K1 on shard 0's plan (F = 64 and 3), forward and gradient against the plain "
         f"version: max |err| {err:.3g}")
     timings = [time_shard_k1(torch, tbell, sg, 0, F, gen) for F in (64, 3)]
@@ -1908,6 +1945,288 @@ def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway
     return {"card_vs_cpu": {**runs, "agreement": agree}, "sweep": sweep, "ring_k3": ring3,
             "banded": {**banded, "decoded_cut_fraction": decoded, "launches": k1_launches},
             "k1_max_abs_err": err, "k1_timings": timings, "scaling": scale, "card": card}
+
+
+def hybrid_state(np, tgiant, thybrid, locality_params, sgb, mesh, cfg, embed=None):
+    """The hybrid trainer's state for ``sgb`` on ``mesh``: conv parameters
+    and embedding drawn as ``train_hybrid`` draws them, or ``embed``."""
+    rows = thybrid._rows_of(sgb, mesh, "data", "graph")
+    n_shard, blocks = sgb[0].n_shard, len(sgb) * rows[0].size
+    params = locality_params(blocks * n_shard, cfg.dim_embedding, cfg.hidden_dim,
+                             cfg.num_classes, cfg.seed)
+    params["embed"] = (params["embed"] if embed is None else embed).reshape(
+        blocks, n_shard, cfg.dim_embedding)
+    return tgiant.GiantState.from_blocks(params, [d for r in rows for d in r.devices],
+                                         cfg.learning_rate)
+
+
+def step_ms(torch, step, epochs: int = 20) -> float:
+    """ms an epoch of ``step`` on the card: CUDA events around ``epochs``
+    calls after one warm-up call."""
+    step()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(epochs):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / epochs
+
+
+def cli_json(cli_main, argv: list) -> dict:
+    """Run a ``bench`` command and parse the JSON of its last output line."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(cli_main(argv) == 0, f"{' '.join(argv)} ran")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def phase_hybrid(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, thybrid,
+                 locality_params, random_regular_edges, cli_main) -> dict:
+    """The hybrid data × graph trainer on 2 × 4 meshes of one card: against
+    a CPU mesh, a duplicated graph against the giant trainer, two
+    banded-random graphs at full width with hop 0 on K1, K1 against its
+    plain version on a hybrid shard's plan, ``bench --what hybrid``."""
+    log("== hybrid")
+    card = card_line()
+    R, D = HYBRID_SHAPE
+    mesh = make_mesh(("data", "graph"), shape=(R, D), devices=["cuda:0"] * (R * D))
+    cpu_mesh = make_mesh(("data", "graph"), shape=(R, D), devices=["cpu"] * (R * D))
+
+    # 1. card against CPU: two regular graphs, one numpy draw (config.seed)
+    lists = []
+    for seed in (1, 2):
+        e = random_regular_edges(HYBRID_SMALL_N, 8, seed=seed)
+        lists.append((np.concatenate([e[:, 0], e[:, 1]]), np.concatenate([e[:, 1], e[:, 0]])))
+    small = tgiant.GiantConfig(number_epochs=20, log_every=1)
+    runs = {}
+    for name, m in (("card", mesh), ("cpu", cpu_mesh)):
+        reset_all(counters)
+        runs[name] = thybrid.train_hybrid(lists, HYBRID_SMALL_N, small, mesh=m)
+        runs[name]["launches"] = all_launches(counters)
+    log(f"  n={HYBRID_SMALL_N} d=8, 2 graphs on {R} x {D}, card vs CPU: history "
+        f"{runs['card']['loss_history']} vs {runs['cpu']['loss_history']}; cuts "
+        f"{runs['card']['per_graph_cuts']} vs {runs['cpu']['per_graph_cuts']}")
+    # float sums in another order on the card can flip a node's class in
+    # a late epoch (one edge of 10,435 in a run): the cuts are held to the
+    # history's tolerance
+    for key in ("loss_history", "per_graph_cuts"):
+        torch.testing.assert_close(torch.tensor(runs["card"][key]),
+                                   torch.tensor(runs["cpu"][key]), rtol=1e-3, atol=0)
+    check(not any(runs["card"]["launches"].values()), "the expanders run no hand-written kernel")
+
+    # 2. one graph twice, equal embeddings: tracks the giant trainer on a ring
+    s, r = lists[0]
+    sg = tpart.shard_graph(s, r, HYBRID_SMALL_N, D)[0]
+    ring = make_mesh(devices=["cuda:0"] * D)
+    dup_cfg = tgiant.GiantConfig(learning_rate=1e-2)
+    rng = np.random.default_rng(5)
+    embed = rng.standard_normal((D, sg.n_shard, dup_cfg.dim_embedding)).astype(np.float32)
+    gstate = hybrid_state(np, tgiant, thybrid, locality_params, (sg,),
+                          make_mesh(("data", "graph"), shape=(1, D), devices=["cuda:0"] * D),
+                          dup_cfg, embed)
+    sgb = thybrid.stack_sharded_graphs([sg, sg])
+    hstate = hybrid_state(np, tgiant, thybrid, locality_params, sgb, mesh, dup_cfg,
+                          np.stack([embed, embed]))
+    step = thybrid.make_hybrid_step(sgb, mesh, dup_cfg, hstate)
+    sg_ring = sg.to(ring)
+    g_loss, h_loss = [], []
+    for _ in range(HYBRID_DUP_EPOCHS):
+        g_loss.append(float(tgiant._epoch(gstate, sg_ring, ring, dup_cfg)))
+        mean, per_graph = step()
+        h_loss.append(float(mean))
+        check(per_graph[0].item() == per_graph[1].item(), "both copies have one loss")
+    copies = [torch.stack([e.detach() for e in hstate.embeds[i * D:(i + 1) * D]]) for i in (0, 1)]
+    conv_err = max(float((a.detach() - b.detach()).abs().max())
+                   for a, b in zip(hstate.leaves()[:4], gstate.leaves()[:4]))
+    embed_err = float((copies[0] - torch.stack([e.detach() for e in gstate.embeds])).abs().max())
+    log(f"  one graph twice on {R} x {D} vs the giant trainer on {D} shards, "
+        f"{HYBRID_DUP_EPOCHS} epochs: losses {h_loss} vs {g_loss}; max |conv diff| "
+        f"{conv_err:.3g}, max |embedding diff| {embed_err:.3g}")
+    torch.testing.assert_close(torch.tensor(h_loss), torch.tensor(g_loss), rtol=1e-5, atol=0)
+    for a, b in zip(hstate.leaves()[:4], gstate.leaves()[:4]):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(copies[0], torch.stack([e.detach() for e in gstate.embeds]),
+                               rtol=1e-5, atol=1e-5)
+    check(torch.equal(copies[0], copies[1]), "both embedding copies equal")
+
+    # 3. full width: two banded-random graphs, hop 0 on K1 (per-shard RCM)
+    full = tgiant.GiantConfig(number_epochs=HYBRID_EPOCHS, block_ell=True, local_reorder="rcm")
+    edges, lists = [], []
+    for seed in (0, 1):
+        e = micro.banded_random_edges(KWAY_N, KWAY_D, 255, seed)
+        edges.append(e)
+        lists.append((np.concatenate([e[:, 0], e[:, 1]]), np.concatenate([e[:, 1], e[:, 0]])))
+    reset_all(counters)
+    res = thybrid.train_hybrid(lists, KWAY_N, full, mesh=mesh)
+    launches = all_launches(counters)
+    fractions = [c / e.shape[0] for c, e in zip(res["per_graph_cuts"], edges)]
+    sgb = thybrid.stack_sharded_graphs([
+        tpart.shard_graph(s, r, KWAY_N, D, local_reorder="rcm", block_ell=True)[0]
+        for s, r in lists])
+    check(all(sg.bell_senders is not None and len(sg.bell_senders) == D for sg in sgb),
+          "a hop-0 plan on every shard of both graphs")
+    timed = hybrid_state(np, tgiant, thybrid, locality_params, sgb, mesh, full)
+    epoch_ms = step_ms(torch, thybrid.make_hybrid_step(sgb, mesh, full, timed))
+    log(f"  banded-random n={KWAY_N} d={KWAY_D}, 2 graphs on {R} x {D} (n_shard "
+        f"{sgb[0].n_shard}), hop 0 on K1: {res['epochs']} epochs in {res['train_time_s']:.3f} s "
+        f"({res['train_time_s'] / res['epochs'] * 1e3:.3f} ms an epoch, host clock); "
+        f"{epoch_ms:.3f} ms an epoch (CUDA events, 20 epochs); cut fractions "
+        f"{[round(f, 5) for f in fractions]}; card: {card}; launches {launches}")
+    # each graph's shards: hop 0 of conv1, conv2 and the loss's A·S,
+    # forward and backward, every epoch; train_hybrid decodes nothing
+    check(launches["block_ell_spmm"] == R * D * 6 * HYBRID_EPOCHS,
+          "K1 launched 6 times an epoch on each shard of each graph")
+    check(all(v == 0 for k, v in launches.items() if k != "block_ell_spmm"),
+          "no banded, halo or probe kernel runs on the hybrid path")
+    check(all(f > 2 / 3 for f in fractions), "both per-graph cuts beat the 2/3 floor")
+
+    # 4. K1 on a hybrid shard's plan against its plain version, and timed
+    sg = sgb[1].to(mesh.row(1))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err = check_shard_k1(torch, tbell, sg, 0, gen)
+    log(f"  K1 on graph 1's shard 0 plan (F = 64 and 3), forward and gradient against the "
+        f"plain version: max |err| {err:.3g}")
+    timings = [time_shard_k1(torch, tbell, sg, 0, F, gen, "hybrid graph 1") for F in (64, 3)]
+
+    # 5. bench --what hybrid on the card's device count
+    bench = cli_json(cli_main, ["bench", "--what", "hybrid", "--device", "cuda"])["hybrid"]
+    log(f"  bench --what hybrid: mesh {bench['mesh_shape']}, {bench['epochs']} epochs in "
+        f"{bench['train_time_s']:.3f} s, cuts {bench['per_graph_cuts']}; card: {card}")
+    check(bench["num_graphs"] == bench["mesh_shape"][0] and all(
+        math.isfinite(c) and c > 0 for c in bench["per_graph_cuts"]), "bench --what hybrid")
+    torch.cuda.empty_cache()
+    return {"card_vs_cpu": runs, "duplicated": {"hybrid": h_loss, "giant": g_loss,
+                                                "conv_max_abs_diff": conv_err,
+                                                "embed_max_abs_diff": embed_err},
+            "banded": {**res, "launches": launches, "cut_fractions": fractions,
+                       "epoch_ms_events": epoch_ms, "n_shard": sgb[0].n_shard},
+            "k1_max_abs_err": err, "k1_timings": timings, "bench": bench, "card": card}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dp(torch, np, counters, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
+             locality_params, random_regular_edges, variants: dict) -> dict:
+    """Data-parallel recipe training on a data mesh of 4 entries of one
+    card: against the CPU, the recipe's data at full width with the default
+    decode against the randomized baseline, and NCCL's all_reduce path on a
+    world of one against the runs without a process group."""
+    import torch.distributed as dist
+
+    from gcn_maxcut_tpu_torch.baselines.randomized import randomized_k_way_maxcut
+    from gcn_maxcut_tpu_torch.core.graph import pad_graph_batch
+    from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset
+    from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+    from gcn_maxcut_tpu_torch.eval import harness
+    from gcn_maxcut_tpu_torch.parallel.mesh import multi_host_init
+    from gcn_maxcut_tpu_torch.train.config import TrainingConfig
+
+    log("== dp")
+    card = card_line()
+    mesh = make_mesh(("data",), devices=["cuda:0"] * DP_ENTRIES)
+
+    def dp_run(batch, cfg, m, epochs, start, dev, times=None):
+        state = tloop.setup_train_state(cfg, params=start, device=dev)
+        fn = tdp.make_dp_epoch_fn(cfg, state.optimizer, m)
+        shards = tdp.shard_batch_for_dp(batch, m)
+        losses = []
+        for _ in range(epochs):
+            losses.append(fn(state, shards))       # a host read: each epoch ends synchronised
+            if times is not None:
+                times.append(time.perf_counter())
+        return losses, state
+
+    # 1. card against CPU at n_pad 64, one start
+    specs, _ = generate_graph_dataset(8, 40, 56, 3, 6, base_seed=21)
+    ds = process_graphs(specs, DataConfig(max_nodes=64))
+    small_batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
+    small = TrainingConfig(n_nodes=64, learning_rate=5e-3)
+    start = tloop.setup_train_state(small, device="cpu").params()
+    hist = {}
+    for name, m, dev in (("card", mesh, "cuda"),
+                         ("cpu", make_mesh(("data",), devices=["cpu"] * DP_ENTRIES), "cpu")):
+        hist[name] = dp_run(small_batch, small, m, 10, start, dev)[0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(hist["card"], hist["cpu"]))
+    log(f"  n_pad 64, {DP_ENTRIES} entries, card vs CPU: {hist['card']} vs {hist['cpu']} "
+        f"(largest relative difference {rel:.3g})")
+    torch.testing.assert_close(torch.tensor(hist["card"]), torch.tensor(hist["cpu"]),
+                               rtol=1e-4, atol=0)
+
+    # 2. the recipe's data at full width, 300 epochs, then the default decode
+    specs, _ = generate_graph_dataset(20, 500, 500, 6, 8, base_seed=1000)
+    ds = process_graphs(specs, DataConfig(max_nodes=1000))
+    batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
+    cfg = TrainingConfig(n_nodes=1000, learning_rate=1e-3, seed=1000)
+    times = []
+    reset_all(counters)
+    losses, state = dp_run(batch, cfg, mesh, RECIPE_EPOCHS, None, "cuda", times)
+    launches = all_launches(counters)
+    epoch_ms = _epoch_ms(times)
+    log(f"  recipe data (20 graphs n=500, 1000-wide), {DP_ENTRIES} entries of one card: "
+        f"{RECIPE_EPOCHS} epochs, {epoch_ms:.3f} ms an epoch (variants phase, same run: "
+        f"batched + cosine {variants['batched']['epoch_ms']:.3f}, per_graph "
+        f"{variants['per_graph']['epoch_ms']:.3f}); loss {losses[0]:.1f} -> {losses[-1]:.1f} "
+        f"(best {min(losses):.1f}); card: {card}")
+    check(all(map(math.isfinite, losses)), "finite DP loss history")
+    check(losses[-1] < losses[0] and min(losses) < losses[0], "DP training improves the loss")
+    check(not any(launches.values()), "DP on the recipe runs no hand-written kernel")
+    test_specs, _ = generate_graph_dataset(5, 500, 500, 6, 8, base_seed=1000 + 5000)
+    tds = process_graphs(test_specs, DataConfig(max_nodes=1000))
+    results, _ = harness.test_multiple_graphs(state.params(), tds, [500],
+                                              post_processing_iterations=200,
+                                              verbose=False, refine=True)
+    rand = [randomized_k_way_maxcut(tds.graphs[k].to("cuda"), 3, 10_000, seed=k)[1]
+            for k in sorted(tds.graphs)]
+    refined = sum(r["refined_cut"] for r in results) / len(results)
+    randomized = sum(rand) / len(rand)
+    log(f"  held-out (5 graphs): simple {sum(r['simple_cut'] for r in results) / 5:.2f}, "
+        f"refined {refined:.2f}, randomized 10k {randomized:.2f}")
+    check(len(results) == 5 and refined > randomized,
+          "the default decode after DP training beats the 10k randomized baseline")
+
+    # 3. NCCL on a world of one: one DP epoch and one hybrid epoch through the
+    # all_reduce path, bit for bit against the same epochs without a group
+    e = random_regular_edges(HYBRID_SMALL_N, 8, seed=1)
+    sg = tpart.shard_graph(np.concatenate([e[:, 0], e[:, 1]]),
+                           np.concatenate([e[:, 1], e[:, 0]]), HYBRID_SMALL_N, 4)[0]
+    sgb = thybrid.stack_sharded_graphs([sg, sg])
+    hmesh = make_mesh(("data", "graph"), shape=(2, 4), devices=["cuda:0"] * 8)
+    hcfg = tgiant.GiantConfig()
+
+    def one_epoch_each():
+        losses, st = dp_run(small_batch, small, mesh, 1, start, "cuda")
+        hstate = hybrid_state(np, tgiant, thybrid, locality_params, sgb, hmesh, hcfg)
+        mean, per_graph = thybrid.make_hybrid_step(sgb, hmesh, hcfg, hstate)()
+        return ([torch.tensor(losses), *[p.detach().cpu() for p in st.optimizer.params],
+                 mean.cpu(), per_graph.cpu(), *[p.detach().cpu() for p in hstate.leaves()]])
+
+    plain = one_epoch_each()
+    port = free_port()
+    multi_host_init(f"127.0.0.1:{port}", 1, 0)
+    try:
+        check(dist.is_initialized() and dist.get_backend() == "nccl", "an NCCL group of one")
+        grouped = one_epoch_each()
+    finally:
+        dist.destroy_process_group()
+    check(len(grouped) == len(plain) and all(torch.equal(a, b) for a, b in zip(plain, grouped)),
+          "NCCL's all_reduce path on a world of one equals the run without a group, bit for bit")
+    log(f"  NCCL world of one (127.0.0.1:{port}): one DP and one hybrid epoch bit-equal to "
+        f"the runs without a group ({len(plain)} tensors)")
+    return {"card_vs_cpu_max_rel_diff": rel, "epoch_ms": epoch_ms, "epochs": RECIPE_EPOCHS,
+            "first_loss": losses[0], "final_loss": losses[-1], "best_loss": min(losses),
+            "launches": launches, "held_out": {"refined": refined, "randomized_10k": randomized},
+            "nccl_world_of_one_bit_equal": True, "card": card}
 
 
 def phase_microbench(tbell, tb, micro) -> dict:
@@ -1994,10 +2313,13 @@ def main() -> int:
     from gcn_maxcut_tpu_torch.ops import halo_stream as hs
     from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
     from gcn_maxcut_tpu_torch.ops import segment as seg
+    from gcn_maxcut_tpu_torch.parallel import data_parallel as tdp
     from gcn_maxcut_tpu_torch.parallel import giant as tgiant
     from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
+    from gcn_maxcut_tpu_torch.parallel import hybrid as thybrid
     from gcn_maxcut_tpu_torch.parallel import partition as tpart
     from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
+    from gcn_maxcut_tpu_torch.train import loop as tloop
 
     resolve_device()                      # turns TF32 off
     OUT_DIR.mkdir(exist_ok=True)
@@ -2028,6 +2350,12 @@ def main() -> int:
     report["locality"] = phase_locality(torch, np, tbell, tb, loc)
     report["kway"] = phase_kway(torch, np, (tbell, tb, th, tpk), tbell, make_mesh, micro, tpart,
                                 tgiant, kway_sweep, scaling, random_regular_edges)
+    report["hybrid"] = phase_hybrid(torch, np, (tbell, tb, th, tpk), tbell, make_mesh, micro,
+                                    tpart, tgiant, thybrid, loc.locality_params,
+                                    random_regular_edges, cli_main)
+    report["dp"] = phase_dp(torch, np, (tbell, tb, th, tpk), make_mesh, tdp, tloop, tgiant,
+                            thybrid, tpart, loc.locality_params, random_regular_edges,
+                            report["variants"])
     report["microbench"] = phase_microbench(tbell, tb, micro)
     report["seconds"] = time.perf_counter() - t_start
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
@@ -2054,7 +2382,9 @@ def main() -> int:
     for name in ("K5", "K6", "K5 window"):
         rows[name]["n"] = rows[name]["n_shard"]
     k1_paths = {"locality": report["locality"]["launches"]["block_ell_spmm"],
-                "kway (banded, 4 shards)": report["kway"]["banded"]["launches"]["block_ell_spmm"]}
+                "kway (banded, 4 shards)": report["kway"]["banded"]["launches"]["block_ell_spmm"],
+                "hybrid (banded, 2 × 4 mesh)":
+                    report["hybrid"]["banded"]["launches"]["block_ell_spmm"]}
     launches = {"K1": sum(k1_paths.values()),
                 "K2": report["giant"]["plain"]["launches"]["banded_spmm_unit"],
                 "K2 window": report["giant"]["plain"]["launches"]["banded_spmm_unit_window"],

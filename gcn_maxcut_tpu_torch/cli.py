@@ -35,13 +35,17 @@ on a device (default: the CUDA device; ``--device cpu`` runs on the CPU):
   python -m gcn_maxcut_tpu_torch bench --what scaling [--n 100000 --d 8]
       one sharded conv's edges/s at 1, 2, 4, ... CUDA devices
       (bench/scaling.py)
+  python -m gcn_maxcut_tpu_torch bench --what hybrid [--n 100000 --d 8]
+      the hybrid data x graph trainer (parallel/hybrid.py): one regular
+      graph of max(256, n / 100) nodes a data row, on 2 x ndev/2 CUDA
+      devices when ndev is even and above 1, else 1 x ndev (--device cpu:
+      one CPU device, 1 x 1); --giant-epochs epochs
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import logging
 import sys
 import time
 from pathlib import Path
@@ -49,6 +53,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from gcn_maxcut_tpu_torch.utils.logging import get_logger
 
 
 def _sync(dev: torch.device) -> None:
@@ -316,6 +322,30 @@ def _cmd_bench(args) -> int:
         print(json.dumps({"scaling": scaling_sweep(n=args.n, d=args.d, device=args.device)},
                          default=float))
         return 0
+    if args.what == "hybrid":
+        from gcn_maxcut_tpu_torch.data.generate import random_regular_edges
+        from gcn_maxcut_tpu_torch.device import resolve_device
+        from gcn_maxcut_tpu_torch.parallel.giant import GiantConfig
+        from gcn_maxcut_tpu_torch.parallel.hybrid import train_hybrid
+        from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
+
+        dev = resolve_device(args.device)
+        devs = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                if dev.type == "cuda" and dev.index is None else [dev])
+        r_ax = 2 if len(devs) % 2 == 0 and len(devs) > 1 else 1
+        n = max(256, args.n // 100)
+        lists = []
+        for s in range(r_ax):
+            e = random_regular_edges(n, args.d, seed=s)
+            lists.append((np.concatenate([e[:, 0], e[:, 1]]),
+                          np.concatenate([e[:, 1], e[:, 0]])))
+        res = train_hybrid(
+            lists, n,
+            GiantConfig(dim_embedding=32, hidden_dim=16, number_epochs=args.giant_epochs),
+            mesh=make_mesh(("data", "graph"), shape=(r_ax, len(devs) // r_ax), devices=devs),
+        )
+        print(json.dumps({"hybrid": res}, default=float))
+        return 0
     if args.giant_layout == "packed":
         res = train_banded_giant_packed(
             n=args.giant_nodes, d=args.d, epochs=args.giant_epochs,
@@ -391,16 +421,18 @@ def main(argv=None) -> int:
     b = sub.add_parser("bench", help="microbenchmarks, the quality suite and the "
                                      "single-device trainers")
     b.add_argument("--what", choices=["giant", "spmm", "banded", "locality", "quality",
-                                      "train", "post", "kway", "scaling"], default="giant")
+                                      "train", "post", "kway", "scaling", "hybrid"],
+                   default="giant")
     b.add_argument("--recipe", choices=["n500", "mixed", "per_size"], default="mixed",
                    help="quality-suite training recipe (see bench/quality.py)")
     b.add_argument("--n", type=int, default=100_000,
-                   help="nodes (spmm, locality, kway, scaling)")
+                   help="nodes (spmm, locality, kway, scaling; hybrid: n / 100)")
     b.add_argument("--d", type=int, default=8)
     b.add_argument("--epochs", type=int, default=200, help="locality trainer epochs")
     b.add_argument("--giant-nodes", type=int, default=10_002_432)
     b.add_argument("--giant-epochs", type=int, default=40,
-                   help="epochs of the giant trainer and of each k of the kway sweep")
+                   help="epochs of the giant trainer, of each k of the kway sweep and of "
+                        "the hybrid trainer")
     b.add_argument(
         "--giant-layout", choices=["packed", "plain"], default="packed",
         help="packed = interleaved node order, every aggregation 16 wide",
@@ -436,12 +468,7 @@ def main(argv=None) -> int:
     pl.set_defaults(fn=_cmd_pipeline)
 
     args = p.parse_args(argv)
-    log = logging.getLogger("gcn_maxcut_tpu_torch")
-    if not log.handlers:
-        handler = logging.StreamHandler(sys.stderr)
-        handler.setFormatter(logging.Formatter("%(asctime)s %(name)s %(levelname)s %(message)s"))
-        log.addHandler(handler)
-        log.setLevel(logging.INFO)
+    get_logger()
     return args.fn(args)
 
 

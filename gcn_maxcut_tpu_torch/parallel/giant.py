@@ -110,15 +110,23 @@ class GiantState:
     @classmethod
     def create(cls, params: Dict[str, Any], mesh: Mesh, learning_rate: float) -> "GiantState":
         """From parameters in the JAX layout (numpy or tensors)."""
-        conv = params_from_jax({k: params[k] for k in ("conv1", "conv2")}, mesh.devices[0])
+        return cls.from_blocks(params, mesh.devices, learning_rate)
+
+    @classmethod
+    def from_blocks(cls, params: Dict[str, Any], devices, learning_rate: float) -> "GiantState":
+        """From parameters in the JAX layout with ``embed`` [len(devices),
+        n_shard, F]: the conv parameters on ``devices[0]``, embedding block i
+        on ``devices[i]`` (the hybrid trainer's blocks: every graph's
+        shards, graph by graph)."""
+        conv = params_from_jax({k: params[k] for k in ("conv1", "conv2")}, devices[0])
         embed = np.asarray(params["embed"], dtype=np.float32)
-        if embed.shape[0] != mesh.size:
-            raise ValueError(f"embedding of {embed.shape[0]} shards for a mesh of {mesh.size}")
+        if embed.shape[0] != len(devices):
+            raise ValueError(f"embedding of {embed.shape[0]} blocks for {len(devices)} devices")
         for layer in conv.values():
             for t in layer.values():
                 t.requires_grad_(True)
         embeds = [torch.from_numpy(e.copy()).to(dev).requires_grad_(True)
-                  for e, dev in zip(embed, mesh.devices)]
+                  for e, dev in zip(embed, devices)]
         state = cls(conv, embeds, None)
         state.optimizer = Adam(state.leaves(), learning_rate)
         return state

@@ -1,17 +1,44 @@
-"""Per-step metrics: port of ``MetricsLogger`` of
-``gcn_maxcut_tpu/utils/profiling.py`` (``train --metrics``).
+"""Profiling and per-step metrics: port of ``gcn_maxcut_tpu/utils/profiling.py``.
 
-An append-only JSONL stream plus the in-memory history; each record holds
-the step, the wall-clock time, the host-clock seconds since the previous
-record and the given metrics.
+  * ``trace(logdir)``: a ``torch.profiler`` trace of the region (the CPU,
+    and the card where there is one), written into ``logdir`` as a Chrome
+    trace (``*.pt.trace.json``, for Perfetto or TensorBoard), where the JAX
+    one runs ``jax.profiler``;
+  * ``annotate(name)``: a named region in that timeline
+    (``torch.profiler.record_function``, the JAX ``TraceAnnotation``);
+  * ``MetricsLogger`` (``train --metrics``): an append-only JSONL stream
+    plus the in-memory history; each record holds the step, the wall-clock
+    time, the host-clock seconds since the previous record and the given
+    metrics.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str | Path):
+    """Profile the region into ``logdir``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(str(logdir)),
+    ):
+        yield
+
+
+def annotate(name: str):
+    """Named region that shows up in profiler timelines."""
+    return torch.profiler.record_function(name)
 
 
 class MetricsLogger:

@@ -31,13 +31,17 @@ from gcn_maxcut_tpu_torch.ops import block_ell as tbell
 from gcn_maxcut_tpu_torch.ops import halo as th
 from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
 from gcn_maxcut_tpu_torch.ops.segment import spmm
+from gcn_maxcut_tpu_torch.parallel import data_parallel as tdp
+from gcn_maxcut_tpu_torch.parallel import giant as tpgiant
 from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
+from gcn_maxcut_tpu_torch.parallel import hybrid as thybrid
 from gcn_maxcut_tpu_torch.parallel import partition as tpart
 from gcn_maxcut_tpu_torch.parallel import spmm as tspmm
 from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
 from gcn_maxcut_tpu_torch.train import loop as tloop
 from gcn_maxcut_tpu_torch.train import qubo_loop as tqubo
 from gcn_maxcut_tpu_torch.train.config import TrainingConfig
+from gcn_maxcut_tpu_torch.utils.timing import Timer
 
 CASES = [
     (4096, 16, 8, (1, -1, 5, -5)),
@@ -1113,3 +1117,77 @@ def test_cuda_qubo_loop_matches_cpu(cuda_device):
             for dev in ("cpu", cuda_device)]
     np.testing.assert_allclose(runs[1]["loss_history"], runs[0]["loss_history"], rtol=1e-4)
     assert runs[1]["best_cut"] == runs[0]["best_cut"]
+
+
+def _coo(edges):
+    return (np.concatenate([edges[:, 0], edges[:, 1]]),
+            np.concatenate([edges[:, 1], edges[:, 0]]))
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_on_a_2x4_mesh_matches_the_cpu(cuda_device):
+    n = 4096
+    lists = [_coo(random_regular_edges(n, 8, seed=s)) for s in (1, 2)]
+    cfg = tpgiant.GiantConfig(number_epochs=10, log_every=1)
+    tbell.reset_launches()
+    runs = [thybrid.train_hybrid(lists, n, cfg, mesh=make_mesh(
+        ("data", "graph"), shape=(2, 4), devices=[dev] * 8)) for dev in (cuda_device, "cpu")]
+    for key in ("loss_history", "per_graph_cuts"):    # float sums in another order
+        np.testing.assert_allclose(runs[0][key], runs[1][key], rtol=1e-3)
+    assert tbell.LAUNCHES["block_ell_spmm"] == 0          # expanders: no plan
+
+
+@pytest.mark.cuda
+def test_cuda_dp_epochs_match_the_cpu(cuda_device):
+    specs, _ = generate_graph_dataset(num_graphs=8, min_nodes=40, max_nodes=56, min_degree=3,
+                                      max_degree=6, base_seed=21)
+    ds = process_graphs(specs, DataConfig(max_nodes=64))
+    batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
+    cfg = TrainingConfig(n_nodes=64, learning_rate=5e-3)
+    start = tloop.setup_train_state(cfg, device="cpu").params()
+    hist = []
+    for dev in (cuda_device, "cpu"):
+        state = tloop.setup_train_state(cfg, params=start, device=dev)
+        mesh = make_mesh(("data",), devices=[dev] * 4)
+        fn = tdp.make_dp_epoch_fn(cfg, state.optimizer, mesh)
+        shards = tdp.shard_batch_for_dp(batch, mesh)
+        hist.append([fn(state, shards) for _ in range(10)])
+    np.testing.assert_allclose(hist[0], hist[1], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_k1_on_hybrid_shard_plans_matches_plain(cuda_device):
+    n, D = 16_384, 4
+    lists = [_coo(banded_random_edges(n, 8, 255, s)) for s in (0, 1)]
+    mesh = make_mesh(("data", "graph"), shape=(2, D), devices=[cuda_device] * (2 * D))
+    sgb = thybrid.stack_sharded_graphs([
+        tpart.shard_graph(s, r, n, D, local_reorder="rcm", block_ell=True)[0] for s, r in lists])
+    rng = np.random.default_rng(5)
+    for sg, row in zip(sgb, mesh.rows):
+        sg = sg.to(row)
+        assert sg.bell_senders is not None and len(sg.bell_senders) == D
+        for d in range(D):
+            x = torch.tensor(rng.normal(size=(sg.n_shard, 64)).astype(np.float32),
+                             device=cuda_device)
+            args = (sg.bell_senders[d], sg.bell_weights[d], sg.bell_out_senders[d],
+                    sg.bell_out_receivers[d], sg.bell_out_weights[d], sg.n_shard,
+                    sg.bell_block, sg.bell_wp)
+            assert_kernel_close(tbell.block_ell_spmm(x, *args),
+                                tbell.block_ell_spmm_plain(x, *args))
+    cfg = tpgiant.GiantConfig(number_epochs=2, block_ell=True, local_reorder="rcm")
+    tbell.reset_launches()
+    thybrid.train_hybrid(lists, n, cfg, mesh=mesh)
+    assert tbell.LAUNCHES["block_ell_spmm"] == 2 * D * 6 * 2
+
+
+@pytest.mark.cuda
+def test_cuda_timer_waits_for_the_card(cuda_device):
+    x = torch.randn(4096, 4096, device=cuda_device)
+    torch.cuda.synchronize()
+    with Timer() as unsynced:
+        y = x @ x
+    with Timer(sync=[y]) as synced:
+        y = x @ x
+        for _ in range(20):
+            y = y @ x * 1e-3
+    assert synced.elapsed > unsynced.elapsed

@@ -32,7 +32,10 @@ from gcn_maxcut_tpu_torch.experiments import (
 from gcn_maxcut_tpu_torch.ops import halo as th
 from gcn_maxcut_tpu_torch.parallel import giant_banded as tgb
 from gcn_maxcut_tpu_torch.parallel.giant import GiantConfig, train_giant_graph
-from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
+from gcn_maxcut_tpu_torch.parallel.data_parallel import make_dp_epoch_fn
+from gcn_maxcut_tpu_torch.parallel.hybrid import train_hybrid
+from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh, multi_host_init
+from gcn_maxcut_tpu_torch.train.config import TrainingConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gcn_maxcut_tpu")
@@ -151,3 +154,26 @@ def test_sharded_entry_points_raise_without_cuda(monkeypatch):
     assert res["num_shards"] == 1
     assert bench_sharded_conv(64, 4, feature_dim=8, out_dim=4, iters=1,
                               device="cpu")["device"] == "cpu"
+
+
+def test_data_parallel_and_hybrid_entry_points_raise_without_cuda(monkeypatch):
+    for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    edges = random_regular_edges(64, 4, seed=0)
+    coo = (np.concatenate([edges[:, 0], edges[:, 1]]), np.concatenate([edges[:, 1], edges[:, 0]]))
+    cfg = GiantConfig(dim_embedding=8, hidden_dim=4, number_epochs=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="devices="):
+        make_mesh(("data", "graph"), shape=(2, 4))
+    with pytest.raises(RuntimeError, match="devices="):
+        train_hybrid([coo, coo], 64, cfg)
+    with pytest.raises(RuntimeError, match="devices="):
+        make_dp_epoch_fn(TrainingConfig(n_nodes=16), None, make_mesh(("data",)))
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        multi_host_init("127.0.0.1:29500", 1, 0)
+    with pytest.raises(RuntimeError):
+        cli_main(["bench", "--what", "hybrid", "--n", "25600", "--giant-epochs", "1"])
+    # asked for by name, the CPU runs them
+    mesh = make_mesh(("data", "graph"), shape=(2, 2), devices=["cpu"] * 4)
+    assert [row.devices for row in mesh.rows] == [(torch.device("cpu"),) * 2] * 2
+    assert train_hybrid([coo, coo], 64, cfg, mesh=mesh)["mesh_shape"] == (2, 2)
