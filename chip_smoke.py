@@ -111,9 +111,6 @@ Phases; any failure ends the run with a non-zero exit code:
                 ``quant`` (the quantile loss; its simple mean logged, not
                 gated, as the JAX arm's own is below 547.1) of
                 ``experiments/quality_sweep.py``;
-     timings    ``bench --what train`` and ``bench --what post`` at their
-                defaults and the refined decode's time a graph at n = 500,
-                each beside the card's name and power limit;
   5. locality   the locality trainer (``bench --what locality``): a small
                 run held against the CPU, then n = 100,000 through K1 (RCM,
                 plan, 200 epochs, decode), held against the JAX package's
@@ -155,8 +152,32 @@ Phases; any failure ends the run with a non-zero exit code:
                 epoch through NCCL's all_reduce on a process group of one
                 (``multi_host_init`` on 127.0.0.1), bit for bit against
                 the same epochs without a group;
-  6. microbench ``bench --what spmm`` (K1) and ``bench --what banded`` (K2,
-                K4) at their defaults.
+  6. solvers    the classical solvers on the card: brute force at n = 16
+                (d = 3) equal on the card, the CPU and the native toolkit
+                (optimum and, card against CPU, assignment), then at n = 19
+                (3^16 codes, the most the exact branch takes), codes/s; the
+                batched SA chains and their climb (n = 100, 8 chains, 2,000
+                steps) from one set of draws, card against CPU (best cut
+                within one edge); ``solve --n 500 --d 8 --time-limit 20``
+                (the SA branch, at least one batch of 64 chains, above its
+                randomized cut; chains/s and steps/s) and ``solve --n 15``
+                (the exact branch); ``solve --method sweep --n 100000``
+                (cut fraction above 2/3); ``compute_baseline_stats`` on 4
+                graphs of n = 500 padded to 1000 (solver 5 s; every solver
+                cut at least the randomized one); ``convert`` of the
+                recipe's final checkpoint .npz -> .pth -> .npz, every array
+                bit-equal (in a temporary directory); and the examples
+                ``torch_migration`` (5 epochs on that .pth, its
+                ``_continued.pth`` read back), ``giant_scale_pipeline`` at
+                N = 20,000 on a 4-shard ring and
+                ``complete_training_pipeline --quick``;
+     microbench ``bench --what all`` through the CLI: spmm (K1), banded (K2,
+                K4), train and post, in that order; K1, K2 and K4 launched
+                exactly 36, 108 and 44 times in the whole command and no
+                other kernel;
+     timings    the recipe timings ``bench --what all`` printed (train,
+                post) and the refined decode's time a graph at n = 500,
+                each beside the card's name and power limit.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after.  The end of the output is the card's name and power limit, one
@@ -282,6 +303,14 @@ HYBRID_DUP_EPOCHS = 10
 HYBRID_EPOCHS = 100
 DP_ENTRIES = 4
 MICRO_N = 100_000
+SOLVER_BRUTE = (16, 3)          # n, d: 3^13 codes, card against CPU and native
+SOLVER_BRUTE_MAX = (19, 4)      # 3^16 codes, the most the exact branch takes
+SOLVER_SA = (100, 6, 8, 2000)   # n, d, chains, steps: the SA chains, card against CPU
+SOLVE_ANYTIME = ["solve", "--method", "anytime", "--n", "500", "--d", "8", "--time-limit", "20",
+                 "--device", "cuda"]
+SOLVE_SWEEP = ["solve", "--method", "sweep", "--n", "100000", "--d", "8", "--device", "cuda"]
+SA_STEPS = 20_000               # anytime_solver's sa_steps
+EXAMPLE_GIANT_N = 20_000        # giant_scale_pipeline's own N
 BANDED_N, BANDED_BIG_N = 131_072, 1_250_304
 
 
@@ -1692,11 +1721,12 @@ def phase_variants(torch, counters) -> dict:
                      "final_loss": q["final_loss"]}}
 
 
-def phase_timings(micro, refine_s_at_500: float) -> dict:
+def phase_timings(micro: dict, refine_s_at_500: float) -> dict:
+    """The recipe timings, ``bench --what train`` and ``--what post``, as
+    ``bench --what all`` printed them in the microbench phase."""
     log("== timings")
     card = card_line()
-    train = micro.bench_train_epoch(device="cuda")
-    post = micro.bench_post_processing(device="cuda")
+    train, post = micro["train"], micro["post"]
     log(f"  recipe epoch {train['epoch_time_s'] * 1e3:.3f} ms (best of 3 rounds of 10, mean "
         f"{train['epoch_time_stats']['mean_s'] * 1e3:.3f} ms; first epoch "
         f"{train['compile_time_s']:.2f} s; {train['speedup_vs_reference']:.1f}x the "
@@ -2229,12 +2259,31 @@ def phase_dp(torch, np, counters, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
             "nccl_world_of_one_bit_equal": True, "card": card}
 
 
-def phase_microbench(tbell, tb, micro) -> dict:
+def cli_lines(cli_main, argv: list) -> dict:
+    """Run a command that prints one JSON object a line; their union."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        check(cli_main(argv) == 0, f"{' '.join(argv)} ran")
+    merged = {}
+    for line in out.getvalue().strip().splitlines():
+        merged.update(json.loads(line))
+    return merged
+
+
+def phase_microbench(counters, cli_main) -> dict:
+    """``bench --what all`` on the card: spmm (K1), banded (K2, K4), train
+    and post, in that order, through the CLI, the counters read after the
+    whole command."""
     log("== microbench")
-    tbell.reset_launches()
-    tb.reset_launches()
-    spmm = micro.bench_spmm(device="cuda")
-    spmm_launches = {**tbell.LAUNCHES, **tb.LAUNCHES}
+    reset_all(counters)
+    res = cli_lines(cli_main, ["bench", "--what", "all", "--device", "cuda"])
+    launches = all_launches(counters)
+    check(list(res) == ["spmm", "banded", "train", "post"],
+          "bench --what all printed spmm, banded, train and post, in that order")
+    spmm, banded = res["spmm"], res["banded"]
     log(f"  spmm n={spmm['n']} d={spmm['d']} F={spmm['feature_dim']}: banded-random on K1 "
         f"(B={spmm['bell_block']}, Wp={spmm['bell_wp']}) fwd {spmm['fwd_edges_per_s']:.4g} "
         f"edges/s ({spmm['fraction_of_roofline_fwd']:.4f} of roofline), fwd+bwd "
@@ -2243,12 +2292,7 @@ def phase_microbench(tbell, tb, micro) -> dict:
         f"({spmm['expander_fraction_of_roofline_fwd']:.4f}), fwd+bwd "
         f"{spmm['expander_fwdbwd_edges_per_s']:.4g} "
         f"({spmm['expander_fraction_of_roofline_fwdbwd']:.4f}), bf16 fwd "
-        f"{spmm['expander_bf16_fwd_edges_per_s']:.4g}; launches {spmm_launches}")
-    check(spmm_launches["block_ell_spmm"] == 3 * (2 + 10), "K1 launched 3 times a timed call")
-    tbell.reset_launches()
-    tb.reset_launches()
-    banded = micro.bench_spmm_banded(device="cuda")
-    banded_launches = {**tbell.LAUNCHES, **tb.LAUNCHES}
+        f"{spmm['expander_bf16_fwd_edges_per_s']:.4g}")
     banded["hbm_regime_fraction"] = (
         banded["hbm_regime_fwd_edges_per_s"] / banded["banded_roofline_edges_per_s"])
     banded["hbm_regime_weighted_fraction"] = (
@@ -2261,18 +2305,191 @@ def phase_microbench(tbell, tb, micro) -> dict:
         f"K2 {banded['hbm_regime_fwd_edges_per_s']:.4g} ({banded['hbm_regime_fraction']:.4f}, "
         f"{banded['hbm_regime_gbps']:.1f} GB/s), K4 "
         f"{banded['hbm_regime_weighted_fwd_edges_per_s']:.4g} "
-        f"({banded['hbm_regime_weighted_fraction']:.4f}); launches {banded_launches}")
-    check(banded_launches["banded_spmm_unit"] == 3 * (2 + 30) + (2 + 10),
+        f"({banded['hbm_regime_weighted_fraction']:.4f})")
+    log(f"  train: recipe epoch {res['train']['epoch_time_s'] * 1e3:.3f} ms; post: "
+        f"{res['post']['time_s'] * 1e3:.4f} ms at n={res['post']['n']}; launches {launches}; "
+        f"card: {card_line()}")
+    check(launches["block_ell_spmm"] == 3 * (2 + 10), "K1 launched 3 times a timed call (36)")
+    check(launches["banded_spmm_unit"] == 3 * (2 + 30) + (2 + 10),
           "K2 launched halo_stream.cu 108 times (F = 128)")
-    check(banded_launches["banded_spmm"] == (2 + 30) + (2 + 10), "K4 launched its ring 44 times")
-    check(all(v == 0 for k, v in banded_launches.items()
-              if k not in ("banded_spmm_unit", "banded_spmm")),
-          "bench --what banded runs no earlier body and no other kernel")
+    check(launches["banded_spmm"] == (2 + 30) + (2 + 10), "K4 launched its ring 44 times")
+    check(all(v == 0 for k, v in launches.items()
+              if k not in ("block_ell_spmm", "banded_spmm_unit", "banded_spmm")),
+          "bench --what all runs no earlier body and no other kernel")
     fractions = [spmm[k] for k in spmm if "fraction" in k]
     fractions += [banded[k] for k in banded if "fraction" in k]
     check(all(0 < f <= 1 for f in fractions), "every roofline fraction in (0, 1]")
-    return {"spmm": {**spmm, "launches": spmm_launches},
-            "banded": {**banded, "launches": banded_launches}}
+    return {"spmm": spmm, "banded": {**banded, "launches": launches},
+            "train": res["train"], "post": res["post"], "launches": launches}
+
+
+def _undirected(np, g):
+    m = g.edge_mask.cpu().numpy() > 0
+    s, r = g.senders.cpu().numpy()[m], g.receivers.cpu().numpy()[m]
+    return np.stack([s[s < r], r[s < r]], axis=1)
+
+
+def phase_solvers(torch, np, counters, cli_main, recipe_checkpoint: str) -> dict:
+    """The classical solvers, ``solve``, ``convert``, the baseline stats and
+    the examples on the card."""
+    from gcn_maxcut_tpu_torch.baselines.exact import (
+        _sa_restart_batch_from_draws,
+        brute_force_maxcut,
+    )
+    from gcn_maxcut_tpu_torch.data.enhanced import compute_baseline_stats
+    from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset
+    from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+    from gcn_maxcut_tpu_torch.examples import (
+        complete_training_pipeline,
+        giant_scale_pipeline,
+        torch_migration,
+    )
+    from gcn_maxcut_tpu_torch.native.bindings import brute_force_maxcut_native
+    from gcn_maxcut_tpu_torch.objectives.cut_loss import hard_cut_value
+    from gcn_maxcut_tpu_torch.train.torch_compat import load_torch_checkpoint
+
+    log("== solvers")
+    card = card_line()
+    reset_all(counters)
+    out = {"card": card}
+
+    def graph(n, d, seed, pad=None):
+        specs, _ = generate_graph_dataset(1, n, n, d, d, base_seed=seed)
+        return process_graphs(specs, DataConfig(max_nodes=pad or n)).graphs[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # 1. brute force: card, CPU and native at n = 16; the card at n = 19
+    n, d = SOLVER_BRUTE
+    g = graph(n, d, 16)
+    (asn_c, cut_c), card_s = timed(lambda: brute_force_maxcut(g.to("cuda"), batch=1 << 20))
+    (asn_h, cut_h), cpu_s = timed(lambda: brute_force_maxcut(g))
+    (asn_n, cut_n), native_s = timed(lambda: brute_force_maxcut_native(_undirected(np, g), n))
+    check(cut_c == cut_h == cut_n, f"brute force at n = {n}: card, CPU and native optima equal")
+    check(bool(np.array_equal(asn_c, asn_h)), "brute force: card and CPU assignments equal")
+    n19, d19 = SOLVER_BRUTE_MAX
+    g19 = graph(n19, d19, 19)
+    (asn19, cut19), s19 = timed(lambda: brute_force_maxcut(g19.to("cuda"), batch=1 << 20))
+    full = torch.zeros(g19.n_pad, dtype=torch.int64)
+    full[:n19] = torch.as_tensor(asn19)
+    check(float(hard_cut_value(g19, full)) == cut19, "brute force at n = 19 scores its optimum")
+    codes19 = 3 ** (n19 - 3)
+    out["brute_force"] = {
+        "n16": {"cut": cut_c, "card_s": card_s, "cpu_s": cpu_s, "native_s": native_s,
+                "codes": 3 ** (n - 3)},
+        "n19": {"cut": cut19, "card_s": s19, "codes": codes19, "codes_per_s": codes19 / s19}}
+    log(f"  brute force n={n} d={d}: optimum {cut_c} on card ({card_s:.4f} s), CPU "
+        f"({cpu_s:.4f} s) and native ({native_s:.4f} s); n={n19} d={d19}: optimum {cut19}, "
+        f"{codes19} codes in {s19:.4f} s on the card, {codes19 / s19:.4g} codes/s; card: {card}")
+
+    # 2. the batched SA chains and their climb, card against CPU, one set of draws
+    n, d, chains, steps = SOLVER_SA
+    g = graph(n, d, 100)
+    gen = torch.Generator().manual_seed(0)
+    draws = (torch.randint(0, 3, (chains, g.n_pad), generator=gen),
+             torch.randint(3, g.n_pad, (chains, steps), generator=gen),
+             torch.randint(0, 3, (chains, steps), generator=gen),
+             torch.rand((chains, steps), generator=gen))
+    (a_h, c_h), sa_cpu_s = timed(lambda: _sa_restart_batch_from_draws(g, *draws, 3, 3))
+    gc, dc = g.to("cuda"), [t.to("cuda") for t in draws]
+    (a_c, c_c), sa_card_s = timed(lambda: _sa_restart_batch_from_draws(gc, *dc, 3, 3))
+    same = float(c_c) == float(c_h) and bool(torch.equal(a_c.cpu(), a_h))
+    check(abs(float(c_c) - float(c_h)) <= 1.0, "SA chains: card's best cut within one edge of "
+                                               "the CPU's")
+    out["sa_chains"] = {"cut_card": float(c_c), "cut_cpu": float(c_h), "equal": same,
+                        "card_s": sa_card_s, "cpu_s": sa_cpu_s,
+                        "card_steps_per_s": steps / sa_card_s}
+    log(f"  SA chains n={n} R={chains} {steps} steps + climb: card {float(c_c)} "
+        f"({sa_card_s:.3f} s, {steps / sa_card_s:.1f} lockstep steps/s), CPU {float(c_h)} "
+        f"({sa_cpu_s:.3f} s); assignments {'equal' if same else 'differ'}; card: {card}")
+
+    # 3. solve: the anytime solver's SA branch and its exact branch
+    res = cli_json(cli_main, SOLVE_ANYTIME)
+    batch_restarts = 64          # max(8, min(64, 2^22 // n_pad)) at n_pad >= 500
+    check(res["method"] == "sa_anytime" and res["restarts"] >= batch_restarts,
+          "solve --n 500: the SA branch ran at least one batch of 64 chains")
+    check(res["cut_value"] > res["randomized_cut"], "solve --n 500 beats its randomized cut")
+    t = res["solve_time_s"]
+    res.update({"chains_per_s": res["restarts"] / t,
+                "chain_steps_per_s": res["restarts"] * SA_STEPS / t,
+                "lockstep_steps_per_s": res["restarts"] / batch_restarts * SA_STEPS / t})
+    exact = cli_json(cli_main, ["solve", "--n", "15", "--device", "cuda"])
+    check(exact["method"] == "exact_brute_force", "solve --n 15 takes the exact branch")
+    out["solve_anytime"], out["solve_exact"] = res, exact
+    log(f"  solve n=500 d=8 20 s: {res['method']} cut {res['cut_value']} (randomized "
+        f"{res['randomized_cut']}), {res['restarts']} chains in {t} s: "
+        f"{res['chains_per_s']:.3f} chains/s, {res['chain_steps_per_s']:.4g} chain-steps/s, "
+        f"{res['lockstep_steps_per_s']:.1f} lockstep steps/s; n=15: {exact['method']} cut "
+        f"{exact['cut_value']} in {exact['solve_time_s']} s; card: {card}")
+
+    # 4. solve: the native sweep at n = 100,000
+    sw = cli_json(cli_main, SOLVE_SWEEP)
+    check(sw["cut_fraction"] > 2 / 3, "the sweep's cut fraction above 2/3")
+    out["solve_sweep"] = sw
+    log(f"  solve --method sweep n=100000 d=8: cut fraction {sw['cut_fraction']:.5f} in "
+        f"{sw['sweeps']} sweeps, {sw['solve_time_s']} s (host); card: {card}")
+
+    # 5. the baseline stats on 4 recipe-sized graphs
+    specs, _ = generate_graph_dataset(4, 500, 500, 6, 8, base_seed=4000)
+    ds = process_graphs(specs, DataConfig(max_nodes=1000))
+    (stats), stats_s = timed(lambda: compute_baseline_stats(ds, solver_time_limit=5,
+                                                            device="cuda"))
+    check(all(r["solver_cut"] >= r["randomized_cut"] for r in stats.values()),
+          "baseline stats: every solver cut at least the randomized cut")
+    out["baseline_stats"] = {"graphs": stats, "seconds": stats_s}
+    log(f"  baseline stats, 4 graphs n=500 padded to 1000, solver 5 s: " + "; ".join(
+        f"randomized {r['randomized_cut']}, flow {r['flow_min_cut_value']}, solver "
+        f"{r['solver_cut']} ({r['solver_method']}, {r['solver_time_s']:.2f} s)"
+        for r in stats.values()) + f"; {stats_s:.2f} s in all; card: {card}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 6. convert: the recipe's final checkpoint .npz -> .pth -> .npz
+        pth, back = str(Path(tmp) / "recipe.pth"), str(Path(tmp) / "recipe_back.npz")
+        _, to_pth_s = timed(lambda: cli_json(cli_main, ["convert", recipe_checkpoint, pth]))
+        _, to_npz_s = timed(lambda: cli_json(cli_main, ["convert", pth, back]))
+        with np.load(recipe_checkpoint) as a, np.load(back) as b:
+            keys = sorted(k for k in a.files if k != "_meta")
+            check(keys == sorted(k for k in b.files if k != "_meta"),
+                  "convert round trip keeps every array")
+            check(all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in keys),
+                  "convert round trip: every array bit-equal to the recipe's checkpoint")
+        sizes = {p: Path(p).stat().st_size for p in (recipe_checkpoint, pth, back)}
+        out["convert"] = {"to_pth_s": to_pth_s, "to_npz_s": to_npz_s, "arrays": len(keys),
+                          "npz_bytes": sizes[recipe_checkpoint], "pth_bytes": sizes[pth],
+                          "back_npz_bytes": sizes[back]}
+        log(f"  convert {len(keys)} arrays: npz -> pth {to_pth_s:.3f} s ({sizes[pth]} bytes), "
+            f"pth -> npz {to_npz_s:.3f} s ({sizes[back]} bytes), bit-equal to the "
+            f"{sizes[recipe_checkpoint]}-byte original")
+
+        # 7. the examples on the card
+        start_epoch = load_torch_checkpoint(pth)[2]["epoch"]
+        mig, mig_s = timed(lambda: torch_migration.main(pth, device="cuda"))
+        check(len(mig["losses"]) == 5 and all(math.isfinite(x) for x in mig["losses"]),
+              "torch_migration: 5 finite losses")
+        params, _, meta = load_torch_checkpoint(mig["exported"])
+        check(meta["epoch"] == start_epoch + 5 and meta["loss_history"][-1] == mig["losses"][-1]
+              and all(bool(torch.isfinite(t).all()) for t in (params["conv1"]["w"],
+                                                               params["conv2"]["w"])),
+              "torch_migration's _continued.pth reads back, 5 epochs on")
+        rc, giant_s = timed(lambda: giant_scale_pipeline.main(N=EXAMPLE_GIANT_N, device="cuda"))
+        check(rc == 0, "giant_scale_pipeline exited 0")
+        rc, quick_s = timed(lambda: complete_training_pipeline.main(
+            str(Path(tmp) / "pipeline"), quick=True, device="cuda"))
+        check(rc == 0, "complete_training_pipeline --quick exited 0")
+    out["examples"] = {"torch_migration": {"losses": mig["losses"], "seconds": mig_s,
+                                           "continued_epoch": meta["epoch"]},
+                       "giant_scale_pipeline_s": giant_s,
+                       "complete_training_pipeline_quick_s": quick_s}
+    log(f"  examples: torch_migration {mig_s:.2f} s (losses {mig['losses']}), "
+        f"giant_scale_pipeline N={EXAMPLE_GIANT_N} {giant_s:.2f} s, "
+        f"complete_training_pipeline --quick {quick_s:.2f} s; card: {card}")
+    out["launches"] = all_launches(counters)
+    return out
 
 
 def main() -> int:
@@ -2346,7 +2563,6 @@ def main() -> int:
     report["quality"] = phase_quality(tb, quality)
     report["quality_ent05"] = phase_quality(tb, quality, "ent05")
     report["quality_quant"] = phase_quality(tb, quality, "quant")
-    report["timings"] = phase_timings(micro, report["quality"]["per_size"][500]["refine_time_s"])
     report["locality"] = phase_locality(torch, np, tbell, tb, loc)
     report["kway"] = phase_kway(torch, np, (tbell, tb, th, tpk), tbell, make_mesh, micro, tpart,
                                 tgiant, kway_sweep, scaling, random_regular_edges)
@@ -2356,7 +2572,11 @@ def main() -> int:
     report["dp"] = phase_dp(torch, np, (tbell, tb, th, tpk), make_mesh, tdp, tloop, tgiant,
                             thybrid, tpart, loc.locality_params, random_regular_edges,
                             report["variants"])
-    report["microbench"] = phase_microbench(tbell, tb, micro)
+    report["solvers"] = phase_solvers(torch, np, (tbell, tb, th, tpk), cli_main,
+                                      report["recipe"]["final_checkpoint"])
+    report["microbench"] = phase_microbench((tbell, tb, th, tpk), cli_main)
+    report["timings"] = phase_timings(report["microbench"],
+                                      report["quality"]["per_size"][500]["refine_time_s"])
     report["seconds"] = time.perf_counter() - t_start
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
 

@@ -11,7 +11,9 @@ Moving node i from class a to class c changes the cut by
 ``[S, n_pad]``; a batch climbs in lockstep, one SpMM on ``[n_pad, S·k]`` a
 step (the JAX package ``vmap``s its ``while_loop``).  A climb with no
 improving move maps to itself, so a finished climb stays where it is while
-the others go on, as in the JAX loop.
+the others go on, as in the JAX loop.  ``simulated_annealing_from_draws``
+likewise takes R chains ``[R, n_pad]`` that step in lockstep (the batched
+restarts of ``exact.anytime_solver``).
 
 Random draws come from an explicit ``torch.Generator``.  Each randomized
 search also has a ``*_from_draws`` form that takes its draws as tensors,
@@ -106,35 +108,55 @@ def simulated_annealing_from_draws(
     """Metropolis moves with linear cooling over the given draws: step t
     proposes moving ``nodes[t]`` to ``classes[t]`` and accepts a worsening
     move when ``uniforms[t] < exp(delta / T_t)``.  W is kept up to date
-    incrementally; returns the best ``(assignment, cut)`` seen."""
-    steps = int(nodes.shape[0])
+    incrementally; returns the best ``(assignment, cut)`` seen.
+
+    A batch of R chains, ``assignment`` [R, n_pad] with draws [R, steps],
+    steps in lockstep: one step's launches serve every chain (the JAX
+    package ``vmap``s its ``lax.scan``).  Each chain's W update is one
+    ``index_add_`` over the flattened [R·n_pad] rows, the edge test on
+    [R, e_pad].  One chain, [n_pad] with draws [steps], is the batch of
+    one.
+    """
+    batched = assignment.dim() == 2
+    if not batched:
+        assignment, nodes, classes, uniforms = (
+            assignment[None], nodes[None], classes[None], uniforms[None])
     asn = assignment.long().clone()
-    w = _class_weights(g, asn, k)
+    nodes, classes = nodes.long(), classes.long()
+    chains, steps = nodes.shape
+    dev = asn.device
+    w = _class_weights(g, asn, k)                 # [R, n_pad, k]
     cut = hard_cut_value(g, asn)
     best_asn, best_cut = asn.clone(), cut.clone()
-    ts = torch.linspace(t_start, t_end, steps, device=asn.device)
+    ts = torch.linspace(t_start, t_end, steps, device=dev)
+    rows = torch.arange(chains, device=dev)
     senders, receivers = g.senders.long(), g.receivers.long()
     real = g.edge_mask > 0
-    zeros = torch.zeros(g.n_pad, device=asn.device)
+    # every chain's senders as rows of the flattened [R·n_pad] update
+    flat_senders = (rows[:, None] * g.n_pad + senders[None, :]).reshape(-1)
+    eye = torch.eye(k, device=dev)
     for t in range(steps):
-        i, c = nodes[t].long(), classes[t].long()
-        a = asn[i]
-        delta = w[i, a] - w[i, c]                 # the cut grows by delta
+        i, c = nodes[:, t], classes[:, t]
+        a = asn[rows, i]
+        delta = w[rows, i, a] - w[rows, i, c]     # the cut grows by delta
         legal = (c != a) & (g.node_mask[i] > 0)
         accept = legal & (
             (delta > 0)
-            | (uniforms[t] < torch.exp(torch.clamp(delta / ts[t], max=0.0)))
+            | (uniforms[:, t] < torch.exp(torch.clamp(delta / ts[t], max=0.0)))
         )
         # every neighbour j of i moves w_ij from column a to column c
-        wts = torch.where((receivers == i) & real, g.weights, 0.0)
-        upd = zeros.index_add(0, senders, wts)
-        move = torch.nn.functional.one_hot(c, k) - torch.nn.functional.one_hot(a, k)
-        w = torch.where(accept, w + upd[:, None] * move, w)
-        asn[i] = torch.where(accept, c, a)
+        wts = torch.where((receivers[None, :] == i[:, None]) & real, g.weights, 0.0)
+        upd = torch.zeros(chains * g.n_pad, device=dev).index_add_(
+            0, flat_senders, wts.reshape(-1)).view(chains, g.n_pad)
+        move = eye[c] - eye[a]                    # [R, k]
+        w = torch.where(accept[:, None, None], w + upd[:, :, None] * move[:, None, :], w)
+        asn[rows, i] = torch.where(accept, c, a)
         cut = torch.where(accept, cut + delta, cut)
         better = cut > best_cut
-        best_asn = torch.where(better, asn, best_asn)
+        best_asn = torch.where(better[:, None], asn, best_asn)
         best_cut = torch.where(better, cut, best_cut)
+    if not batched:
+        return best_asn[0], best_cut[0]
     return best_asn, best_cut
 
 

@@ -1,8 +1,9 @@
 """Command-line entry point of the port.
 
-Port of the subcommands of ``gcn_maxcut_tpu/cli.py`` that the port covers
-so far, with the same flags plus ``--device`` on every command that runs
-on a device (default: the CUDA device; ``--device cpu`` runs on the CPU):
+Port of every subcommand of ``gcn_maxcut_tpu/cli.py``, with the same flags
+plus ``--device`` on every command that runs on a device (default: the
+CUDA device; ``--device cpu`` runs on the CPU).  ``solve`` prints the JAX
+keys plus ``restarts``:
 
   python -m gcn_maxcut_tpu_torch generate --num-graphs 20 --output ds.npz
       generate and process a dataset, saved as the JAX package's npz
@@ -16,6 +17,16 @@ on a device (default: the CUDA device; ``--device cpu`` runs on the CPU):
       generate -> process (dataset npz) -> train (checkpoints) -> evaluate
       held-out graphs (argmax, post-processing, refine) -> randomized
       baseline -> SUMMARY.md
+  python -m gcn_maxcut_tpu_torch solve --n 100 --d 8 --time-limit 60
+      a classical solver on a random regular graph: the anytime solver
+      (exact below 19 free nodes, else batched SA chains on the device) or
+      --method sweep, the native sweep for 100k..10M-node graphs (host)
+  python -m gcn_maxcut_tpu_torch convert final_m.pth migrated.npz
+      migrate a checkpoint: the reference's .pth/.pt to the npz layout,
+      or an npz to .pth (host; unpickling a .pth runs code: trusted files
+      only)
+  python -m gcn_maxcut_tpu_torch bench [--what all]
+      spmm, banded, train and post in that order (the default)
   python -m gcn_maxcut_tpu_torch bench --what quality [--recipe mixed]
       the cut-quality suite (bench/quality.py)
   python -m gcn_maxcut_tpu_torch bench --what train|post
@@ -269,12 +280,109 @@ def _cmd_pipeline(args) -> int:
     return 0
 
 
+def _cmd_solve(args) -> int:
+    from gcn_maxcut_tpu_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    if args.method == "sweep":
+        # the scalable classical search: O(E) a sweep, native host code
+        from gcn_maxcut_tpu_torch.baselines.sweep import greedy_sweep_maxcut
+        from gcn_maxcut_tpu_torch.data.generate import random_regular_edges
+
+        edges = random_regular_edges(args.n, args.d, seed=args.seed)
+        rng = np.random.default_rng(args.seed)
+        init = rng.integers(0, args.k, args.n)
+        init[: args.k] = np.arange(args.k)
+        t0 = time.perf_counter()
+        _, cut, sweeps = greedy_sweep_maxcut(edges, args.n, init, k=args.k)
+        print(json.dumps({
+            "n": args.n, "d": args.d, "k": args.k, "method": "greedy_sweep",
+            "cut_value": cut, "cut_fraction": cut / edges.shape[0],
+            "sweeps": sweeps,
+            "solve_time_s": round(time.perf_counter() - t0, 3),
+        }))
+        return 0
+
+    from gcn_maxcut_tpu_torch.baselines.exact import anytime_solver
+    from gcn_maxcut_tpu_torch.baselines.randomized import randomized_k_way_maxcut
+    from gcn_maxcut_tpu_torch.data.generate import generate_graph
+    from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+
+    spec = generate_graph(n=args.n, d=args.d, graph_type="reg", seed=args.seed)
+    g = process_graphs([spec], DataConfig(max_nodes=args.n)).graphs[0].to(dev)
+    res = anytime_solver(g, k=args.k, time_limit=args.time_limit, seed=args.seed)
+    _, rand_cut, _ = randomized_k_way_maxcut(g, args.k, 1000, seed=args.seed)
+    print(json.dumps({
+        "n": args.n,
+        "d": args.d,
+        "k": args.k,
+        "method": res["method"],
+        "cut_value": res["cut_value"],
+        "solve_time_s": round(res["solve_time"], 3),
+        "randomized_cut": rand_cut,
+        "restarts": res["restarts"],
+    }))
+    return 0
+
+
+def _cmd_convert(args) -> int:
+    """Migrate checkpoints: the reference's ``.pth`` <-> the npz layout.
+    Host code: the state is built on the CPU."""
+    from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from gcn_maxcut_tpu_torch.train.config import TrainingConfig
+    from gcn_maxcut_tpu_torch.train.loop import setup_train_state
+    from gcn_maxcut_tpu_torch.train.torch_compat import (
+        adam_state_from_torch,
+        load_torch_checkpoint,
+        save_torch_checkpoint,
+    )
+
+    src, dst = args.input, args.output
+    if src.endswith((".pth", ".pt")):
+        params, _, meta = load_torch_checkpoint(src)
+        cfg = meta.get("config") or TrainingConfig()
+        state = setup_train_state(cfg, device="cpu")
+        if "embed" not in params:           # keep the template's embedding
+            params["embed"] = state.params()["embed"]
+        opt_state = (adam_state_from_torch(state, state.params(), meta["torch_optimizer"])
+                     if meta.get("torch_optimizer") else state.opt_state())
+        out = save_checkpoint(dst, params=params, opt_state=opt_state,
+                              epoch=meta.get("epoch", 0),
+                              loss_history=meta.get("loss_history"), config=cfg)
+        direction = "torch->npz"
+    else:
+        with np.load(src if src.endswith(".npz") else src + ".npz") as d:
+            meta_raw = json.loads(bytes(d["_meta"]).decode())
+        cfg = (TrainingConfig.from_json(meta_raw["config"])
+               if meta_raw.get("config") else TrainingConfig())
+        state = setup_train_state(cfg, device="cpu")
+        params, opt_state, _, meta = load_checkpoint(src, state.params(), state.opt_state())
+        out = save_torch_checkpoint(dst, params, epoch=meta.get("epoch", 0),
+                                    loss_history=meta.get("loss_history"), config=cfg,
+                                    opt_state=opt_state)
+        direction = "npz->torch"
+    print(json.dumps({"converted": str(out), "direction": direction,
+                      "epoch": meta.get("epoch", 0)}))
+    return 0
+
+
 def _cmd_bench(args) -> int:
     from gcn_maxcut_tpu_torch.bench.giant_demo import (
         train_banded_giant,
         train_banded_giant_packed,
     )
 
+    if args.what == "all":
+        from gcn_maxcut_tpu_torch.bench import microbench
+
+        for what, bench in (
+            ("spmm", lambda: microbench.bench_spmm(n=args.n, d=args.d, device=args.device)),
+            ("banded", lambda: microbench.bench_spmm_banded(device=args.device)),
+            ("train", lambda: microbench.bench_train_epoch(device=args.device)),
+            ("post", lambda: microbench.bench_post_processing(device=args.device)),
+        ):
+            print(json.dumps({what: bench()}, default=float), flush=True)
+        return 0
     if args.what == "quality":
         from gcn_maxcut_tpu_torch.bench.quality import run_quality_suite
 
@@ -418,11 +526,31 @@ def main(argv=None) -> int:
     e.add_argument("--device", default=None, help="default: the CUDA device")
     e.set_defaults(fn=_cmd_test)
 
+    s = sub.add_parser("solve", help="run a classical solver on a random graph")
+    s.add_argument("--n", type=int, default=100)
+    s.add_argument("--d", type=int, default=8)
+    s.add_argument("--k", type=int, default=3)
+    s.add_argument("--time-limit", type=float, default=60.0)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--method", choices=["anytime", "sweep"], default="anytime",
+                   help="anytime = exact or batched SA + greedy chains (the CPLEX "
+                        "stand-in, n <= ~1k); sweep = the native O(E)-a-sweep search "
+                        "for 100k..10M-node graphs")
+    s.add_argument("--device", default=None, help="default: the CUDA device")
+    s.set_defaults(fn=_cmd_solve)
+
+    c = sub.add_parser("convert", help="migrate checkpoints between the reference's "
+                                       ".pth and the npz layout (trusted files only)")
+    c.add_argument("input", help="source checkpoint (.pth/.pt or .npz)")
+    c.add_argument("output", help="destination checkpoint path")
+    c.set_defaults(fn=_cmd_convert)
+
     b = sub.add_parser("bench", help="microbenchmarks, the quality suite and the "
                                      "single-device trainers")
     b.add_argument("--what", choices=["giant", "spmm", "banded", "locality", "quality",
-                                      "train", "post", "kway", "scaling", "hybrid"],
-                   default="giant")
+                                      "train", "post", "kway", "scaling", "hybrid", "all"],
+                   default="all",
+                   help="all = spmm, banded, train, post, in that order")
     b.add_argument("--recipe", choices=["n500", "mixed", "per_size"], default="mixed",
                    help="quality-suite training recipe (see bench/quality.py)")
     b.add_argument("--n", type=int, default=100_000,

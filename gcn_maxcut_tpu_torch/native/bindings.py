@@ -1,10 +1,11 @@
 """ctypes bindings for the native host toolkit (``native/graphtools.cpp``).
 
-Port of ``gcn_maxcut_tpu/native/bindings.py`` for the entry points the
-sharded path runs: the d-regular sampler, the receiver sort, the BFS and
-multilevel (METIS-style) partitions, the symmetry check and the two passes
-of the shard assembly.  Both packages call the same library, so their
-outputs are equal array for array.
+Port of ``gcn_maxcut_tpu/native/bindings.py``: the d-regular sampler, the
+receiver sort, the BFS and multilevel (METIS-style) partitions, the
+symmetry check, the two passes of the shard assembly and the three host
+max-cut solvers (brute force, best-improvement greedy, the sweep).  Both
+packages call the same library, so their outputs are equal array for
+array.
 
 The library is loaded from the committed ``native/libgraphtools.so``.  If
 that file does not load on this machine, ``native/graphtools.cpp`` is
@@ -12,7 +13,8 @@ compiled with ``native/Makefile``'s flags into
 ``build/native/libgraphtools.so`` at the repository root (``native/`` is
 never written).  If neither loads nor builds, every entry point raises:
 there is no silent fallback to the Python sampler, which draws other
-graphs.
+graphs.  Where a JAX entry point returns None when the library is
+unavailable, the port's raises ``RuntimeError`` instead.
 """
 
 from __future__ import annotations
@@ -46,6 +48,15 @@ _SIGNATURES = {
         ctypes.c_int64, ctypes.c_int64, _i32p, _i32p, _f32p,
         ctypes.c_int32, ctypes.c_float, ctypes.c_uint64, _i32p]),
     "gt_symmetry_check": (ctypes.c_int32, [ctypes.c_int64, _i32p, _i32p, _f32p]),
+    "gt_brute_force_maxcut": (ctypes.c_double, [
+        ctypes.c_int32, ctypes.c_int64, _i32p, _i32p, _f32p,
+        ctypes.c_int32, ctypes.c_int32, _i32p]),
+    "gt_greedy_maxcut": (ctypes.c_double, [
+        ctypes.c_int32, ctypes.c_int64, _i32p, _i32p, _f32p,
+        ctypes.c_int32, ctypes.c_int32, _i32p, ctypes.c_int64]),
+    "gt_greedy_sweep": (ctypes.c_double, [
+        ctypes.c_int32, ctypes.c_int64, _i32p, _i32p, _f32p,
+        ctypes.c_int32, ctypes.c_int32, _i32p, ctypes.c_int32, _i32p]),
     "gt_shard_counts": (ctypes.c_int64, [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, _i32p, _i32p, _i32p,
         ctypes.c_int64, _i32p, _i64p, _i64p, _i32p]),
@@ -113,6 +124,17 @@ def _ids(n: int, *arrays: np.ndarray) -> list[np.ndarray]:
     return out
 
 
+def _classes(asn: np.ndarray, n: int, k: int) -> np.ndarray:
+    """An int32 copy of a start assignment of n nodes, checked to lie in
+    [0, k): the C routines index per-class buffers with it unchecked."""
+    out = _i32(asn).copy()
+    if out.shape != (n,):
+        raise ValueError(f"the start assignment must have shape ({n},), got {out.shape}")
+    if n and (int(out.min()) < 0 or int(out.max()) >= k):
+        raise ValueError(f"classes must lie in [0, {k})")
+    return out
+
+
 def _f32_or_none(a: np.ndarray | None) -> np.ndarray | None:
     return None if a is None else np.ascontiguousarray(a, dtype=np.float32)
 
@@ -155,6 +177,60 @@ def bfs_partition_native(src: np.ndarray, dst: np.ndarray, n: int, num_shards: i
     lib.gt_bfs_partition(n, s.shape[0], _ptr(s, _i32p), _ptr(d, _i32p), num_shards,
                          _ptr(owner, _i32p))
     return owner.astype(np.int64)
+
+
+def brute_force_maxcut_native(
+    edges: np.ndarray, n: int, k: int = 3, num_fixed: int = 3,
+    weights: np.ndarray | None = None,
+) -> Tuple[np.ndarray, float]:
+    """Exhaustive k-way max-cut of the undirected ``edges`` [E, 2], nodes
+    ``0..num_fixed-1`` pinned to their own class.  Returns ``(assignment,
+    cut)``; raises ``ValueError`` when k^(n − num_fixed) is too large."""
+    lib = library()
+    src, dst = _ids(n, edges[:, 0], edges[:, 1])
+    w = _f32_or_none(weights)
+    asn = np.empty(n, dtype=np.int32)
+    val = lib.gt_brute_force_maxcut(n, src.shape[0], _ptr(src, _i32p), _ptr(dst, _i32p),
+                                    _ptr(w, _f32p), k, num_fixed, _ptr(asn, _i32p))
+    if val < 0:
+        raise ValueError("problem too large for native brute force")
+    return asn.astype(np.int64), float(val)
+
+
+def greedy_maxcut_native(
+    edges: np.ndarray, n: int, init_asn: np.ndarray, k: int = 3,
+    num_fixed: int = 3, weights: np.ndarray | None = None,
+    max_steps: int = 100_000,
+) -> Tuple[np.ndarray, float]:
+    """Best-improvement flips from ``init_asn`` (one flip per O(n·d) scan)
+    until a local optimum or ``max_steps``; returns ``(assignment, cut)``."""
+    lib = library()
+    src, dst = _ids(n, edges[:, 0], edges[:, 1])
+    w = _f32_or_none(weights)
+    asn = _classes(init_asn, n, k)
+    val = lib.gt_greedy_maxcut(n, src.shape[0], _ptr(src, _i32p), _ptr(dst, _i32p),
+                               _ptr(w, _f32p), k, num_fixed, _ptr(asn, _i32p), max_steps)
+    return asn.astype(np.int64), float(val)
+
+
+def greedy_sweep_native(
+    edges: np.ndarray, n: int, init_asn: np.ndarray, k: int = 3,
+    num_fixed: int = 3, weights: np.ndarray | None = None,
+    max_sweeps: int = 100,
+) -> Tuple[np.ndarray, float, int]:
+    """First-improvement sweeps from ``init_asn``: each sweep moves every
+    node, in index order, to its best class (later nodes see earlier
+    moves), O(E) a sweep, until no node moves or ``max_sweeps``.  Returns
+    ``(assignment, cut, sweeps_used)``."""
+    lib = library()
+    src, dst = _ids(n, edges[:, 0], edges[:, 1])
+    w = _f32_or_none(weights)
+    asn = _classes(init_asn, n, k)
+    used = np.zeros(1, dtype=np.int32)
+    val = lib.gt_greedy_sweep(n, src.shape[0], _ptr(src, _i32p), _ptr(dst, _i32p),
+                              _ptr(w, _f32p), k, num_fixed, _ptr(asn, _i32p), max_sweeps,
+                              _ptr(used, _i32p))
+    return asn.astype(np.int64), float(val), int(used[0])
 
 
 def metis_partition_native(

@@ -1191,3 +1191,47 @@ def test_cuda_timer_waits_for_the_card(cuda_device):
         for _ in range(20):
             y = y @ x * 1e-3
     assert synced.elapsed > unsynced.elapsed
+
+
+def _solver_graph(n, d, seed):
+    specs, _ = generate_graph_dataset(num_graphs=1, min_nodes=n, max_nodes=n, min_degree=d,
+                                      max_degree=d, base_seed=seed)
+    return process_graphs(specs, DataConfig(max_nodes=n)).graphs[0]
+
+
+@pytest.mark.cuda
+def test_cuda_brute_force_equals_cpu_and_native(cuda_device):
+    from gcn_maxcut_tpu_torch.baselines.exact import brute_force_maxcut
+    from gcn_maxcut_tpu_torch.native.bindings import brute_force_maxcut_native
+
+    g = _solver_graph(14, 3, 4)
+    asn, cut = brute_force_maxcut(g)
+    asn_c, cut_c = brute_force_maxcut(g.to(cuda_device), batch=1 << 16)
+    assert cut_c == cut
+    np.testing.assert_array_equal(asn_c, asn)
+    m = g.edge_mask.numpy() > 0
+    s, r = g.senders.numpy()[m], g.receivers.numpy()[m]
+    edges = np.stack([s[s < r], r[s < r]], axis=1)
+    assert brute_force_maxcut_native(edges, 14)[1] == cut
+
+
+@pytest.mark.cuda
+def test_cuda_sa_chains_equal_cpu(cuda_device):
+    """The batched SA chains and their climb on the card from the CPU's
+    draws.  A float ``exp`` differing by an ulp on a tie could flip one
+    acceptance; the best cut is then held to one edge."""
+    from gcn_maxcut_tpu_torch.baselines.exact import _sa_restart_batch_from_draws
+
+    g = _solver_graph(100, 6, 2)
+    gen = torch.Generator().manual_seed(0)
+    R, steps = 8, 500
+    draws = (torch.randint(0, 3, (R, g.n_pad), generator=gen),
+             torch.randint(3, g.n_pad, (R, steps), generator=gen),
+             torch.randint(0, 3, (R, steps), generator=gen),
+             torch.rand((R, steps), generator=gen))
+    asn, cut = _sa_restart_batch_from_draws(g, *draws, 3, 3)
+    asn_c, cut_c = _sa_restart_batch_from_draws(
+        g.to(cuda_device), *(t.to(cuda_device) for t in draws), 3, 3)
+    assert abs(float(cut_c) - float(cut)) <= 1.0
+    if float(cut_c) == float(cut):
+        assert torch.equal(asn_c.cpu(), asn)

@@ -177,3 +177,34 @@ def test_data_parallel_and_hybrid_entry_points_raise_without_cuda(monkeypatch):
     mesh = make_mesh(("data", "graph"), shape=(2, 2), devices=["cpu"] * 4)
     assert [row.devices for row in mesh.rows] == [(torch.device("cpu"),) * 2] * 2
     assert train_hybrid([coo, coo], 64, cfg, mesh=mesh)["mesh_shape"] == (2, 2)
+
+
+def test_solvers_bench_all_and_examples_raise_without_cuda(monkeypatch, tmp_path):
+    from gcn_maxcut_tpu_torch.examples import (
+        complete_training_pipeline,
+        giant_scale_pipeline,
+        neural_network_testing,
+        torch_migration,
+    )
+    from gcn_maxcut_tpu_torch.train.loop import setup_train_state
+    from gcn_maxcut_tpu_torch.train.torch_compat import save_torch_checkpoint
+
+    cfg = TrainingConfig(n_nodes=16)
+    pth = str(tmp_path / "m.pth")
+    save_torch_checkpoint(pth, setup_train_state(cfg, device="cpu").params(), config=cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["solve", "--n", "15"], ["solve", "--method", "sweep", "--n", "100"],
+                 ["bench"], ["bench", "--what", "all", "--n", "4096"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli_main(argv)
+    for run in (lambda: complete_training_pipeline.main(str(tmp_path / "p"), quick=True),
+                lambda: giant_scale_pipeline.main(N=2000),
+                lambda: neural_network_testing.main(str(tmp_path / "ck.npz"),
+                                                    str(tmp_path / "t")),
+                lambda: torch_migration.main(pth)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
+    # asked for by name, the CPU runs them
+    assert cli_main(["solve", "--n", "12", "--d", "4", "--device", "cpu"]) == 0
+    assert cli_main(["solve", "--method", "sweep", "--n", "100", "--d", "4",
+                     "--device", "cpu"]) == 0
