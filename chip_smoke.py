@@ -151,7 +151,26 @@ Phases; any failure ends the run with a non-zero exit code:
                 ms beside the variants phase's), and one DP and one hybrid
                 epoch through NCCL's all_reduce on a process group of one
                 (``multi_host_init`` on 127.0.0.1), bit for bit against
-                the same epochs without a group;
+                the same epochs without a group (the hybrid's a chunk of 3,
+                its all_reduce inside the captured graph);
+     chunks     ``epochs_per_call``: every chunked path at K = 1 and at the
+                JAX default K = 10 from one start, and at K = 10 without
+                capture (the eager epochs): the recipe (20 graphs, n = 500
+                padded to 1000, per_graph; and a run that stops at epoch 5,
+                inside a chunk), the packed (K3) and plain (K2) giant
+                trainers, the packed (K6) and plain (K5) halo trainers on 4
+                shards, the k-way trainer on config 4's banded-random graph
+                on 4 shards with hop 0 on K1 and on the sweep's expander on
+                one shard, the hybrid on 2 x 4 with hop 0 on K1; histories
+                equal to K = 1's bit for bit (within rtol 1e-3 where K1's
+                outliers sum with index_add_'s atomics), launches exactly
+                so many an epoch (captured launches times replays plus the
+                eager epoch's), each path's epoch ms over 10 more epochs
+                (CUDA events) and the busy share of the recipe and the
+                k-way ring at K = 10 and eager (``torch.profiler``); in
+                those traced chunks and in a traced packed giant run at
+                K = 10, each kernel's launches counted on the device equal
+                to the launch counters' (captured launches times replays);
   6. solvers    the classical solvers on the card: brute force at n = 16
                 (d = 3) equal on the card, the CPU and the native toolkit
                 (optimum and, card against CPU, assignment), then at n = 19
@@ -179,9 +198,13 @@ Phases; any failure ends the run with a non-zero exit code:
                 post) and the refined decode's time a graph at n = 500,
                 each beside the card's name and power limit.
 
-Each path runs with the launch counters set to 0 just before it and read
-just after.  The end of the output is the card's name and power limit, one
-JSON line of kernel numbers, and ``{"ok": true, "device": {...}}``.  Detail
+Every trainer runs its epochs in chunks (``train/chunks.py``): on the card
+one captured CUDA graph replayed an epoch at a time, with the JAX defaults
+of ``epochs_per_call`` (10 for the giant, halo and k-way sweep trainers,
+1 elsewhere) and the JAX epoch counts (whole chunks).  Each path runs with
+the launch counters set to 0 just before it and read just after.  The end
+of the output is the card's name and power limit, one JSON line of kernel
+numbers, and ``{"ok": true, "device": {...}}``.  Detail
 goes to ``chiprun_out/chip_smoke.json``.  TF32 is off for matmuls and cuDNN:
 the JAX reference computes in full float32.
 """
@@ -311,6 +334,13 @@ SOLVE_ANYTIME = ["solve", "--method", "anytime", "--n", "500", "--d", "8", "--ti
 SOLVE_SWEEP = ["solve", "--method", "sweep", "--n", "100000", "--d", "8", "--device", "cuda"]
 SA_STEPS = 20_000               # anytime_solver's sa_steps
 EXAMPLE_GIANT_N = 20_000        # giant_scale_pipeline's own N
+# the chunks phase: every chunked path at K = 1 and at the JAX default
+# K = 10 from one start (and at K = 10 without capture, the eager epochs of
+# the trainers before chunks), CHUNK_EPOCHS compared, CHUNK_TIMED more timed
+CHUNK_K = 10
+CHUNK_EPOCHS = 20
+CHUNK_TIMED = 10
+CHUNK_STOP_PATIENCE = 5         # the recipe's stopping run stops at epoch 5, inside a chunk
 BANDED_N, BANDED_BIG_N = 131_072, 1_250_304
 
 
@@ -1354,7 +1384,7 @@ def phase_giant(torch, tb, giant) -> dict:
     cut = circulant_cut(torch, res["assignment"], res["offsets"])
     m = res["n"] // 8
     log(f"  packed n={res['n']} d={res['d']} offsets {res['offsets']}: epoch "
-        f"{res['epoch_time_s'] * 1e3:.3f} ms (first {res['first_epoch_s']:.3f} s), "
+        f"{res['epoch_time_s'] * 1e3:.3f} ms (first chunk {res['first_chunk_s']:.3f} s), "
         f"{res['edges_per_s_per_epoch']:.4g} edges/s, cut fraction {res['cut_fraction']:.5f} "
         f"(decoded {cut / res['edges']:.5f}), peak {peak_gb:.2f} GB, launches {launches}")
     check(launches["banded_spmm_unit_packed"] == 6 * GIANT_EPOCHS + 2,
@@ -1371,14 +1401,17 @@ def phase_giant(torch, tb, giant) -> dict:
     tb.reset_launches()
     plain = giant.train_banded_giant(n=PLAIN_N, epochs=PLAIN_EPOCHS, device="cuda")
     plain_launches = dict(tb.LAUNCHES)
+    # two whole chunks of 10, as the JAX trainer runs 10 epochs
+    check(plain["epochs"] == len(plain["history"]) == 2 * PLAIN_EPOCHS,
+          "the plain trainer runs two chunks")
     log(f"  plain n={plain['n']}: epoch {plain['epoch_time_s'] * 1e3:.3f} ms, cut "
         f"{plain['initial_cut']:.0f} -> {plain['final_cut']:.0f} "
         f"(fraction {plain['cut_fraction']:.5f}), launches {plain_launches}")
     # an epoch: conv1's F = 16 sum forward and backward on halo_stream.cu;
     # conv2's and the loss's F = 3 sums forward and backward on the earlier body
-    check(plain_launches["banded_spmm_unit"] == 2 * PLAIN_EPOCHS,
+    check(plain_launches["banded_spmm_unit"] == 2 * plain["epochs"],
           "K2 launched halo_stream.cu 2 times an epoch (F = 16)")
-    check(plain_launches["banded_spmm_unit_window"] == 4 * PLAIN_EPOCHS,
+    check(plain_launches["banded_spmm_unit_window"] == 4 * plain["epochs"],
           "K2 launched the earlier body 4 times an epoch (F = 3)")
     check(all(v == 0 for k, v in plain_launches.items()
               if k not in ("banded_spmm_unit", "banded_spmm_unit_window")),
@@ -1444,7 +1477,8 @@ def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> 
     """The node-sharded trainers on a ring of 4 shards on the card."""
     log("== halo")
     ring = make_mesh(devices=["cuda:0"] * HALO_SHARDS)
-    small = tgb.PackedHaloGiantConfig(bandwidth=31, epochs=4, agg_dtype=None, mu_dtype=None)
+    small = tgb.PackedHaloGiantConfig(bandwidth=31, epochs=4, epochs_per_call=2, agg_dtype=None,
+                                      mu_dtype=None)
     p0 = giant.packed_params(4096, seed=0, device="cpu")
     on_card = tgb.train_halo_giant_packed(1024, small, ring, params=p0, return_assignment=True)
     on_cpu = tgb.train_halo_giant_packed(1024, small, make_mesh(devices=["cpu"] * HALO_SHARDS),
@@ -1456,8 +1490,9 @@ def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> 
                                torch.tensor(on_cpu["history"]), rtol=1e-3, atol=0)
     check(agree >= 0.999, "small packed halo run: card and CPU assignments agree")
     one = tgb.train_halo_giant_packed(4096, small, make_mesh(devices=["cuda:0"]), params=p0)
-    single = giant.train_banded_giant_packed(n=4096, bandwidth=31, epochs=4, agg_dtype=None,
-                                             mu_dtype=None, params=p0, device="cuda")
+    single = giant.train_banded_giant_packed(n=4096, bandwidth=31, epochs=4, epochs_per_call=2,
+                                             agg_dtype=None, mu_dtype=None, params=p0,
+                                             device="cuda")
     one_rel = max(abs(a - b) / abs(b) for a, b in zip(one["history"], single["history"]))
     log(f"  1-shard ring vs the single-chip packed trainer: history {one['history']} vs "
         f"{single['history']}, largest relative difference {one_rel:.3g}")
@@ -1474,7 +1509,7 @@ def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> 
     cut = circulant_cut(torch, res["assignment"], res["offsets"])
     m = res["n"] // 8
     log(f"  packed halo n={res['n']} on {res['num_devices']} shards: epoch "
-        f"{res['epoch_time_s'] * 1e3:.3f} ms (first {res['first_epoch_s']:.3f} s), "
+        f"{res['epoch_time_s'] * 1e3:.3f} ms (first chunk {res['first_chunk_s']:.3f} s), "
         f"{res['edges_per_s_per_epoch']:.4g} edges/s, cut fraction {res['cut_fraction']:.5f} "
         f"(decoded {cut / res['edges']:.5f}; single-chip {single_fraction:.5f}), peak "
         f"{peak_gb:.2f} GB, launches {launches}")
@@ -2068,7 +2103,7 @@ def phase_hybrid(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, th
     for _ in range(HYBRID_DUP_EPOCHS):
         g_loss.append(float(tgiant._epoch(gstate, sg_ring, ring, dup_cfg)))
         mean, per_graph = step()
-        h_loss.append(float(mean))
+        h_loss.append(float(mean[0]))
         check(per_graph[0].item() == per_graph[1].item(), "both copies have one loss")
     copies = [torch.stack([e.detach() for e in hstate.embeds[i * D:(i + 1) * D]]) for i in (0, 1)]
     conv_err = max(float((a.detach() - b.detach()).abs().max())
@@ -2232,14 +2267,19 @@ def phase_dp(torch, np, counters, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
                            np.concatenate([e[:, 1], e[:, 0]]), HYBRID_SMALL_N, 4)[0]
     sgb = thybrid.stack_sharded_graphs([sg, sg])
     hmesh = make_mesh(("data", "graph"), shape=(2, 4), devices=["cuda:0"] * 8)
-    hcfg = tgiant.GiantConfig()
+    hcfg = tgiant.GiantConfig(epochs_per_call=3)
 
     def one_epoch_each():
+        # the hybrid chunk of 3: an eager epoch, then two replays of the
+        # captured epoch, its all_reduce inside the graph
         losses, st = dp_run(small_batch, small, mesh, 1, start, "cuda")
         hstate = hybrid_state(np, tgiant, thybrid, locality_params, sgb, hmesh, hcfg)
-        mean, per_graph = thybrid.make_hybrid_step(sgb, hmesh, hcfg, hstate)()
+        step = thybrid.make_hybrid_step(sgb, hmesh, hcfg, hstate)
+        mean, per_graph = step()
+        check(step.runner.replays == 2, "the hybrid chunk replayed its captured epoch")
         return ([torch.tensor(losses), *[p.detach().cpu() for p in st.optimizer.params],
-                 mean.cpu(), per_graph.cpu(), *[p.detach().cpu() for p in hstate.leaves()]])
+                 torch.from_numpy(mean), per_graph.cpu(),
+                 *[p.detach().cpu() for p in hstate.leaves()]])
 
     plain = one_epoch_each()
     port = free_port()
@@ -2251,12 +2291,343 @@ def phase_dp(torch, np, counters, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
         dist.destroy_process_group()
     check(len(grouped) == len(plain) and all(torch.equal(a, b) for a, b in zip(plain, grouped)),
           "NCCL's all_reduce path on a world of one equals the run without a group, bit for bit")
-    log(f"  NCCL world of one (127.0.0.1:{port}): one DP and one hybrid epoch bit-equal to "
-        f"the runs without a group ({len(plain)} tensors)")
+    log(f"  NCCL world of one (127.0.0.1:{port}): one DP epoch and a captured hybrid chunk of "
+        f"3 epochs bit-equal to the runs without a group ({len(plain)} tensors)")
     return {"card_vs_cpu_max_rel_diff": rel, "epoch_ms": epoch_ms, "epochs": RECIPE_EPOCHS,
             "first_loss": losses[0], "final_loss": losses[-1], "best_loss": min(losses),
             "launches": launches, "held_out": {"refined": refined, "randomized_10k": randomized},
             "nccl_world_of_one_bit_equal": True, "card": card}
+
+
+def epochs_ms(torch, run, K: int, epochs: int) -> float:
+    """ms an epoch of the chunk callable ``run`` (k epochs a call, each
+    chunk ending in its host read): CUDA events around epochs // K chunks."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(epochs // K):
+        run(K)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (epochs // K * K)
+
+
+# launch counter -> the device function its wrapper launches, once a call
+DEVICE_KERNEL = {
+    "block_ell_spmm": "block_ell_gather_kernel",
+    "banded_spmm_unit": "halo_stream_kernel",
+    "banded_spmm_unit_packed": "halo_stream_kernel",
+    "halo_banded_spmm": "halo_stream_kernel",
+    "halo_banded_spmm_unit_packed": "halo_stream_kernel",
+    "banded_spmm_unit_window": "banded_window_kernel",
+    "halo_banded_spmm_window": "banded_window_kernel",
+}
+
+
+def traced_launches(torch, counters, what: str, fn):
+    """``fn()`` under ``torch.profiler``; returns the trace and each
+    hand-written kernel's launches in it, the device's own count, beside
+    what the launch counters gained over the same call (a replay's as the
+    launches seen in capture times the replays).  Fails unless they agree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    reset_all(counters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counted = {}
+    for name, v in all_launches(counters).items():
+        if v:
+            check(name in DEVICE_KERNEL, f"{what}: {name}'s device function is known")
+            counted[DEVICE_KERNEL[name]] = counted.get(DEVICE_KERNEL[name], 0) + v
+    traced = dict.fromkeys(set(DEVICE_KERNEL.values()), 0)
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            for sym in traced:
+                if sym in e.key:
+                    traced[sym] += e.count
+    traced = {k: v for k, v in traced.items() if v}
+    log(f"  {what}: launches traced on the device {traced}, counted {counted}")
+    check(traced == counted, f"{what}: the counted launches equal the traced ones")
+    return prof, {"traced": traced, "counted": counted}
+
+
+def busy_share(torch, counters, what: str, run, K: int, epochs: int) -> dict:
+    """The device's busy share over epochs // K chunks: the device time of
+    the kernels and copies ``torch.profiler`` traces, over the host-clock
+    wall time of the same chunks run without the profiler (one stream, so
+    device events do not overlap).  None where the trace has no device
+    time.  The traced chunks' kernel launches are held against the counters
+    (``traced_launches``)."""
+    def device_us(evt) -> float:
+        if not str(evt.device_type).endswith("CUDA"):
+            return 0.0
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, name):
+                return float(getattr(evt, name))
+        return 0.0
+
+    def chunks():
+        for _ in range(epochs // K):
+            run(K)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof, launches = traced_launches(torch, counters, what, chunks)
+    dev = sum(device_us(e) for e in prof.key_averages())
+    ms = wall * 1e3 / (epochs // K * K)
+    return {"busy_share": dev / 1e6 / wall if dev > 0 else None, "wall_ms_per_epoch": ms,
+            "device_ms_per_epoch": dev / 1e3 / (epochs // K * K), "launches": launches}
+
+
+class eager_chunks:
+    """Inside the context, ``module.ChunkRunner`` runs its chunks without
+    capture: the trainers' eager epochs, for the comparison on the card."""
+
+    def __init__(self, module, on: bool = True):
+        self.module, self.on = module, on
+
+    def __enter__(self):
+        import functools
+
+        self.orig = self.module.ChunkRunner
+        if self.on:
+            self.module.ChunkRunner = functools.partial(self.orig, capture=False)
+
+    def __exit__(self, *exc):
+        self.module.ChunkRunner = self.orig
+
+
+RUNS = (("k1", 1, None), ("k10", CHUNK_K, None), ("eager", CHUNK_K, False))
+
+
+def chunk_runs(torch, np, counters, make_run) -> dict:
+    """``make_run(K, capture)`` -> a chunk callable (k -> the k losses) on a
+    fresh state from one start.  For K = 1, K = 10 and K = 10 eager: the
+    first CHUNK_EPOCHS losses and the launches they made, then the ms an
+    epoch of CHUNK_TIMED more (CUDA events)."""
+    out = {}
+    for name, K, capture in RUNS:
+        run = make_run(K, capture)
+        reset_all(counters)
+        hist = np.concatenate([run(K) for _ in range(CHUNK_EPOCHS // K)])
+        out[name] = {"history": [float(v) for v in hist], "launches": all_launches(counters),
+                     "epoch_ms": epochs_ms(torch, run, K, CHUNK_TIMED),
+                     "replays": getattr(getattr(run, "runner", None), "replays", None)}
+        del run
+        torch.cuda.empty_cache()
+    return out
+
+
+def trainer_runs(torch, counters, module, call) -> dict:
+    """``call(K)`` -> a trainer's result (``history``, ``epoch_time_s``: its
+    steady chunks on CUDA events) for K = 1, K = 10 and K = 10 with
+    ``module``'s chunks run eagerly."""
+    out = {}
+    for name, K, capture in RUNS:
+        with eager_chunks(module, capture is False):
+            reset_all(counters)
+            res = call(K)
+        out[name] = {"history": [float(v) for v in res["history"]],
+                     "launches": all_launches(counters), "epochs": res["epochs"],
+                     "epoch_ms": res["epoch_time_s"] * 1e3}
+        torch.cuda.empty_cache()
+    return out
+
+
+def held_equal(name: str, runs: dict, per_epoch: dict, exact: bool, rtol: float = 1e-3) -> dict:
+    """K = 10 (and the eager run) against K = 1: the histories bit for bit
+    where ``exact``, else within ``rtol``; each run's launches exactly
+    ``per_epoch`` (kernel -> launches an epoch) times its epochs, and no
+    other kernel."""
+    ref = runs["k1"]["history"]
+    same = {k: r["history"] == ref for k, r in runs.items()}
+    rel = {k: max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(r["history"], ref))
+           for k, r in runs.items()}
+    log(f"  {name}: epoch ms K=1 {runs['k1']['epoch_ms']:.3f}, K={CHUNK_K} "
+        f"{runs['k10']['epoch_ms']:.3f}, eager {runs['eager']['epoch_ms']:.3f}; histories equal "
+        f"to K=1 {same} (largest relative difference {rel}); launches "
+        f"{ {k: {n: v for n, v in r['launches'].items() if v} for k, r in runs.items()} }")
+    for k, r in runs.items():
+        check(len(r["history"]) == len(ref), f"{name}: {k} ran {len(ref)} epochs")
+        if exact:
+            check(same[k], f"{name}: {k}'s history equals K=1's bit for bit")
+        else:
+            check(rel[k] <= rtol, f"{name}: {k}'s history within rtol {rtol} of K=1's")
+        epochs = len(r["history"])
+        check(all(r["launches"].get(n, 0) == v * epochs for n, v in per_epoch.items())
+              and all(v == 0 for n, v in r["launches"].items() if n not in per_epoch),
+              f"{name}: {k}'s launches exactly {per_epoch} an epoch, no other kernel")
+    return {k: {kk: vv for kk, vv in r.items() if kk != "history"} | {
+        "history_equal_to_k1": same[k], "max_rel_diff_to_k1": rel[k]} for k, r in runs.items()}
+
+
+def phase_chunks(torch, np, counters, giant, tgiant, tgb, thybrid, tpart, make_mesh, micro,
+                 locality_params, random_regular_edges) -> dict:
+    """``epochs_per_call`` on the card: each chunked path at K = 1 and at
+    K = 10 (and eagerly) from one start, held equal, launches counted
+    exactly (captured launches times replays plus the eager epoch's), the
+    epoch ms of each, and the busy share of the recipe and the k-way ring."""
+    from gcn_maxcut_tpu_torch.core.graph import pad_graph_batch
+    from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset
+    from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+    from gcn_maxcut_tpu_torch.train import loop as tloop
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+    from gcn_maxcut_tpu_torch.train.config import TrainingConfig
+
+    log("== chunks")
+    card = card_line()
+    out = {"card": card}
+    t0 = time.perf_counter()
+
+    # 1. the recipe: 20 graphs n = 500 padded to 1000, GCNSoftmax 1000-500-3, per_graph
+    specs, _ = generate_graph_dataset(20, 500, 500, 6, 8, base_seed=1000)
+    ds = process_graphs(specs, DataConfig(max_nodes=1000))
+    batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
+    cfg = TrainingConfig(n_nodes=1000, learning_rate=1e-3, seed=1000,
+                         number_epochs=CHUNK_EPOCHS)
+    start = tloop.setup_train_state(cfg, 20, device="cpu").params()
+    recipe = {}
+    for name, kw in (("full", {}), ("stop", dict(patience=CHUNK_STOP_PATIENCE, tolerance=1e9))):
+        res = {}
+        for K in (1, CHUNK_K):
+            c = TrainingConfig(**{**dataclasses.asdict(cfg), **kw, "epochs_per_call": K})
+            res[K] = tloop.train_model(batch, c, state=tloop.setup_train_state(
+                c, 20, params=start, device="cuda"))
+        a, b = res[1], res[CHUNK_K]
+        same = (a[4] == b[4] and a[1] == b[1] and a[2] == b[2]
+                and all(torch.equal(a[0][k][n], b[0][k][n])
+                        for k in ("conv1", "conv2") for n in ("w", "b")))
+        log(f"  recipe {name}: K=1 and K={CHUNK_K} ran {len(a[4])} and {len(b[4])} epochs "
+            f"(final epoch {a[2]}, {b[2]}), best loss {a[1]:.1f}, {b[1]:.1f}; history, best "
+            f"loss and best parameters equal: {same}")
+        check(same, f"recipe {name}: K={CHUNK_K} equals K=1 bit for bit")
+        recipe[name] = {"final_epoch": a[2], "best_loss": a[1], "epochs": len(a[4])}
+    check(recipe["stop"]["final_epoch"] == CHUNK_STOP_PATIENCE,
+          "the stopping run stops inside the first chunk")
+
+    def recipe_run(K, capture):
+        state = tloop.setup_train_state(cfg, 20, params=start, device="cuda")
+        es = tloop.init_early_stop_state(state.params())
+        gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+        runner = ChunkRunner(tloop.make_monitored_epoch_fn(
+            state, tloop.epoch_inputs(batch.to("cuda"), cfg), es, gen), ["cuda"], K, capture)
+
+        def run(k):
+            return runner.run(k)[0]
+
+        run.runner = runner
+        return run
+
+    runs = chunk_runs(torch, np, counters, recipe_run)
+    out["recipe"] = held_equal("recipe (per_graph, 20 graphs, 1000-wide)", runs, {}, True)
+    busy = {}
+    for name, K, capture in RUNS[1:]:
+        run = recipe_run(K, capture)
+        run(K)
+        busy[name] = busy_share(torch, counters, f"recipe {name}", run, K, CHUNK_K)
+    log(f"  recipe busy share: {busy}")
+    out["recipe"] = {**out["recipe"], "runs": recipe, "busy": busy}
+
+    # 2. the single-chip giant trainers: packed (K3) and plain (K2)
+    runs = trainer_runs(torch, counters, giant, lambda K: giant.train_banded_giant_packed(
+        epochs=CHUNK_EPOCHS, epochs_per_call=K, device="cuda"))
+    out["giant_packed"] = held_equal(f"packed giant n={GIANT_N}", runs,
+                                     {"banded_spmm_unit_packed": 6}, True)
+    out["giant_packed"]["traced_launches"] = traced_launches(
+        torch, counters, f"packed giant K={CHUNK_K}", lambda: giant.train_banded_giant_packed(
+            epochs=CHUNK_EPOCHS, epochs_per_call=CHUNK_K, device="cuda"))[1]
+    runs = trainer_runs(torch, counters, giant, lambda K: giant.train_banded_giant(
+        n=PLAIN_N, epochs=CHUNK_EPOCHS, epochs_per_call=K, device="cuda"))
+    out["giant_plain"] = held_equal(f"plain giant n={PLAIN_N}", runs,
+                                    {"banded_spmm_unit": 2, "banded_spmm_unit_window": 4}, True)
+
+    # 3. the halo trainers on a 4-shard ring of the card (K6; K5)
+    ring = make_mesh(devices=["cuda:0"] * HALO_SHARDS)
+    runs = trainer_runs(torch, counters, giant, lambda K: tgb.train_halo_giant_packed(
+        HALO_PACKED_SHARD, tgb.PackedHaloGiantConfig(epochs=CHUNK_EPOCHS, epochs_per_call=K),
+        ring))
+    out["halo_packed"] = held_equal(f"packed halo, {HALO_SHARDS} shards", runs,
+                                    {"halo_banded_spmm_unit_packed": 6 * HALO_SHARDS}, True)
+    runs = trainer_runs(torch, counters, giant, lambda K: tgb.train_halo_giant(
+        HALO_PLAIN_SHARD, tgb.HaloGiantConfig(epochs=CHUNK_EPOCHS, epochs_per_call=K), ring))
+    out["halo_plain"] = held_equal(f"plain halo, {HALO_SHARDS} shards", runs,
+                                   {"halo_banded_spmm": 4 * HALO_SHARDS,
+                                    "halo_banded_spmm_window": 2 * HALO_SHARDS}, True)
+
+    # 4. the k-way trainer: config 4's banded-random graph on a 4-shard ring,
+    #    hop 0 on K1, and the sweep's expander on one shard
+    def giant_path(sg, mesh, base):
+        def make(K, capture):
+            params = locality_params(mesh.size * sg.n_shard, base.dim_embedding,
+                                     base.hidden_dim, base.num_classes, base.seed)
+            params["embed"] = params["embed"].reshape(mesh.size, sg.n_shard, -1)
+            state = tgiant.GiantState.create(params, mesh, base.learning_rate)
+            with eager_chunks(tgiant, capture is False):
+                return tgiant.make_giant_step(
+                    sg, mesh, dataclasses.replace(base, epochs_per_call=K), state)
+        return make
+
+    e = micro.banded_random_edges(KWAY_N, KWAY_D, 255, 0)
+    src, dst = np.concatenate([e[:, 0], e[:, 1]]), np.concatenate([e[:, 1], e[:, 0]])
+    kring = make_mesh(devices=["cuda:0"] * KWAY_SHARDS)
+    sg = tpart.shard_graph(src, dst, KWAY_N, KWAY_SHARDS, local_reorder="rcm",
+                           block_ell=True)[0].to(kring)
+    check(sg.bell_senders is not None, "a hop-0 plan on every shard of the k-way ring")
+    base = tgiant.GiantConfig(block_ell=True, local_reorder="rcm")
+    make = giant_path(sg, kring, base)
+    runs = chunk_runs(torch, np, counters, make)
+    # K1 sums its outliers with index_add_ (atomic float adds): no bit equality
+    out["kway_ring"] = held_equal(f"k-way ring, banded-random n={KWAY_N}, {KWAY_SHARDS} shards, "
+                                  "hop 0 on K1", runs, {"block_ell_spmm": 6 * KWAY_SHARDS}, False)
+    busy = {}
+    for name, K, capture in RUNS[1:]:
+        run = make(K, capture)
+        run(K)
+        busy[name] = busy_share(torch, counters, f"k-way ring {name}", run, K, CHUNK_K)
+    log(f"  k-way ring busy share: {busy}")
+    out["kway_ring"]["busy"] = busy
+    e = random_regular_edges(KWAY_N, KWAY_D, seed=0)
+    one = make_mesh(devices=["cuda:0"])
+    sg = tpart.shard_graph(np.concatenate([e[:, 0], e[:, 1]]),
+                           np.concatenate([e[:, 1], e[:, 0]]), KWAY_N, 1)[0].to(one)
+    runs = chunk_runs(torch, np, counters, giant_path(sg, one, tgiant.GiantConfig()))
+    out["kway_one_shard"] = held_equal(f"k-way, expander n={KWAY_N}, one shard", runs, {}, True)
+
+    # 5. the hybrid trainer: two banded-random graphs on a 2 x 4 mesh, hop 0 on K1
+    R, D = HYBRID_SHAPE
+    mesh = make_mesh(("data", "graph"), shape=HYBRID_SHAPE, devices=["cuda:0"] * (R * D))
+    lists = []
+    for seed in (0, 1):
+        e = micro.banded_random_edges(KWAY_N, KWAY_D, 255, seed)
+        lists.append((np.concatenate([e[:, 0], e[:, 1]]), np.concatenate([e[:, 1], e[:, 0]])))
+    sgb = thybrid.stack_sharded_graphs([
+        tpart.shard_graph(s, r, KWAY_N, D, local_reorder="rcm", block_ell=True)[0]
+        for s, r in lists])
+
+    def hybrid_run(K, capture):
+        cfg = tgiant.GiantConfig(block_ell=True, local_reorder="rcm", epochs_per_call=K)
+        state = hybrid_state(np, tgiant, thybrid, locality_params, sgb, mesh, cfg)
+        with eager_chunks(thybrid, capture is False):
+            step = thybrid.make_hybrid_step(sgb, mesh, cfg, state)
+
+        def run(k):
+            return step(k)[0]
+
+        run.runner = step.runner
+        return run
+
+    runs = chunk_runs(torch, np, counters, hybrid_run)
+    out["hybrid"] = held_equal(f"hybrid, 2 banded-random graphs on {R} x {D}", runs,
+                               {"block_ell_spmm": 6 * R * D}, False)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  chunks phase {out['seconds']:.1f} s; card: {card}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def cli_lines(cli_main, argv: list) -> dict:
@@ -2572,6 +2943,9 @@ def main() -> int:
     report["dp"] = phase_dp(torch, np, (tbell, tb, th, tpk), make_mesh, tdp, tloop, tgiant,
                             thybrid, tpart, loc.locality_params, random_regular_edges,
                             report["variants"])
+    report["chunks"] = phase_chunks(torch, np, (tbell, tb, th, tpk), giant, tgiant, tgb, thybrid,
+                                    tpart, make_mesh, micro, loc.locality_params,
+                                    random_regular_edges)
     report["solvers"] = phase_solvers(torch, np, (tbell, tb, th, tpk), cli_main,
                                       report["recipe"]["final_checkpoint"])
     report["microbench"] = phase_microbench((tbell, tb, th, tpk), cli_main)

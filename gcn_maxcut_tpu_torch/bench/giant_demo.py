@@ -24,10 +24,13 @@ and resumes checkpoints in the JAX package's layout (``train/checkpoint.py``;
 the Adam state as optax's ``{"0": {".count", ".mu", ".nu"}}``), so a run of
 either package resumes in the other.
 
-Epoch time is the mean over the epochs after the first (which includes the
-kernel build and warm-up), from CUDA events on the card and the host clock
-on the CPU; checkpoint writes fall outside the timed stretches and are
-timed on their own.
+Epochs run in chunks of ``epochs_per_call`` (10, the JAX default;
+``train/chunks.py``: one captured CUDA graph replayed on the card), with
+the JAX trainers' epoch count: whole chunks, and at least two in a fresh
+run.  Epoch time is the mean over the chunks after the first (which
+includes the kernel build and the capture), from CUDA events on the card
+and the host clock on the CPU; checkpoint writes fall outside the timed
+stretches and are timed on their own.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from gcn_maxcut_tpu_torch.models.gcn import gcn_conv_init
 from gcn_maxcut_tpu_torch.ops.banded import banded_spmm_unit, banded_spmm_unit_packed
 from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
 from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner, chunk_sizes
 from gcn_maxcut_tpu_torch.train.optim import Adam
 
 G = 16  # lane-group width of the packed layout (classes padded to it)
@@ -155,42 +159,44 @@ def _seconds(fn: Callable[[], None], devices: Sequence[torch.device]) -> float:
 def _train(
     loss_fn: Callable[[], torch.Tensor],
     leaves: List[torch.Tensor],
-    epochs: int,
     optimizer: Adam,
     devices: Sequence[torch.device],
-    pause_at: Sequence[int] = (),
-    on_pause: Callable[[int, List[float]], None] | None = None,
+    chunks: Sequence[int],
+    on_chunk: Callable[[int, List[float]], None] | None = None,
 ) -> tuple[List[float], float, float]:
-    """Run ``epochs`` Adam steps on ``leaves``; returns (loss history,
-    first-epoch seconds, mean seconds of the later epochs, or the first
-    epoch's when it is the only one).  The loss lives on ``devices[0]``;
-    every device is synchronised before a time is read.  After each epoch
-    count in ``pause_at`` (counted from 1), ``on_pause(count, history so
-    far)`` runs outside the timed stretches."""
+    """Adam steps on ``leaves`` in chunks of ``chunks[i]`` epochs
+    (``train/chunks.py``: one CUDA graph replayed on the card); returns
+    (loss history, the first chunk's seconds, the mean seconds an epoch of
+    the later chunks, or of the first when it is the only one).  The first
+    chunk pays the kernels' build and the capture, on the host clock; the
+    later ones are timed with CUDA events on the card.  The loss lives on
+    ``devices[0]``; every device is synchronised before a time is read.
+    After each chunk but the last, ``on_chunk(epochs done in this call,
+    history so far)`` runs outside the timed stretches."""
 
     def step() -> torch.Tensor:
         loss = loss_fn()
         optimizer.step(torch.autograd.grad(loss, leaves))
         return loss.detach()
 
-    def history() -> List[float]:
-        return [float(v) for v in torch.stack(losses).cpu()]
+    runner = ChunkRunner(step, devices, max(chunks), optimizer=optimizer)
+    history: List[float] = []
+
+    def run(k: int) -> None:
+        history.extend(float(v) for v in runner.run(k)[0])
 
     t0 = time.perf_counter()
-    losses = [step()]
+    run(chunks[0])
     _synchronize(devices)
     first = time.perf_counter() - t0
-    stops = sorted({e for e in pause_at if 1 <= e < epochs} | {epochs})
-    done, timed = 1, 0.0
-    for stop in stops:
-        if done in pause_at and on_pause is not None:
-            on_pause(done, history())
-        if stop > done:
-            timed += _seconds(lambda: losses.extend(step() for _ in range(stop - done)),
-                              devices)
-            done = stop
-    steady = timed / (epochs - 1) if epochs > 1 else first
-    return history(), first, steady
+    done, timed = chunks[0], 0.0
+    for k in chunks[1:]:
+        if on_chunk is not None:
+            on_chunk(done, history)
+        timed += _seconds(lambda: run(k), devices)
+        done += k
+    steady = timed / (done - chunks[0]) if len(chunks) > 1 else first / chunks[0]
+    return history, first, steady
 
 
 def _tree(leaves: Sequence[torch.Tensor]) -> Dict[str, Any]:
@@ -214,9 +220,7 @@ def _resume(path: str, params: Dict[str, Any], optimizer: Adam) -> tuple[int, Li
     for t, v in zip(_leaves(params), _leaves(loaded)):
         t.copy_(v)
     state = opt["0"]
-    optimizer.count = int(state[".count"])
-    optimizer.mu = _leaves(state[".mu"])
-    optimizer.nu = _leaves(state[".nu"])
+    optimizer.load(int(state[".count"]), _leaves(state[".mu"]), _leaves(state[".nu"]))
     return int(meta["epoch"]), list(meta["loss_history"])
 
 
@@ -228,7 +232,7 @@ def _result(n, d, epochs, history, first, steady, layout, offsets):
         "d": d,
         "edges": e_undirected,
         "epochs": epochs,
-        "first_epoch_s": first,
+        "first_chunk_s": first,
         "epoch_time_s": steady,
         "edges_per_s_per_epoch": n * d / steady,
         "initial_cut": -history[0],
@@ -248,6 +252,7 @@ def train_banded_giant(
     num_classes: int = 3,
     learning_rate: float = 1e-3,
     epochs: int = 50,
+    epochs_per_call: int = 10,
     bandwidth: int = 63,
     seed: int = 0,
     params: Dict[str, Any] | None = None,
@@ -256,7 +261,9 @@ def train_banded_giant(
     """Two-layer banded GCN in node order (the kernel at r = 1); returns the
     cut and the epoch throughput.  ``params``: ``{"conv1": {"w": [emb,
     hidden], "b"}, "conv2": {"w": [hidden, classes], "b"}, "embed": [n,
-    emb]}``."""
+    emb]}``.  Epochs run in chunks of ``epochs_per_call`` as in the JAX
+    trainer: ``epochs`` rounds up to whole chunks, and at least two run,
+    the second the first timed one."""
     dev = resolve_device(device)
     offsets = circulant_offsets(d, bandwidth, seed)
     e_undirected = n * d // 2
@@ -285,9 +292,10 @@ def train_banded_giant(
         return -(e_undirected - 0.5 * same)
 
     optimizer = Adam(_leaves(params), learning_rate)
+    chunks = chunk_sizes(0, epochs, epochs_per_call, first_two=True)
     history, first, steady = _train(
-        lambda: loss_fn(params), _leaves(params), epochs, optimizer, [dev])
-    return _result(n, d, epochs, history, first, steady, "plain", offsets)
+        lambda: loss_fn(params), _leaves(params), optimizer, [dev], chunks)
+    return _result(n, d, sum(chunks), history, first, steady, "plain", offsets)
 
 
 def train_banded_giant_packed(
@@ -298,6 +306,7 @@ def train_banded_giant_packed(
     num_classes: int = 3,
     learning_rate: float = 1e-3,
     epochs: int = 50,
+    epochs_per_call: int = 10,
     bandwidth: int = 63,
     r: int = 8,
     seed: int = 0,
@@ -324,18 +333,23 @@ def train_banded_giant_packed(
     ``return_assignment`` adds the decoded class of every node, in node
     order.
 
+    Epochs run in chunks of ``epochs_per_call`` as in the JAX trainer:
+    ``epochs`` rounds up to whole chunks, and a fresh run runs at least
+    two, the second the first timed one.
+
     ``checkpoint_path``: write the parameters, the Adam state (the first
     moment in ``mu_dtype``, stored as float32) and the loss history there
-    after every ``checkpoint_every``-th epoch short of ``epochs`` (epochs,
-    not the JAX package's chunks: this trainer steps eagerly) and at the
-    end, each time over the same file; ``meta["epoch"]`` is the count of
-    epochs done.  ``checkpoint_writes`` lists each write's epoch, seconds
-    and bytes.  ``resume_from``: continue from such a checkpoint (of either
-    package; ``resume_s`` is the load's seconds) and train exactly to
-    ``epochs``; raises when the checkpoint is already at or past
-    ``epochs``.  The history then starts with the checkpoint's, and the
-    epoch time is that of the epochs this call ran: the first epoch's own
-    when it ran only one.
+    after every chunk whose epoch count is a multiple of
+    ``checkpoint_every`` rounded down to whole chunks (at least one),
+    short of ``epochs``, and at the end, each time over the same file;
+    ``meta["epoch"]`` is the count of epochs done.  ``checkpoint_writes``
+    lists each write's epoch, seconds and bytes.  ``resume_from``:
+    continue from such a checkpoint (of either package; ``resume_s`` is
+    the load's seconds) in whole chunks to ``epochs``; raises when the
+    checkpoint is already at or past ``epochs``.  The history then starts
+    with the checkpoint's, and the epoch time is that of the epochs this
+    call ran: the first chunk's own when it ran only one (the JAX trainer
+    then reports a near-zero time).
     """
     if hidden_dim != G or dim_embedding % G:
         raise ValueError("packed trainer expects hidden_dim=16, emb % 16 == 0")
@@ -402,13 +416,18 @@ def train_banded_giant_packed(
         writes.append({"epoch": done, "seconds": time.perf_counter() - t0,
                        "bytes": path.stat().st_size})
 
-    pause_at = ()
-    if checkpoint_path is not None and checkpoint_every:
-        pause_at = [e - start for e in range(start + 1, epochs) if e % checkpoint_every == 0]
+    chunks = chunk_sizes(start, epochs, epochs_per_call, first_two=start == 0)
+    every = max(chunks[0], checkpoint_every // chunks[0] * chunks[0]) if checkpoint_every else 0
+
+    def on_chunk(done: int, hist: List[float]) -> None:
+        if checkpoint_path is not None and every and (start + done) % every == 0 \
+                and start + done < epochs:
+            save(start + done, history + hist)
+
     new, first, steady = _train(
-        lambda: loss_fn(params), _leaves(params), epochs - start, optimizer, [dev],
-        pause_at, lambda done, hist: save(start + done, history + hist))
+        lambda: loss_fn(params), _leaves(params), optimizer, [dev], chunks, on_chunk)
     history += new
+    epochs = start + sum(chunks)
     if checkpoint_path is not None:
         save(epochs, history)
     res = _result(n, d, epochs, history, first, steady, "packed", offsets)

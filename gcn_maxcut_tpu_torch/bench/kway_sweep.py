@@ -30,6 +30,7 @@ def kway_sweep(
     d: int = 8,
     ks: Sequence[int] = (3, 4, 5, 6, 7, 8),
     epochs: int = 60,
+    epochs_per_call: int = 10,
     dim_embedding: int = 128,
     hidden_dim: int = 64,
     learning_rate: float = 1e-3,
@@ -43,7 +44,8 @@ def kway_sweep(
 
     Each entry: ``k``, ``final_cut``, ``cut_fraction`` (of the edges),
     ``random_fraction`` ((k − 1)/k), ``edges_per_s`` and the amortized
-    timing keys (``train_giant_graph(measure_throughput=True)``),
+    timing keys (``train_giant_graph(measure_throughput=True)``; epochs in
+    chunks of ``epochs_per_call``, rounded up to whole chunks),
     ``train_time_s``, the partition and assembly seconds.  ``mesh``:
     default every CUDA device (raises without CUDA), or one shard on
     ``device`` when one is named.  ``block_ell`` implies the per-shard RCM relabel; the
@@ -65,6 +67,7 @@ def kway_sweep(
             hidden_dim=hidden_dim,
             learning_rate=learning_rate,
             number_epochs=epochs,
+            epochs_per_call=epochs_per_call,
             seed=seed,
             log_every=max(1, epochs // 4),
             partition=partition,

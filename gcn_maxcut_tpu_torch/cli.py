@@ -449,7 +449,8 @@ def _cmd_bench(args) -> int:
                           np.concatenate([e[:, 1], e[:, 0]])))
         res = train_hybrid(
             lists, n,
-            GiantConfig(dim_embedding=32, hidden_dim=16, number_epochs=args.giant_epochs),
+            GiantConfig(dim_embedding=32, hidden_dim=16, number_epochs=args.giant_epochs,
+                        epochs_per_call=10),
             mesh=make_mesh(("data", "graph"), shape=(r_ax, len(devs) // r_ax), devices=devs),
         )
         print(json.dumps({"hybrid": res}, default=float))

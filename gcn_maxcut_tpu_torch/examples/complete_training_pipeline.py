@@ -63,7 +63,7 @@ def main(workdir: str = "pipeline_out", quick: bool = False,
     # 3-4. training (lr 1e-3, tolerance 1e-4, patience 20: the reference
     # recipe) and the checkpoint
     cfg = TrainingConfig(n_nodes=pad, learning_rate=1e-3, number_epochs=epochs,
-                         tolerance=1e-4, patience=20)
+                         tolerance=1e-4, patience=20, epochs_per_call=10)
     params, best_loss, final_epoch, _, history = train_model(batch, cfg, device=dev)
     print(f"trained to best loss {best_loss:.0f} at epoch {final_epoch} "
           f"({len(history)} epochs recorded)")

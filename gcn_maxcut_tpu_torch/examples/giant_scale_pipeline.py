@@ -59,7 +59,8 @@ def main(N: int = N, device: str | torch.device | None = None) -> int:  # noqa: 
 
     # 2. sharded training
     cfg = GiantConfig(num_classes=K, dim_embedding=64, hidden_dim=32, number_epochs=40,
-                      log_every=10, seed=SEED, block_ell=False, local_reorder="off")
+                      epochs_per_call=10, log_every=10, seed=SEED, block_ell=False,
+                      local_reorder="off")
     out = train_giant_graph(senders, receivers, N, cfg,
                             mesh=make_mesh(devices=[dev] * SHARDS), return_assignment=True)
     print(f"GCN cut after {out['epochs']} epochs: {out['final_cut']:.0f}/{e_und} "

@@ -12,6 +12,10 @@ regular graph, k terminals).  An epoch, on a ``parallel.mesh.Mesh``:
   * one backward for the true global gradient of every leaf and one Adam
     step (``train/optim.Adam``, optax's order).
 
+``make_giant_step`` runs ``epochs_per_call`` such epochs a call: on a ring
+of one card, one captured CUDA graph replayed an epoch at a time, the
+losses read once (``train/chunks.py``).
+
 The conv parameters live on the first mesh device and each shard uses its
 copy (autograd sums their gradients: the JAX ``pmean`` of ``psum``-scaled
 shares).  The JAX step differentiates a loss that holds a ``psum``, so its
@@ -28,7 +32,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -44,6 +48,7 @@ from gcn_maxcut_tpu_torch.parallel.partition import (
 )
 from gcn_maxcut_tpu_torch.parallel.spmm import Blocks, sharded_cut_edgeform, sharded_gcn_conv
 from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
 from gcn_maxcut_tpu_torch.train.optim import Adam
 
 logger = logging.getLogger(__name__)
@@ -59,6 +64,8 @@ class GiantConfig:
     schedule: str = "ring"           # ring | allgather
     seed: int = 0
     log_every: int = 20
+    epochs_per_call: int = 1         # epochs a chunk (one host read); epochs
+                                     # round up to whole chunks
     partition: str = "contiguous"    # contiguous | bfs | metis (node -> shard)
     local_reorder: str = "off"       # off | rcm (band each shard's local subgraph)
     block_ell: bool = False          # hop-0 aggregation on K1 where every shard bands
@@ -142,9 +149,7 @@ class GiantState:
         embeds = [e.detach().clone().requires_grad_(True) for e in self.embeds]
         state = GiantState(conv, embeds, None)
         opt = Adam(state.leaves(), self.optimizer.lr)
-        opt.mu = [m.clone() for m in self.optimizer.mu]
-        opt.nu = [v.clone() for v in self.optimizer.nu]
-        opt.count = self.optimizer.count
+        opt.load(self.optimizer.count, self.optimizer.mu, self.optimizer.nu)
         state.optimizer = opt
         return state
 
@@ -172,14 +177,13 @@ class GiantState:
         for e, src in zip(self.embeds, embed):
             e.copy_(src)
         inner = opt_state["0"]
-        opt = self.optimizer
-        opt.count = int(inner[".count"])
-        for moments, tree in ((opt.mu, inner[".mu"]), (opt.nu, inner[".nu"])):
-            flat = [tree["0"]["conv1"]["w"], tree["0"]["conv1"]["b"],
-                    tree["0"]["conv2"]["w"], tree["0"]["conv2"]["b"]]
-            flat += list(tree["1"])                 # [D, n_shard, F]: one block a shard
-            for i, t in enumerate(flat):
-                moments[i] = t.to(moments[i].device).clone()
+
+        def flat(tree):
+            return [tree["0"]["conv1"]["w"], tree["0"]["conv1"]["b"],
+                    tree["0"]["conv2"]["w"], tree["0"]["conv2"]["b"],
+                    *tree["1"]]                     # [D, n_shard, F]: one block a shard
+
+        self.optimizer.load(int(inner[".count"]), flat(inner[".mu"]), flat(inner[".nu"]))
 
 
 def _epoch(state: GiantState, sg: ShardedGraph, mesh: Mesh, config: GiantConfig) -> torch.Tensor:
@@ -189,6 +193,29 @@ def _epoch(state: GiantState, sg: ShardedGraph, mesh: Mesh, config: GiantConfig)
     loss = -sharded_cut_edgeform(sg, onehot, mesh, config.schedule)
     state.optimizer.step(torch.autograd.grad(loss, state.leaves()))
     return loss.detach()
+
+
+def make_giant_step(
+    sg: ShardedGraph, mesh: Mesh, config: GiantConfig, state: GiantState,
+    max_chunk: int | None = None,
+) -> Callable[..., np.ndarray]:
+    """The chunk of the JAX ``make_giant_step``: ``chunk(k)`` runs k epochs
+    (default ``config.epochs_per_call``, at most ``max_chunk``), each a
+    forward, backward and Adam step updating ``state`` in place, and
+    returns their losses (before each update) as a float32 host array,
+    read once.  On one card the epochs are one captured CUDA graph
+    replayed k times (``train/chunks.py``); ``chunk.runner`` is the
+    ``ChunkRunner``.  One callable takes any k, as the JAX
+    ``dynamic_epochs`` executable does."""
+    K = max(1, config.epochs_per_call)
+    runner = ChunkRunner(lambda: _epoch(state, sg, mesh, config), mesh.devices,
+                         max(K, max_chunk or K), optimizer=state.optimizer)
+
+    def chunk(k: int = K) -> np.ndarray:
+        return runner.run(k)[0]
+
+    chunk.runner = runner
+    return chunk
 
 
 def decode_assignment(
@@ -213,30 +240,31 @@ def measure_epoch_time(
     k_lo: int = 5,
     reps: int = 3,
 ) -> Dict[str, Any]:
-    """Seconds an epoch from the difference of the best of ``reps`` runs of
-    ``k_hi`` and of ``k_lo`` epochs, which cancels the per-run overhead
-    (the JAX package's amortized method).  Every run starts from a clone
-    of ``state``, which is left as it was; each run ends in a synchronize
-    of every mesh device.  A non-positive difference gives NaN with
-    ``reliable`` False."""
+    """Seconds an epoch from the difference of the best of ``reps`` chunks
+    of ``k_hi`` and of ``k_lo`` epochs, which cancels the per-chunk
+    overhead (the JAX package's amortized method): one chunk callable
+    (``make_giant_step``) on a clone of ``state``, which is left as it
+    was, each chunk ending in its host read.  A non-positive difference
+    gives NaN with ``reliable`` False."""
     from gcn_maxcut_tpu_torch.bench.giant_demo import _synchronize  # bench imports this module
 
+    trial = state.clone()
+    step = make_giant_step(sg, mesh, config, trial, max_chunk=max(k_hi, k_lo))
+
     def run(k: int) -> float:
-        trial = state.clone()
         _synchronize(mesh.devices)
         t0 = time.perf_counter()
-        for _ in range(k):
-            _epoch(trial, sg, mesh, config)
+        step(k)
         _synchronize(mesh.devices)
         return time.perf_counter() - t0
 
-    run(k_lo)                                   # warm-up
+    run(k_lo)                                   # warm-up and capture
     times = {k: [run(k) for _ in range(reps)] for k in (k_hi, k_lo)}
     diff = min(times[k_hi]) - min(times[k_lo])
     reliable = diff > 0
     if not reliable:
-        logger.warning("measure_epoch_time: best of %d runs of %d epochs (%.4f s) is not above "
-                       "that of %d epochs (%.4f s); returning NaN",
+        logger.warning("measure_epoch_time: best of %d chunks of %d epochs (%.4f s) is not "
+                       "above that of %d epochs (%.4f s); returning NaN",
                        reps, k_hi, min(times[k_hi]), k_lo, min(times[k_lo]))
     return {
         "epoch_time_s": diff / (k_hi - k_lo) if reliable else float("nan"),
@@ -247,7 +275,7 @@ def measure_epoch_time(
         "spread_hi_s": max(times[k_hi]) - min(times[k_hi]),
         "spread_lo_s": max(times[k_lo]) - min(times[k_lo]),
         "best_hi_s": min(times[k_hi]),
-        "method": "difference of the best runs of k_hi and k_lo epochs (host clock, "
+        "method": "difference of the best chunks of k_hi and k_lo epochs (host clock, "
                   "every mesh device synchronized)",
     }
 
@@ -286,7 +314,12 @@ def train_giant_graph(
     and at the end; ``resume_from`` continues from one.  A resume at or
     past ``number_epochs`` runs no epoch and returns the checkpoint's last
     logged loss; ``edges_per_s`` counts only the epochs this call ran,
-    without the first (which pays the kernels' build), or NaN when none ran.
+    without the first chunk (which pays the kernels' build and the
+    capture) when more than one ran, or NaN when none ran.  Epochs run in
+    chunks of ``config.epochs_per_call`` (``make_giant_step``), so
+    ``number_epochs`` rounds up to whole chunks and checkpoints fall on
+    chunk boundaries (``checkpoint_every`` rounded down to whole chunks),
+    as in the JAX trainer.
     """
     from gcn_maxcut_tpu_torch.bench.giant_demo import _synchronize  # bench imports this module
     from gcn_maxcut_tpu_torch.bench.locality import locality_params
@@ -329,22 +362,29 @@ def train_giant_graph(
                         embed=state.embed(), epoch=tag_epoch, loss_history=history)
         logger.info("checkpoint @ epoch %d -> %s", tag_epoch, checkpoint_path)
 
+    step = make_giant_step(sg, mesh, config, state)
+    K = step.runner.max_chunk
+    if (config.number_epochs - epoch) % K and epoch < config.number_epochs:
+        logger.info("number_epochs=%d rounds up to whole chunks of %d epochs",
+                    config.number_epochs, K)
+    every = max(K, (checkpoint_every or 0) // K * K)
     t0 = time.perf_counter()
     steady_t0 = None
     last_loss = None
     ran = 0
     while epoch < config.number_epochs:
-        last_loss = _epoch(state, sg, mesh, config)
+        losses = step(K)
         if steady_t0 is None:
-            _synchronize(mesh.devices)
-            steady_t0 = time.perf_counter()    # the first epoch paid the kernels' build
-        if epoch % config.log_every == 0:
-            history.append(float(last_loss))
-            logger.info("giant epoch %d: loss %.1f (cut %.0f)", epoch, history[-1], -history[-1])
-        epoch += 1
-        ran += 1
+            steady_t0 = time.perf_counter()    # the first chunk paid the build and capture
+        for j, v in enumerate(losses):
+            if (epoch + j) % config.log_every == 0:
+                history.append(float(v))
+                logger.info("giant epoch %d: loss %.1f (cut %.0f)", epoch + j, v, -v)
+        last_loss = losses[-1]
+        epoch += K
+        ran += K
         if (checkpoint_path is not None and checkpoint_every is not None
-                and epoch % max(1, checkpoint_every) == 0 and epoch < config.number_epochs):
+                and epoch % every == 0 and epoch < config.number_epochs):
             _save(epoch)
     _synchronize(mesh.devices)
     t_end = time.perf_counter()
@@ -355,10 +395,10 @@ def train_giant_graph(
     train_time = time.perf_counter() - t0
 
     e_directed = int(np.asarray(senders).shape[0])
-    if ran > 1:
-        edges_per_s = e_directed * (ran - 1) / (t_end - steady_t0)
-    elif ran == 1:
-        edges_per_s = e_directed / (t_end - t0)
+    if ran > K:
+        edges_per_s = e_directed * (ran - K) / (t_end - steady_t0)
+    elif ran:
+        edges_per_s = e_directed * ran / (t_end - t0)
     else:
         edges_per_s = float("nan")
     timed = {}

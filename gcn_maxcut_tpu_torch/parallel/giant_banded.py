@@ -19,7 +19,9 @@ Conv parameters live on the first mesh device; each shard uses
 ``p.to(its device)``, so autograd sums their gradients over the shards (the
 JAX ``psum``).  Embeddings and their Adam moments stay on their shards.
 The loss is the sum of the per-shard losses, −(E − ½·Σ_c ⟨s_c, (A s)_c⟩),
-with one backward, so both trainers take the true global gradient.  (The
+with one backward, so both trainers take the true global gradient.  Epochs
+run in chunks of ``epochs_per_call`` (``train/chunks.py``; on a ring of one
+card, one captured CUDA graph replayed an epoch at a time).  (The
 JAX plain trainer differentiates through a ``psum``, which scales its
 embedding gradients by the device count; Adam hides that factor up to its
 eps.)  Terminals are the first k nodes of shard 0.  ``params`` takes the
@@ -56,6 +58,7 @@ from gcn_maxcut_tpu_torch.ops.halo import (
 )
 from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
 from gcn_maxcut_tpu_torch.parallel.mesh import Mesh, make_mesh
+from gcn_maxcut_tpu_torch.train.chunks import chunk_sizes
 from gcn_maxcut_tpu_torch.train.optim import Adam
 
 
@@ -67,6 +70,7 @@ class HaloGiantConfig:
     hidden_dim: int = 128
     learning_rate: float = 1e-3
     epochs: int = 40
+    epochs_per_call: int = 10       # epochs a chunk; epochs round up to whole chunks
     bandwidth: int = 63
     block: int = 1024
     seed: int = 0
@@ -80,6 +84,7 @@ class PackedHaloGiantConfig:
     dim_embedding: int = 32
     learning_rate: float = 1e-3
     epochs: int = 40
+    epochs_per_call: int = 10       # epochs a chunk; epochs round up to whole chunks
     bandwidth: int = 63
     r: int = 8                      # interleave factor
     seed: int = 0
@@ -108,14 +113,17 @@ def _place(
 
 
 def _run(loss_fn, conv, embeds, config, mesh, n, offsets, layout, mu_dtype=None):
-    """Train every leaf with Adam; the result keys of the JAX trainers and
-    of ``bench/giant_demo.py``."""
+    """Train every leaf with Adam in chunks of ``config.epochs_per_call``
+    epochs, ``config.epochs`` rounded up to whole chunks as in the JAX
+    trainers; the result keys of the JAX trainers and of
+    ``bench/giant_demo.py``."""
     leaves = [conv["conv1"]["w"], conv["conv1"]["b"], conv["conv2"]["w"],
               conv["conv2"]["b"], *embeds]
     optimizer = Adam(leaves, config.learning_rate, mu_dtype=mu_dtype)
+    chunks = chunk_sizes(0, config.epochs, config.epochs_per_call)
     t0 = time.perf_counter()
-    history, first, steady = _train(loss_fn, leaves, config.epochs, optimizer, mesh.devices)
-    res = _result(n, config.d, config.epochs, history, first, steady, layout, offsets)
+    history, first, steady = _train(loss_fn, leaves, optimizer, mesh.devices, chunks)
+    res = _result(n, config.d, sum(chunks), history, first, steady, layout, offsets)
     res.update(num_devices=mesh.size, total_time_s=time.perf_counter() - t0)
     return res
 

@@ -16,9 +16,7 @@ a plan.  An epoch:
 
 Differences from the JAX module, all deliberate:
 
-  * The step is eager and runs one epoch (``make_hybrid_step``; no
-    ``epochs_per_call``, as for the port's giant trainer), and
-    ``stack_sharded_graphs`` keeps each graph as it is: the padding of
+  * ``stack_sharded_graphs`` keeps each graph as it is: the padding of
     ``e_group`` and of the ELL and plan widths is a stacking artefact of
     ``shard_map``.  So every graph keeps its own hop-0 plan, where JAX
     drops all plans when their geometries differ; that changes which
@@ -30,6 +28,11 @@ Differences from the JAX module, all deliberate:
   * Initial parameters are numpy draws from ``config.seed``, or the
     caller's in the JAX layout (``params``: ``{"conv1", "conv2", "embed":
     [B, D, n_shard, F]}``), so both packages can start from one draw.
+
+``make_hybrid_step`` runs ``epochs_per_call`` epochs a call, as the JAX
+step does: on a mesh of one card, one captured CUDA graph replayed an epoch
+at a time, with the NCCL ``all_reduce`` inside it (``train/chunks.py``); a
+gloo group's ranks run on the CPU, eagerly.
 
 Across processes (``parallel.mesh.multi_host_init``), rank p holds its
 rows' graphs; the conv gradients and the loss are summed over the ranks by
@@ -59,6 +62,7 @@ from gcn_maxcut_tpu_torch.parallel.mesh import (
 )
 from gcn_maxcut_tpu_torch.parallel.partition import ShardedGraph, shard_graph
 from gcn_maxcut_tpu_torch.parallel.spmm import sharded_cut_edgeform
+from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
 from gcn_maxcut_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -117,27 +121,40 @@ def make_hybrid_step(
     state: GiantState,
     data_axis: str = "data",
     graph_axis: str = "graph",
-) -> Callable[[], Tuple[torch.Tensor, torch.Tensor]]:
-    """One epoch of hybrid training a call, updating ``state`` in place.
+) -> Callable[..., Tuple[np.ndarray, torch.Tensor]]:
+    """``chunk(k)``: k epochs of hybrid training (default
+    ``config.epochs_per_call``), updating ``state`` in place.
 
     ``sgb``: this process's graphs (``stack_sharded_graphs``; all B in one
     process), B/R a row in order.  ``state``: the conv parameters and, for
     each graph in turn, its D embedding blocks on its row's devices
-    (``GiantState.from_blocks``).  The step returns the epoch's mean loss
-    over all B graphs and this process's per-graph losses, both before the
-    update, as tensors on the conv parameters' device.
+    (``GiantState.from_blocks``).  The chunk returns each epoch's mean loss
+    over all B graphs (a float32 host array, read once) and this process's
+    per-graph losses of the last epoch (a tensor on the conv parameters'
+    device), all before the update.  On one card the epochs are one
+    captured CUDA graph replayed k times; ``chunk.runner`` is the
+    ``ChunkRunner``.
     """
     rows = _rows_of(sgb, mesh, data_axis, graph_axis)
     graphs = [sg.to(row) for sg, row in zip(sgb, rows)]
     b_total = len(graphs) * process_group()[0]
+    per_graph = torch.zeros(len(graphs), device=state.conv["conv1"]["w"].device)
 
-    def step() -> Tuple[torch.Tensor, torch.Tensor]:
-        total, per_graph, grads = _local_grads(state, graphs, rows, config)
+    def epoch() -> torch.Tensor:
+        total, losses, grads = _local_grads(state, graphs, rows, config)
         *conv, total = data_axis_sum([*grads[:4], total.reshape(1)])
         state.optimizer.step([*(g / b_total for g in conv), *grads[4:]])
-        return total[0] / b_total, per_graph
+        per_graph.copy_(losses)
+        return total[0] / b_total
 
-    return step
+    K = max(1, config.epochs_per_call)
+    runner = ChunkRunner(epoch, mesh.devices, K, optimizer=state.optimizer)
+
+    def chunk(k: int = K) -> Tuple[np.ndarray, torch.Tensor]:
+        return runner.run(k)[0], per_graph.clone()
+
+    chunk.runner = runner
+    return chunk
 
 
 def train_hybrid(
@@ -208,11 +225,14 @@ def train_hybrid(
 
     t0 = time.perf_counter()
     history = []
-    for epoch in range(config.number_epochs):
-        mean_loss, per_graph = step()
-        if epoch % config.log_every == 0:
-            history.append(float(mean_loss))
-            logger.info("hybrid epoch %d: mean loss %.1f", epoch, history[-1])
+    epoch = 0
+    while epoch < config.number_epochs:        # whole chunks, as in the JAX trainer
+        losses, per_graph = step()
+        for j, v in enumerate(losses):
+            if (epoch + j) % config.log_every == 0:
+                history.append(float(v))
+                logger.info("hybrid epoch %d: mean loss %.1f", epoch + j, v)
+        epoch += len(losses)
     _synchronize(mesh.devices)
     train_time = time.perf_counter() - t0
     if dist.is_available() and dist.is_initialized():
@@ -220,11 +240,11 @@ def train_hybrid(
         dist.all_gather(parts, per_graph)
         per_graph = torch.cat(parts)
     return {
-        "final_mean_loss": float(mean_loss),
+        "final_mean_loss": float(losses[-1]),
         "per_graph_cuts": (-per_graph).tolist(),
         "loss_history": history,
         "train_time_s": train_time,
-        "epochs": config.number_epochs,
+        "epochs": epoch,
         "mesh_shape": (R, D),
         "num_graphs": B,
     }

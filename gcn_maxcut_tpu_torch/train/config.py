@@ -6,8 +6,10 @@ Field-for-field superset of the reference dataclass
 ``dim_embedding // 2``.  The fields and their checks are the JAX
 package's, so one configuration means the same run in both, every value
 included (``batched`` steps, the cosine schedule, the quantile and entropy
-losses).  ``epochs_per_call`` has no effect here: PyTorch runs eagerly and
-the loop reads every epoch's loss on the host.
+losses).  ``epochs_per_call`` is the epochs of one chunk
+(``train/chunks.py``): one captured CUDA graph replayed that many times on
+the card, eager epochs on the CPU, the losses read once a chunk; any value
+gives the same run.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ class TrainingConfig:
     use_penalty: bool = False              # reference keeps it commented out
     seed: int = 0
     log_every: Optional[int] = None        # defaults to save_frequency
-    epochs_per_call: int = 1               # JAX: epochs per device call
+    epochs_per_call: int = 1               # epochs a chunk (one host read)
     step_mode: str = "per_graph"           # "per_graph" | "batched"
     lr_schedule: str = "constant"          # "constant" | "cosine"
     lr_final_fraction: float = 0.05

@@ -28,6 +28,18 @@ parameters and optimizer state after that epoch, and a final one with the
 best epoch's parameters; ``resume_from`` restores parameters, optimizer
 state, epoch and history from a checkpoint of either package, as the JAX
 package does.
+
+Epochs run in chunks of ``config.epochs_per_call`` (``train/chunks.py``):
+on the card a chunk is one captured CUDA graph replayed an epoch at a
+time, and the host reads the chunk's losses and stop flags once.  So the
+early stopping, the patience and the best-parameter copy live on the
+device (``make_monitored_epoch_fn``): once a chunk's epoch stops, its
+later epochs are frozen no-ops that leave the parameters, the Adam state
+and its count as they were, and read ``prev_loss`` as their loss; any
+chunk length gives the same run bit for bit.  With checkpoints on, a chunk
+also ends at each ``save_frequency`` epoch, so a checkpoint holds that
+epoch's own state (the JAX package writes the chunk's last state under
+that epoch's name).
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ from gcn_maxcut_tpu_torch.train.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
+from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
 from gcn_maxcut_tpu_torch.train.config import TrainingConfig
 from gcn_maxcut_tpu_torch.train.optim import Adam, cosine_decay_schedule
 
@@ -114,10 +127,10 @@ class TrainState:
         self.embed.copy_(params["embed"])
         flat = flatten_tree(opt_state)
         prefix = ".inner_state/0" if self.config.feature_mode == "adjacency" else "0"
-        self.optimizer.count = int(flat[f"{prefix}/.count"])
-        for i, path in enumerate(self._adam_paths()):
-            self.optimizer.mu[i] = flat[f"{prefix}/.mu/{path}"].clone()
-            self.optimizer.nu[i] = flat[f"{prefix}/.nu/{path}"].clone()
+        paths = self._adam_paths()
+        self.optimizer.load(int(flat[f"{prefix}/.count"]),
+                            [flat[f"{prefix}/.mu/{p}"] for p in paths],
+                            [flat[f"{prefix}/.nu/{p}"] for p in paths])
 
 
 def setup_train_state(
@@ -284,12 +297,13 @@ def _params_tree(state: TrainState) -> Dict[str, Any]:
     return {**state.model.params(), "embed": state.embed}
 
 
-def _run_epoch(state: TrainState, inputs: EpochInputs, generator: torch.Generator) -> float:
-    """One epoch; returns its summed float32 loss.  ``per_graph``: an Adam
-    step per graph, in dataset order.  ``batched``: one Adam step on the
-    summed loss of every graph; on the dense path the forward runs on the
-    whole batch at once, every aggregation one batched GEMM (``torch.bmm``
-    over the stacked operators)."""
+def _run_epoch(state: TrainState, inputs: EpochInputs,
+               generator: torch.Generator) -> torch.Tensor:
+    """One epoch; returns its summed float32 loss as a 0-d tensor.
+    ``per_graph``: an Adam step per graph, in dataset order.  ``batched``:
+    one Adam step on the summed loss of every graph; on the dense path the
+    forward runs on the whole batch at once, every aggregation one batched
+    GEMM (``torch.bmm`` over the stacked operators)."""
     config = state.config
     state.model.train()
     params = _params_tree(state)
@@ -303,13 +317,92 @@ def _run_epoch(state: TrainState, inputs: EpochInputs, generator: torch.Generato
         loss = torch.stack([_probs_loss(g, probs[i], config)
                             for i, g in enumerate(inputs.graphs)]).sum()
         state.optimizer.step(torch.autograd.grad(loss, state.optimizer.params))
-        return float(loss.detach())
+        return loss.detach()
     losses = []
     for i, g in enumerate(inputs.graphs):
         loss = _graph_loss(params, g, config, generator, *inputs.dense(i))
         state.optimizer.step(torch.autograd.grad(loss, state.optimizer.params))
         losses.append(loss.detach())
-    return float(torch.stack(losses).sum())
+    return torch.stack(losses).sum()
+
+
+def init_early_stop_state(
+    params: Dict[str, Any],
+    best_loss: float = float("inf"),
+    prev_loss: float = float("inf"),
+    epoch: int = 0,
+) -> Dict[str, Any]:
+    """The device state of the early stopping and best tracking: float32
+    ``best_loss`` and ``prev_loss`` (infinity as float32's largest value,
+    as in the JAX package), ``patience``, ``epoch``, ``stopped`` and
+    ``best_params``, a copy of ``params`` (the JAX layout), which is what a
+    run restores when no epoch improves, on the parameters' device."""
+    dev = params["conv1"]["w"].device
+
+    def f32(v: float) -> torch.Tensor:
+        v = _F32_MAX if v == float("inf") else np.float32(v)
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    return {
+        "best_loss": f32(best_loss),
+        "prev_loss": f32(prev_loss),
+        "patience": torch.zeros((), dtype=torch.int64, device=dev),
+        "epoch": torch.tensor(epoch, dtype=torch.int64, device=dev),
+        "stopped": torch.zeros((), dtype=torch.bool, device=dev),
+        "best_params": {k: ({n: t.detach().clone() for n, t in v.items()}
+                            if isinstance(v, dict) else v.detach().clone())
+                        for k, v in params.items()},
+    }
+
+
+def make_monitored_epoch_fn(
+    state: TrainState, inputs: EpochInputs, es: Dict[str, Any],
+    generator: torch.Generator,
+) -> Callable[[], Tuple[torch.Tensor, torch.Tensor]]:
+    """One epoch with the early stopping and best tracking of the JAX
+    package's ``make_monitored_epoch_fn`` on the device, updating ``state``
+    and ``es`` (``init_early_stop_state``) in place; returns ``(loss,
+    stopped)`` as 0-d tensors, for ``train.chunks.ChunkRunner``.
+
+      * patience grows when the loss is worse than the previous epoch's or
+        moves by at most ``tolerance`` (from the second epoch on), and
+        resets otherwise;
+      * the epoch where patience reaches ``config.patience`` stops the run
+        and is not eligible as best;
+      * an epoch after the stop still computes, then puts the parameters,
+        the Adam moments and the count back (``torch.where``), and its
+        loss reads ``prev_loss``.
+    """
+    config = state.config
+    tracked = state.optimizer.state_tensors()
+    live_params = flatten_tree(_params_tree(state))
+    best = flatten_tree(es["best_params"])
+
+    def epoch() -> Tuple[torch.Tensor, torch.Tensor]:
+        live = ~es["stopped"]
+        saved = [t.detach().clone() for t in tracked]
+        loss = _run_epoch(state, inputs, generator)
+        with torch.no_grad():
+            for t, old in zip(tracked, saved):
+                torch.where(live, t, old, out=t)
+            prev = es["prev_loss"]
+            loss = torch.where(live, loss, prev)
+            worse = (es["epoch"] > 0) & ((loss > prev)
+                                         | (torch.abs(prev - loss) <= config.tolerance))
+            patience = torch.where(live, torch.where(worse, es["patience"] + 1, 0),
+                                   es["patience"])
+            stop_now = live & (patience >= config.patience)
+            is_best = live & ~stop_now & (loss < es["best_loss"])
+            es["best_loss"].copy_(torch.where(is_best, loss, es["best_loss"]))
+            es["prev_loss"].copy_(torch.where(live, loss, prev))
+            es["patience"].copy_(patience)
+            es["epoch"].add_(live.to(torch.int64))
+            es["stopped"].logical_or_(stop_now)
+            for k, b in best.items():
+                b.copy_(torch.where(is_best, live_params[k], b))
+        return loss, es["stopped"]
+
+    return epoch
 
 
 def train_model(
@@ -350,38 +443,42 @@ def train_model(
         start_epoch = int(meta.get("epoch", 0)) + 1
         if history:
             prev_loss, best_loss = np.float32(history[-1]), np.float32(min(history))
-    tolerance = np.float32(config.tolerance)
-    patience = 0
-    best_params = state.params()
-    for epoch in range(start_epoch, config.number_epochs):
-        loss = np.float32(_run_epoch(state, inputs, generator))
-        history.append(float(loss))
-        worse = epoch > 0 and (loss > prev_loss or abs(prev_loss - loss) <= tolerance)
-        patience = patience + 1 if worse else 0
-        stop = patience >= config.patience
-        if not stop and loss < best_loss:
-            best_loss = loss
-            best_params = state.params()
-        prev_loss = loss
-        if config.save_directory and epoch % config.save_frequency == 0:
-            save_checkpoint(
-                checkpoint_name(config.save_directory, epoch, float(loss)),
-                params=state.params(), opt_state=state.opt_state(), epoch=epoch,
-                loss_history=history, config=config,
-            )
-        if callback is not None:
-            callback(epoch, float(loss))
-        if stop:
-            break
+    es = init_early_stop_state(state.params(), float(best_loss), float(prev_loss), start_epoch)
+    runner = ChunkRunner(make_monitored_epoch_fn(state, inputs, es, generator), [dev],
+                         max(1, config.epochs_per_call), optimizer=state.optimizer,
+                         generators=[generator])
+    epoch, stop = start_epoch, False
+    while epoch < config.number_epochs and not stop:
+        chunk = min(runner.max_chunk, config.number_epochs - epoch)
+        if config.save_directory:           # end the chunk at the next save epoch
+            chunk = min(chunk, -epoch % config.save_frequency + 1)
+        losses, stops = runner.run(chunk)
+        for j in range(chunk):
+            e, loss = epoch + j, float(losses[j])
+            history.append(loss)
+            stop = bool(stops[j])
+            if config.save_directory and e % config.save_frequency == 0:
+                save_checkpoint(
+                    checkpoint_name(config.save_directory, e, loss),
+                    params=state.params(), opt_state=state.opt_state(), epoch=e,
+                    loss_history=history, config=config,
+                )
+            if callback is not None:
+                callback(e, loss)
+            if stop:
+                break
+        epoch += chunk
 
+    best_params = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+                       else v.clone()) for k, v in es["best_params"].items()}
+    best_loss = float(es["best_loss"])
     if config.save_directory:
         save_checkpoint(
             checkpoint_name(config.save_directory), params=best_params,
             opt_state=state.opt_state(), epoch=len(history) - 1,
             loss_history=history, config=config,
         )
-    best = float(best_loss)
-    return best_params, (float("inf") if best >= _F32_MAX else best), \
+    return best_params, (float("inf") if best_loss >= _F32_MAX else best_loss), \
         len(history) - 1, best_params["embed"], history
 
 

@@ -14,14 +14,27 @@ uses that float32 value, and only the stored copy is cast:
 
 with eps outside the square root.  Parameters are updated in place.
 
-``lr`` may be a schedule, a function of the update count; each update uses
-its value at the count before the update (optax's ``scale_by_schedule``
-reads its count, then increments it), so the first update uses lr(0).
-``cosine_decay_schedule`` is optax's, computed in float32 as optax does.
+``lr`` may be a constant or ``cosine_decay_schedule``'s schedule, a
+function of the update count; each update uses its value at the count
+before the update (optax's ``scale_by_schedule`` reads its count, then
+increments it), so the first update uses lr(0).  ``cosine_decay_schedule``
+is optax's, computed in float32 as optax does.
+
+The step can be captured in a CUDA graph (``train/chunks.py``): the count
+is a device tensor, the moments are updated in place, and the rate and the
+bias corrections are read at the count from one small device table built
+once, up to the count from which every later value is the same (the count
+is clamped there).  The table holds what the step written with Python
+numbers used, so a captured step is that step bit for bit: the float32
+rate, and ``1 − b^t`` taken in double as PyTorch divides by it.  On the
+CPU ``x / b`` is a float32 division by float32(b); PyTorch's CUDA kernel
+multiplies by the float32 of 1 / b taken in double instead (PyTorch 2.11),
+so on the card the table holds those reciprocals and the step multiplies.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Sequence
 
@@ -42,7 +55,18 @@ def cosine_decay_schedule(
         decay = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * t / f32(decay_steps)))
         return float(f32(init_value) * ((f32(1) - f32(alpha)) * decay + f32(alpha)))
 
+    schedule.decay_steps = decay_steps      # constant from this count on
     return schedule
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_corrections(b: float) -> np.ndarray:
+    """1 − b^t in double for t = 0, 1, ... up to the first t where its
+    float32 is 1 (entry 0, never read, is 1)."""
+    out = [1.0]
+    while len(out) == 1 or np.float32(out[-1]) != np.float32(1):
+        out.append(1.0 - b ** len(out))
+    return np.array(out, dtype=np.float64)
 
 
 class Adam:
@@ -59,18 +83,72 @@ class Adam:
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        dev = self.params[0].device
+        self._count = torch.zeros(1, dtype=torch.int64, device=dev)
+        if callable(lr) and not hasattr(lr, "decay_steps"):
+            raise ValueError("lr must be a number or cosine_decay_schedule's schedule")
+        bcs = [_bias_corrections(b) for b in (b1, b2)]
+        last = max(len(bcs[0]), len(bcs[1]), getattr(lr, "decay_steps", 0) + 1) - 1
+        if callable(lr):            # constant from decay_steps on
+            rate = -np.array([lr(t) for t in range(lr.decay_steps + 1)], dtype=np.float32)
+            rate = np.pad(rate, (0, last + 1 - len(rate)), mode="edge")
+        else:
+            rate = np.full(last + 1, -np.float32(lr), dtype=np.float32)
+        # the bias corrections after the update: entry t is 1 − b^(t + 1),
+        # or on the card its reciprocal, as x / b rounds on each device
+        self._reciprocal = dev.type == "cuda"
+        bcs = [np.pad(bc, (0, last + 2 - len(bc)), constant_values=1)[1:] for bc in bcs]
+        bcs = [(1.0 / bc if self._reciprocal else bc).astype(np.float32) for bc in bcs]
+        self._last = last
+        # [3, last + 1], column t for an update at count t: −lr(t), then
+        # the two bias corrections
+        self._tables = torch.from_numpy(np.stack([rate, *bcs])).to(dev)
+        self.nonfinite: torch.Tensor | None = None   # set by train.chunks.checked
+
+    @property
+    def count(self) -> int:
+        """Updates done (a host read of the device count)."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count.fill_(int(value))
+
+    @torch.no_grad()
+    def load(self, count: int, mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor]) -> None:
+        """Set the count and copy the moments into place (a captured step
+        keeps reading the same buffers)."""
+        self.count = count
+        for dst, src in zip(self.mu + self.nu, list(mu) + list(nu)):
+            dst.copy_(src)
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor a step writes: parameters, moments and the count."""
+        return [*self.params, *self.mu, *self.nu, self._count]
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        lr = self.lr(self.count) if callable(self.lr) else self.lr
-        self.count += 1
-        bc1 = 1.0 - self.b1 ** self.count
-        bc2 = 1.0 - self.b2 ** self.count
+        at = torch.clamp(self._count, max=self._last)
+        home = self._count.device
+        scalars = {home: self._tables.index_select(1, at).view(3)}
+        self._count.add_(1)
         for i, (p, g) in enumerate(zip(self.params, grads)):
-            mu = (1.0 - self.b1) * g + self.b1 * self.mu[i]
-            nu = (1.0 - self.b2) * (g * g) + self.b2 * self.nu[i]
-            update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_(update * -lr)
-            self.mu[i] = mu.to(self.mu[i].dtype)
-            self.nu[i] = nu
+            if p.device not in scalars:     # a mesh over several cards
+                scalars[p.device] = scalars[home].to(p.device)
+            neg_lr, bc1, bc2 = scalars[p.device]
+            if self.nonfinite is not None:
+                self.nonfinite.logical_or_((~torch.isfinite(g).all()).to(home))
+            # (1 − b1)·g + b1·mu and (1 − b2)·g² + b2·nu, in place where the
+            # stored moment is float32 (a sum of two rounded products either way)
+            mu = g * (1.0 - self.b1)
+            if self.mu[i].dtype == mu.dtype:
+                mu = self.mu[i].mul_(self.b1).add_(mu)
+            else:
+                mu = mu + self.b1 * self.mu[i]
+                self.mu[i].copy_(mu)
+            nu = self.nu[i].mul_(self.b2).add_((g * g) * (1.0 - self.b2))
+            if self._reciprocal:
+                update = (mu * bc1) / (torch.sqrt(nu * bc2) + self.eps)
+            else:
+                update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            p.add_(update * neg_lr)

@@ -1,18 +1,21 @@
-"""Debug helpers: port of ``debug_mode`` and ``assert_finite`` of
-``gcn_maxcut_tpu/utils/debug.py``.
+"""Debug helpers: port of ``gcn_maxcut_tpu/utils/debug.py``.
 
 ``debug_mode`` turns on autograd's anomaly detection, where the JAX one
 sets ``jax_debug_nans``/``jax_debug_infs``: a backward that produces a NaN
 raises and names the forward operation that led to it.  Anomaly detection
 has no separate check for infinities, so there is no ``infs`` argument.
-``checked`` (``checkify``) is not ported: eager PyTorch raises its errors
-where they happen, so no traced error needs surfacing.
+
+``checked`` wraps a chunk of epochs (``train/chunks.py``), as the JAX one
+wraps a jitted function with ``checkify``: inside a CUDA graph nothing
+raises where it happens, so a device flag records any non-finite loss or
+gradient of the chunk, and the wrapper raises after the chunk, once its
+results are read, as ``err.throw()`` does.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Iterator, Tuple
+from typing import Any, Callable, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +27,28 @@ def debug_mode(nans: bool = True):
     restored on exit)."""
     with torch.autograd.set_detect_anomaly(nans, check_nan=nans):
         yield
+
+
+def checked(fn: Callable) -> Callable:
+    """Wrap a chunk callable: a ``ChunkRunner``'s ``run``, or the chunk
+    that ``make_giant_step`` or ``make_hybrid_step`` returns, which carries
+    its runner as ``.runner``.  Wrap it before its first chunk.
+    The wrapper returns what ``fn`` returns and raises
+    ``FloatingPointError`` after a chunk in which a loss or a gradient
+    was NaN or infinite."""
+    runner = getattr(fn, "runner", None) or getattr(fn, "__self__", None)
+    if runner is None or not hasattr(runner, "enable_check"):
+        raise TypeError("checked() wraps a ChunkRunner.run or a chunk with a .runner")
+    runner.enable_check()
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if runner.nonfinite_seen:
+            raise FloatingPointError("non-finite loss or gradient in the chunk")
+        return out
+
+    wrapper.runner = runner
+    return wrapper
 
 
 def _leaves(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:

@@ -103,10 +103,10 @@ def _jax_packed_params(seed, n, r, emb=32, G=16):
 
 
 def test_packed_giant_trainer_matches_jax():
-    kw = dict(n=4096, bandwidth=31, epochs=4, agg_dtype=None, mu_dtype=None,
-              return_assignment=True)
+    kw = dict(n=4096, bandwidth=31, epochs=4, epochs_per_call=2, agg_dtype=None,
+              mu_dtype=None, return_assignment=True)
     with pltpu.force_tpu_interpret_mode():
-        rj = jgiant.train_banded_giant_packed(epochs_per_call=2, **kw)
+        rj = jgiant.train_banded_giant_packed(**kw)
     assert rj["epochs"] == 4
     params = params_from_jax(_jax_packed_params(0, 4096, 8), device="cpu")
     rt = tgiant.train_banded_giant_packed(params=params, device="cpu", **kw)
@@ -122,7 +122,8 @@ def test_packed_giant_trainer_matches_jax():
 
 
 def test_packed_giant_trainer_bf16_defaults_improve_cut():
-    r = tgiant.train_banded_giant_packed(n=4096, bandwidth=31, epochs=6, device="cpu")
+    r = tgiant.train_banded_giant_packed(n=4096, bandwidth=31, epochs=6, epochs_per_call=2,
+                                         device="cpu")
     assert r["final_cut"] > r["initial_cut"]
     assert len(r["history"]) == 6
 
@@ -136,7 +137,8 @@ def test_plain_giant_trainer_matches_jax():
         "conv2": gcn_conv_init(k2, 16, 3),
         "embed": jax.random.normal(k3, (2048, 32), jnp.float32) * 0.1,
     }, device="cpu")
-    rt = tgiant.train_banded_giant(n=2048, bandwidth=31, epochs=4, params=params, device="cpu")
+    rt = tgiant.train_banded_giant(n=2048, bandwidth=31, epochs=4, epochs_per_call=2,
+                                   params=params, device="cpu")
     np.testing.assert_allclose(rt["initial_cut"], rj["initial_cut"], rtol=1e-3)
     np.testing.assert_allclose(rt["final_cut"], rj["final_cut"], rtol=1e-3)
 

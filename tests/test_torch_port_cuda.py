@@ -13,6 +13,7 @@ the plain version, which sums in float32 and rounds once.
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1235,3 +1236,246 @@ def test_cuda_sa_chains_equal_cpu(cuda_device):
     assert abs(float(cut_c) - float(cut)) <= 1.0
     if float(cut_c) == float(cut):
         assert torch.equal(asn_c.cpu(), asn)
+
+
+# Chunks of epochs (train/chunks.py): one captured CUDA graph replayed an
+# epoch at a time, against the same epochs run eagerly on the card.
+
+def _python_number_adam_step(params, grads, mu, nu, count, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """The Adam step written with Python numbers, as the port had it."""
+    bc1, bc2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+    for i, (p, g) in enumerate(zip(params, grads)):
+        m = (1.0 - b1) * g + b1 * mu[i]
+        v = (1.0 - b2) * (g * g) + b2 * nu[i]
+        p.add_(((m / bc1) / (torch.sqrt(v / bc2) + eps)) * -lr)
+        mu[i], nu[i] = m.to(mu[i].dtype), v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["constant", "cosine"])
+def test_cuda_captured_adam_equals_the_python_number_step(cuda_device, schedule):
+    """On the card ``x / python_float`` is a product with the float32
+    reciprocal; the tables hold those reciprocals, so the captured step is
+    the Python-number step bit for bit, and so is the eager step."""
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+    from gcn_maxcut_tpu_torch.train.optim import Adam, cosine_decay_schedule
+
+    lr = cosine_decay_schedule(3e-2, 12, 0.05) if schedule == "cosine" else 3e-2
+    gen = torch.Generator().manual_seed(5)
+    start = [torch.randn(s, generator=gen).to(cuda_device) for s in [(64, 33), (33,)]]
+
+    def grads_of(ps):
+        return [torch.sin(p * 3.0) * 10.0 for p in ps]
+
+    ref = [p.clone() for p in start]
+    mu = [torch.zeros_like(p) for p in ref]
+    nu = [torch.zeros_like(p) for p in ref]
+    for count in range(1, 31):
+        _python_number_adam_step(ref, grads_of(ref), mu, nu, count,
+                                 lr(count - 1) if callable(lr) else lr)
+    for capture in (None, False):
+        got = [p.clone() for p in start]
+        opt = Adam(got, lr)
+
+        def step():
+            opt.step(grads_of(got))
+            return got[0].sum()
+
+        runner = ChunkRunner(step, [cuda_device], 10, capture=capture)
+        for _ in range(3):
+            runner.run(10)
+        assert runner.replays == (29 if capture is None else 0) and opt.count == 30
+        for a, b in zip(got + opt.mu + opt.nu, ref + mu + nu):
+            assert torch.equal(a, b)
+
+
+def _chunk_batch():
+    specs, _ = generate_graph_dataset(num_graphs=3, min_nodes=40, max_nodes=56, min_degree=3,
+                                      max_degree=6, base_seed=21)
+    ds = process_graphs(specs, DataConfig(max_nodes=64))
+    return pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["per_graph", "batched"])
+def test_cuda_recipe_chunk_equals_eager(cuda_device, mode):
+    """The monitored recipe epoch replayed in chunks of 8, with a stop inside
+    a chunk, equals the eager epochs on the card bit for bit; and
+    ``train_model`` at K = 8 equals K = 1."""
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+
+    batch = _chunk_batch()
+    cfg = TrainingConfig(n_nodes=64, number_epochs=40, learning_rate=2e-2, patience=3,
+                         tolerance=8.0, step_mode=mode, epochs_per_call=8)
+    steps = 3 if mode == "per_graph" else 1
+    start = tloop.setup_train_state(cfg, steps, device="cpu").params()
+    runs = []
+    for capture in (True, False):
+        state = tloop.setup_train_state(cfg, steps, params=start, device=cuda_device)
+        es = tloop.init_early_stop_state(state.params())
+        gen = torch.Generator(device=cuda_device).manual_seed(cfg.seed + 1)
+        epoch = tloop.make_monitored_epoch_fn(
+            state, tloop.epoch_inputs(batch.to(cuda_device), cfg), es, gen)
+        runner = ChunkRunner(epoch, [cuda_device], 8, capture=capture)
+        chunks = [runner.run(8) for _ in range(5)]
+        runs.append((chunks, state.params(), es))
+        assert (runner.graph is not None) == capture
+    (c_cap, p_cap, es_cap), (c_eag, p_eag, es_eag) = runs
+    for (l1, s1), (l2, s2) in zip(c_cap, c_eag):
+        np.testing.assert_array_equal(l1, l2)
+        np.testing.assert_array_equal(s1, s2)
+    assert c_cap[-1][1].all() and not c_cap[0][1].all()     # the run stopped
+    for key in ("conv1", "conv2"):
+        for k in ("w", "b"):
+            assert torch.equal(p_cap[key][k], p_eag[key][k])
+            assert torch.equal(es_cap["best_params"][key][k], es_eag["best_params"][key][k])
+    assert float(es_cap["best_loss"]) == float(es_eag["best_loss"])
+    ks = [tloop.train_model(batch, dataclasses.replace(cfg, epochs_per_call=K),
+                            state=tloop.setup_train_state(cfg, steps, params=start,
+                                                          device=cuda_device))
+          for K in (1, 8)]
+    assert ks[0][4] == ks[1][4] and ks[0][2] == ks[1][2] < 39
+    assert torch.equal(ks[0][0]["conv1"]["w"], ks[1][0]["conv1"]["w"])
+
+
+@pytest.mark.cuda
+def test_cuda_recipe_chunk_with_dropout_equals_eager(cuda_device):
+    """Dropout draws from the loop's own generator, which the runner
+    registers with the graph: the captured chunks of 8 with dropout 0.5
+    equal the eager epochs on the card bit for bit, and ``train_model`` at
+    K = 8 (captured) equals K = 1."""
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+
+    batch = _chunk_batch()
+    cfg = TrainingConfig(n_nodes=64, number_epochs=24, learning_rate=2e-2, dropout=0.5,
+                         step_mode="per_graph", epochs_per_call=8)
+    start = tloop.setup_train_state(cfg, 3, device="cpu").params()
+    runs = []
+    for capture in (None, False):
+        state = tloop.setup_train_state(cfg, 3, params=start, device=cuda_device)
+        es = tloop.init_early_stop_state(state.params())
+        gen = torch.Generator(device=cuda_device).manual_seed(cfg.seed + 1)
+        epoch = tloop.make_monitored_epoch_fn(
+            state, tloop.epoch_inputs(batch.to(cuda_device), cfg), es, gen)
+        runner = ChunkRunner(epoch, [cuda_device], 8, capture=capture, generators=[gen])
+        losses = np.concatenate([runner.run(8)[0] for _ in range(3)])
+        assert (runner.graph is not None) == (capture is None)
+        runs.append((losses, state.params()))
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    for key in ("conv1", "conv2"):
+        for k in ("w", "b"):
+            assert torch.equal(runs[0][1][key][k], runs[1][1][key][k])
+    ks = [tloop.train_model(batch, dataclasses.replace(cfg, epochs_per_call=K),
+                            state=tloop.setup_train_state(cfg, 3, params=start,
+                                                          device=cuda_device))
+          for K in (1, 8)]
+    assert ks[0][4] == ks[1][4] and ks[0][2] == ks[1][2]
+    assert torch.equal(ks[0][0]["conv1"]["w"], ks[1][0]["conv1"]["w"])
+
+
+@pytest.mark.cuda
+def test_cuda_packed_giant_chunks_equal_eager(cuda_device, monkeypatch):
+    """The packed giant trainer (K3) at K = 4 captured, at K = 1 captured and
+    eagerly: one history bit for bit; K3's launches counted exactly."""
+    import functools
+
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+
+    kw = dict(n=65_536, bandwidth=31, epochs=8, device=cuda_device)
+    runs = {}
+    for name, K, capture in (("k4", 4, None), ("k1", 1, None), ("eager", 4, False)):
+        monkeypatch.setattr(tgiant, "ChunkRunner", functools.partial(ChunkRunner,
+                                                                     capture=capture))
+        tb.reset_launches()
+        runs[name] = tgiant.train_banded_giant_packed(epochs_per_call=K, **kw)
+        assert tb.LAUNCHES["banded_spmm_unit_packed"] == 6 * 8
+    assert runs["k4"]["history"] == runs["k1"]["history"] == runs["eager"]["history"]
+
+
+@pytest.mark.cuda
+def test_cuda_k1_sharded_chunks_equal_eager(cuda_device, monkeypatch):
+    """The node-sharded trainer's chunk (``make_giant_step``) with hop 0 on
+    K1, a 4-shard ring of the card, K = 5: captured and eager give one loss
+    history, and K1's launches under replay equal the eager count."""
+    import functools
+
+    from gcn_maxcut_tpu_torch.bench.locality import locality_params
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+
+    n, D = 16_384, 4
+    s, r = _coo(banded_random_edges(n, 8, 255, 0))
+    cfg = tpgiant.GiantConfig(epochs_per_call=5, block_ell=True, local_reorder="rcm")
+    ring = make_mesh(devices=[cuda_device] * D)
+    sg = tpart.shard_graph(s, r, n, D, local_reorder="rcm", block_ell=True)[0].to(ring)
+    assert sg.bell_senders is not None
+    runs, counts = [], []
+    for capture in (None, False):
+        monkeypatch.setattr(tpgiant, "ChunkRunner", functools.partial(ChunkRunner,
+                                                                      capture=capture))
+        params = locality_params(D * sg.n_shard, 128, 64, 3, 0)
+        params["embed"] = params["embed"].reshape(D, sg.n_shard, -1)
+        state = tpgiant.GiantState.create(params, ring, cfg.learning_rate)
+        step = tpgiant.make_giant_step(sg, ring, cfg, state)
+        tbell.reset_launches()
+        runs.append(np.concatenate([step(), step()]))
+        counts.append(tbell.LAUNCHES["block_ell_spmm"])
+        assert step.runner.replays == (9 if capture is None else 0)
+    assert counts[0] == counts[1] == D * 6 * 10
+    np.testing.assert_array_equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_cuda_capture_raises_on_a_host_read(cuda_device):
+    """A step that reads the card on the host cannot be captured: the
+    runner raises instead of running it eagerly."""
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+
+    w = torch.ones(8, device=cuda_device)
+
+    def step():
+        loss = (w * w).sum()
+        w.mul_(0.5 if float(loss) > 1.0 else 1.0)       # a host read
+        return loss
+
+    runner = ChunkRunner(step, [cuda_device], 4)
+    with pytest.raises(RuntimeError, match="capturing the epoch"):
+        runner.run(4)
+    assert runner.graph is None and runner.replays == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["loss", "gradient"])
+def test_cuda_checked_raises_after_a_replayed_nan(cuda_device, where):
+    """``checked`` on captured chunks: a replayed epoch (the third) whose
+    loss, or whose gradient as Adam sees it, is NaN raises after its chunk;
+    the flag is cleared between chunks, so a clean chunk after a NaN loss
+    does not raise."""
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+    from gcn_maxcut_tpu_torch.train.optim import Adam
+    from gcn_maxcut_tpu_torch.utils.debug import checked
+
+    w = torch.tensor([1.0, 2.0], device=cuda_device, requires_grad=True)
+    opt = Adam([w], 0.1)
+    epoch = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    nan = torch.tensor(float("nan"), device=cuda_device)
+
+    def step():
+        poison = torch.where(epoch == 2, nan, torch.zeros_like(nan))
+        loss = (w * w).sum()
+        (g,) = torch.autograd.grad(loss, [w])
+        if where == "gradient":
+            g = g + poison
+        opt.step([g])
+        epoch.add_(1)
+        return loss.detach() + poison if where == "loss" else loss.detach()
+
+    runner = ChunkRunner(step, [cuda_device], 4, optimizer=opt)
+    run = checked(runner.run)
+    losses, _ = run(2)                          # the eager epoch and a replay
+    assert np.isfinite(losses).all() and runner.graph is not None
+    with pytest.raises(FloatingPointError, match="non-finite"):
+        run(2)                                  # the third epoch is a replay
+    assert runner.replays == 3
+    if where == "loss":
+        losses, _ = run(2)                      # clean again: the flag was reset
+        assert np.isfinite(losses).all() and runner.replays == 5

@@ -250,7 +250,7 @@ def test_packed_halo_trainer_matches_single_chip_trainer():
     """Sharding is numerics only: 4 shards and the single-chip trainer from
     the same parameters give the same history (f32 streams)."""
     n = 1024
-    kw = dict(d=4, bandwidth=15, epochs=10, agg_dtype=None, mu_dtype=None,
+    kw = dict(d=4, bandwidth=15, epochs=10, epochs_per_call=5, agg_dtype=None, mu_dtype=None,
               learning_rate=5e-3)
     p0 = tgiant.packed_params(n, seed=0, device="cpu")
     single = tgiant.train_banded_giant_packed(n=n, params=p0, device="cpu",

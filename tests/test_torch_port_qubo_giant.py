@@ -77,7 +77,8 @@ def test_qubo_loop_runs_on_the_card_unless_told(monkeypatch):
         tqubo.run_gnn_training(g, tqubo.QuboConfig(number_epochs=1))
 
 
-GIANT = dict(n=1024, d=4, bandwidth=15, seed=0, agg_dtype=None, mu_dtype=None)
+GIANT = dict(n=1024, d=4, bandwidth=15, seed=0, agg_dtype=None, mu_dtype=None,
+             epochs_per_call=2)
 
 
 def test_packed_giant_resume_equals_uninterrupted_run(tmp_path):
@@ -99,7 +100,7 @@ def test_packed_giant_resume_equals_uninterrupted_run(tmp_path):
 
 
 def test_packed_giant_bf16_moment_survives_the_checkpoint(tmp_path):
-    kw = dict(GIANT, mu_dtype="bfloat16", agg_dtype="bfloat16")
+    kw = dict(GIANT, mu_dtype="bfloat16", agg_dtype="bfloat16", epochs_per_call=1)
     full = tgiant.train_banded_giant_packed(epochs=8, device="cpu", **kw)
     ck = str(tmp_path / "bf16_ck")
     tgiant.train_banded_giant_packed(epochs=5, checkpoint_path=ck, device="cpu", **kw)
@@ -113,9 +114,8 @@ def test_packed_giant_bf16_moment_survives_the_checkpoint(tmp_path):
 def test_jax_checkpoint_resumes_in_the_port(tmp_path):
     ck = str(tmp_path / "jax_ck")
     with pltpu.force_tpu_interpret_mode():
-        full = jgiant.train_banded_giant_packed(epochs=12, epochs_per_call=2, **GIANT)
-        jgiant.train_banded_giant_packed(epochs=6, checkpoint_path=ck, epochs_per_call=2,
-                                         **GIANT)
+        full = jgiant.train_banded_giant_packed(epochs=12, **GIANT)
+        jgiant.train_banded_giant_packed(epochs=6, checkpoint_path=ck, **GIANT)
     resumed = tgiant.train_banded_giant_packed(
         epochs=12, resume_from=ck, checkpoint_path=str(tmp_path / "port_ck"), device="cpu",
         **GIANT)
