@@ -341,6 +341,7 @@ CHUNK_K = 10
 CHUNK_EPOCHS = 20
 CHUNK_TIMED = 10
 CHUNK_STOP_PATIENCE = 5         # the recipe's stopping run stops at epoch 5, inside a chunk
+SOLVER_SA_LOCKSTEP = (500, 8, 64, 2000)  # n, d, chains, steps: solve --n 500's chains alone
 BANDED_N, BANDED_BIG_N = 131_072, 1_250_304
 
 
@@ -1756,20 +1757,91 @@ def phase_variants(torch, counters) -> dict:
                      "final_loss": q["final_loss"]}}
 
 
-def phase_timings(micro: dict, refine_s_at_500: float) -> dict:
+def decode_ms(torch, counters, dataset: str, checkpoint: str) -> dict:
+    """The default decode (``refine_multi_start``: 200 rollouts, the climb
+    from the best 3 and the argmax decode) of the recipe's graphs (the
+    ``test`` command's 20, n = 500, d in [6, 8]) with its final parameters:
+    ms a graph on a synchronised host clock, the climb captured (the climbs
+    kept for reuse dropped first, so the one capture of the shape is inside
+    the time) and eager, in turns (captured, eager, eager, captured); the
+    assignments equal bit for bit; then each mode's busy share over one
+    more pass (``busy_share``)."""
+    from gcn_maxcut_tpu_torch.baselines import local_search as tls
+    from gcn_maxcut_tpu_torch.data.io import load_dataset
+    from gcn_maxcut_tpu_torch.eval.decode import refine_multi_start
+    from gcn_maxcut_tpu_torch.eval.harness import _forward
+    from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint
+    from gcn_maxcut_tpu_torch.train.config import TrainingConfig
+    from gcn_maxcut_tpu_torch.train.loop import setup_train_state
+
+    ds = load_dataset(dataset)
+    state = setup_train_state(TrainingConfig(n_nodes=ds.config.max_nodes), device="cuda")
+    params = load_checkpoint(checkpoint, state.params())[0]
+    graphs = [ds.graphs[k].to("cuda") for k in sorted(ds.graphs)]
+    probs = [_forward(params, g) for g in graphs]
+
+    def decode_all(_k=None):
+        out = []
+        for i, (g, p) in enumerate(zip(graphs, probs)):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            out.append(refine_multi_start(g, p, gen, 200, 4))
+        return out
+
+    def timed_pass(mode: str):
+        tls.clear_climbs()
+        with eager_chunks(tls, mode == "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = decode_all()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / len(graphs)
+        tls.clear_climbs()
+        return res, ms
+
+    ms = {"captured": [], "eager": []}
+    results = {}
+    for mode in ("captured", "eager", "eager", "captured"):
+        res, t = timed_pass(mode)
+        ms[mode].append(t)
+        results.setdefault(mode, res)
+    same = all(torch.equal(a, b) and float(c) == float(d)
+               for (a, c), (b, d) in zip(results["captured"], results["eager"]))
+    check(same, "the captured climb's refined assignments equal the eager climb's bit for bit")
+    busy = {}
+    for mode in ("captured", "eager"):
+        tls.clear_climbs()
+        with eager_chunks(tls, mode == "eager"):
+            decode_all()                                 # the capture, outside the window
+            b = busy_share(torch, counters, f"default decode, {mode}", decode_all, 1, 1)
+        tls.clear_climbs()
+        busy[mode] = {**b, "wall_ms_per_graph": b["wall_ms_per_epoch"] / len(graphs)}
+    cuts = [float(c) for _, c in results["captured"]]
+    log(f"  default decode of the recipe's {len(graphs)} graphs (n=500): captured "
+        f"{min(ms['captured']):.3f} ms a graph (passes {ms['captured']}), eager "
+        f"{min(ms['eager']):.3f} (passes {ms['eager']}); busy share captured "
+        f"{busy['captured']['busy_share']}, eager {busy['eager']['busy_share']}; assignments "
+        f"equal: {same}; refined cuts {cuts}")
+    return {"graphs": len(graphs), "ms_per_graph": ms, "busy": busy, "equal": same,
+            "refined_cuts": cuts}
+
+
+def phase_timings(torch, counters, micro: dict, refine_s_at_500: float, recipe: dict) -> dict:
     """The recipe timings, ``bench --what train`` and ``--what post``, as
-    ``bench --what all`` printed them in the microbench phase."""
+    ``bench --what all`` printed them in the microbench phase, and the
+    default decode captured against eager (``decode_ms``)."""
     log("== timings")
     card = card_line()
+    decode = decode_ms(torch, counters, recipe["dataset"], recipe["final_checkpoint"])
     train, post = micro["train"], micro["post"]
-    log(f"  recipe epoch {train['epoch_time_s'] * 1e3:.3f} ms (best of 3 rounds of 10, mean "
-        f"{train['epoch_time_stats']['mean_s'] * 1e3:.3f} ms; first epoch "
+    log(f"  recipe epoch {train['epoch_time_s'] * 1e3:.3f} ms (the least of 3 differenced "
+        f"estimates, mean {train['epoch_time_stats']['mean_s'] * 1e3:.3f} ms; first chunk "
         f"{train['compile_time_s']:.2f} s; {train['speedup_vs_reference']:.1f}x the "
         f"reference's CPU epoch); post-processing n={post['n']}, {post['iterations']} "
         f"rollouts: {post['time_s'] * 1e3:.4f} ms; refined decode at n=500: "
         f"{refine_s_at_500 * 1e3:.3f} ms a graph; card: {card}")
     check(train["epoch_time_s"] > 0 and post["time_s"] > 0, "positive times")
-    return {"train": train, "post": post, "refine_s_at_500": refine_s_at_500, "card": card}
+    return {"train": train, "post": post, "refine_s_at_500": refine_s_at_500,
+            "decode": decode, "card": card}
 
 
 def phase_locality(torch, np, tbell, tb, loc) -> dict:
@@ -2475,6 +2547,7 @@ def phase_chunks(torch, np, counters, giant, tgiant, tgb, thybrid, tpart, make_m
     from gcn_maxcut_tpu_torch.core.graph import pad_graph_batch
     from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset
     from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+    from gcn_maxcut_tpu_torch.train import chunks as tchunks
     from gcn_maxcut_tpu_torch.train import loop as tloop
     from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
     from gcn_maxcut_tpu_torch.train.config import TrainingConfig
@@ -2534,26 +2607,26 @@ def phase_chunks(torch, np, counters, giant, tgiant, tgb, thybrid, tpart, make_m
     out["recipe"] = {**out["recipe"], "runs": recipe, "busy": busy}
 
     # 2. the single-chip giant trainers: packed (K3) and plain (K2)
-    runs = trainer_runs(torch, counters, giant, lambda K: giant.train_banded_giant_packed(
+    runs = trainer_runs(torch, counters, tchunks, lambda K: giant.train_banded_giant_packed(
         epochs=CHUNK_EPOCHS, epochs_per_call=K, device="cuda"))
     out["giant_packed"] = held_equal(f"packed giant n={GIANT_N}", runs,
                                      {"banded_spmm_unit_packed": 6}, True)
     out["giant_packed"]["traced_launches"] = traced_launches(
         torch, counters, f"packed giant K={CHUNK_K}", lambda: giant.train_banded_giant_packed(
             epochs=CHUNK_EPOCHS, epochs_per_call=CHUNK_K, device="cuda"))[1]
-    runs = trainer_runs(torch, counters, giant, lambda K: giant.train_banded_giant(
+    runs = trainer_runs(torch, counters, tchunks, lambda K: giant.train_banded_giant(
         n=PLAIN_N, epochs=CHUNK_EPOCHS, epochs_per_call=K, device="cuda"))
     out["giant_plain"] = held_equal(f"plain giant n={PLAIN_N}", runs,
                                     {"banded_spmm_unit": 2, "banded_spmm_unit_window": 4}, True)
 
     # 3. the halo trainers on a 4-shard ring of the card (K6; K5)
     ring = make_mesh(devices=["cuda:0"] * HALO_SHARDS)
-    runs = trainer_runs(torch, counters, giant, lambda K: tgb.train_halo_giant_packed(
+    runs = trainer_runs(torch, counters, tchunks, lambda K: tgb.train_halo_giant_packed(
         HALO_PACKED_SHARD, tgb.PackedHaloGiantConfig(epochs=CHUNK_EPOCHS, epochs_per_call=K),
         ring))
     out["halo_packed"] = held_equal(f"packed halo, {HALO_SHARDS} shards", runs,
                                     {"halo_banded_spmm_unit_packed": 6 * HALO_SHARDS}, True)
-    runs = trainer_runs(torch, counters, giant, lambda K: tgb.train_halo_giant(
+    runs = trainer_runs(torch, counters, tchunks, lambda K: tgb.train_halo_giant(
         HALO_PLAIN_SHARD, tgb.HaloGiantConfig(epochs=CHUNK_EPOCHS, epochs_per_call=K), ring))
     out["halo_plain"] = held_equal(f"plain halo, {HALO_SHARDS} shards", runs,
                                    {"halo_banded_spmm": 4 * HALO_SHARDS,
@@ -2567,7 +2640,7 @@ def phase_chunks(torch, np, counters, giant, tgiant, tgb, thybrid, tpart, make_m
                                      base.hidden_dim, base.num_classes, base.seed)
             params["embed"] = params["embed"].reshape(mesh.size, sg.n_shard, -1)
             state = tgiant.GiantState.create(params, mesh, base.learning_rate)
-            with eager_chunks(tgiant, capture is False):
+            with eager_chunks(tchunks, capture is False):
                 return tgiant.make_giant_step(
                     sg, mesh, dataclasses.replace(base, epochs_per_call=K), state)
         return make
@@ -2644,10 +2717,13 @@ def cli_lines(cli_main, argv: list) -> dict:
     return merged
 
 
-def phase_microbench(counters, cli_main) -> dict:
+def phase_microbench(counters, cli_main, chunk_recipe_ms: float) -> dict:
     """``bench --what all`` on the card: spmm (K1), banded (K2, K4), train
     and post, in that order, through the CLI, the counters read after the
-    whole command."""
+    whole command.  ``train`` is the recipe's epoch in captured chunks,
+    differenced as the JAX package times it; it is held within [0.75, 1.33]
+    of ``chunk_recipe_ms``, the chunks phase's recipe epoch at K = 10 (CUDA
+    events over chunks that end in their host reads)."""
     log("== microbench")
     reset_all(counters)
     res = cli_lines(cli_main, ["bench", "--what", "all", "--device", "cuda"])
@@ -2677,9 +2753,18 @@ def phase_microbench(counters, cli_main) -> dict:
         f"{banded['hbm_regime_gbps']:.1f} GB/s), K4 "
         f"{banded['hbm_regime_weighted_fwd_edges_per_s']:.4g} "
         f"({banded['hbm_regime_weighted_fraction']:.4f})")
-    log(f"  train: recipe epoch {res['train']['epoch_time_s'] * 1e3:.3f} ms; post: "
+    train_ms = res["train"]["epoch_time_s"] * 1e3
+    ratio = train_ms / chunk_recipe_ms
+    log(f"  train: recipe epoch {train_ms:.3f} ms (captured chunks of 20 less chunks of 5, "
+        f"best of 3 estimates, {res['train']['epoch_time_stats']['n_valid']} valid; first "
+        f"chunk {res['train']['compile_time_s']:.3f} s), the chunks phase's recipe epoch at "
+        f"K={CHUNK_K} {chunk_recipe_ms:.3f} ms, ratio {ratio:.4f}; post: "
         f"{res['post']['time_s'] * 1e3:.4f} ms at n={res['post']['n']}; launches {launches}; "
         f"card: {card_line()}")
+    check(0.75 <= ratio <= 1.33, "bench --what train's captured epoch within [0.75, 1.33] of "
+                                 "the chunks phase's recipe epoch")
+    res["train"]["chunks_recipe_k10_ms"] = chunk_recipe_ms
+    res["train"]["ratio_to_chunks_recipe"] = ratio
     check(launches["block_ell_spmm"] == 3 * (2 + 10), "K1 launched 3 times a timed call (36)")
     check(launches["banded_spmm_unit"] == 3 * (2 + 30) + (2 + 10),
           "K2 launched halo_stream.cu 108 times (F = 128)")
@@ -2703,10 +2788,12 @@ def _undirected(np, g):
 def phase_solvers(torch, np, counters, cli_main, recipe_checkpoint: str) -> dict:
     """The classical solvers, ``solve``, ``convert``, the baseline stats and
     the examples on the card."""
+    from gcn_maxcut_tpu_torch.baselines import local_search as tls
     from gcn_maxcut_tpu_torch.baselines.exact import (
         _sa_restart_batch_from_draws,
         brute_force_maxcut,
     )
+    from gcn_maxcut_tpu_torch.baselines.local_search import simulated_annealing_from_draws
     from gcn_maxcut_tpu_torch.data.enhanced import compute_baseline_stats
     from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset
     from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
@@ -2778,6 +2865,35 @@ def phase_solvers(torch, np, counters, cli_main, recipe_checkpoint: str) -> dict
     log(f"  SA chains n={n} R={chains} {steps} steps + climb: card {float(c_c)} "
         f"({sa_card_s:.3f} s, {steps / sa_card_s:.1f} lockstep steps/s), CPU {float(c_h)} "
         f"({sa_cpu_s:.3f} s); assignments {'equal' if same else 'differ'}; card: {card}")
+
+    # 2b. the chains alone at solve --n 500's shape: captured against eager
+    #     on one set of draws, in turns (captured, eager, eager, captured)
+    n, d, chains, steps = SOLVER_SA_LOCKSTEP
+    g5 = graph(n, d, 500).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.arange(g5.n_pad, device="cuda")
+    init = torch.where(ids < 3, ids, torch.randint(0, 3, (chains, g5.n_pad), generator=gen,
+                                                   device="cuda"))
+    draws = (torch.randint(3, g5.n_pad, (chains, steps), generator=gen, device="cuda"),
+             torch.randint(0, 3, (chains, steps), generator=gen, device="cuda"),
+             torch.rand((chains, steps), generator=gen, device="cuda"))
+    sa_s, sa_res = {"captured": [], "eager": []}, {}
+    for mode in ("captured", "eager", "eager", "captured"):
+        with eager_chunks(tls, mode == "eager"):
+            r, t = timed(lambda: simulated_annealing_from_draws(g5, init, *draws))
+        sa_s[mode].append(t)
+        sa_res.setdefault(mode, r)
+    (a_cap, c_cap), (a_eag, c_eag) = sa_res["captured"], sa_res["eager"]
+    check(torch.equal(a_cap, a_eag) and torch.equal(c_cap, c_eag),
+          "SA chains: captured and eager best assignments and cuts equal bit for bit")
+    rates = {m: steps / min(v) for m, v in sa_s.items()}
+    out["sa_lockstep"] = {"n": n, "d": d, "chains": chains, "steps": steps, "seconds": sa_s,
+                          "steps_per_s": rates, "equal": True,
+                          "best_cut": float(c_cap.max())}
+    log(f"  SA chains alone n={n} d={d} R={chains} {steps} steps (each call captures its "
+        f"step): captured {rates['captured']:.1f} lockstep steps/s (runs {sa_s['captured']} "
+        f"s), eager {rates['eager']:.1f} (runs {sa_s['eager']} s), "
+        f"{rates['captured'] / rates['eager']:.2f}x; results equal; card: {card}")
 
     # 3. solve: the anytime solver's SA branch and its exact branch
     res = cli_json(cli_main, SOLVE_ANYTIME)
@@ -2948,9 +3064,11 @@ def main() -> int:
                                     random_regular_edges)
     report["solvers"] = phase_solvers(torch, np, (tbell, tb, th, tpk), cli_main,
                                       report["recipe"]["final_checkpoint"])
-    report["microbench"] = phase_microbench((tbell, tb, th, tpk), cli_main)
-    report["timings"] = phase_timings(report["microbench"],
-                                      report["quality"]["per_size"][500]["refine_time_s"])
+    report["microbench"] = phase_microbench((tbell, tb, th, tpk), cli_main,
+                                            report["chunks"]["recipe"]["k10"]["epoch_ms"])
+    report["timings"] = phase_timings(torch, (tbell, tb, th, tpk), report["microbench"],
+                                      report["quality"]["per_size"][500]["refine_time_s"],
+                                      report["recipe"])
     report["seconds"] = time.perf_counter() - t_start
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=float))
 

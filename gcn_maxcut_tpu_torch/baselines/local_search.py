@@ -15,6 +15,19 @@ the others go on, as in the JAX loop.  ``simulated_annealing_from_draws``
 likewise takes R chains ``[R, n_pad]`` that step in lockstep (the batched
 restarts of ``exact.anytime_solver``).
 
+Both loops run as the JAX package runs them, in one device call, as far as
+a card allows: a lockstep step is the step of a ``train.chunks.
+ChunkRunner``, on the card captured once into a CUDA graph and replayed a
+step at a time, the host reading once a block of steps (the climb's stop
+flag every ``_SYNC_EVERY`` steps, the chains every ``_SA_BLOCK``).
+The climb's step works on buffers of one padded shape (n_pad, e_pad,
+starts, k, fixed ids) into which each graph and its starts are copied, so
+one capture serves every graph of that shape: the card keeps the last
+``_CLIMBS_KEPT`` such climbs.  The chains read step t's draws and
+temperature through a step index held on the device.  On the CPU the same
+steps run eagerly, on the caller's tensors.  ``clear_climbs()`` drops the
+kept climbs and their graphs' memory.
+
 Random draws come from an explicit ``torch.Generator``.  Each randomized
 search also has a ``*_from_draws`` form that takes its draws as tensors,
 so that a test can feed it the JAX package's draws.
@@ -22,6 +35,7 @@ so that a test can feed it the JAX package's draws.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -30,10 +44,20 @@ import torch
 from gcn_maxcut_tpu_torch.core.graph import Graph
 from gcn_maxcut_tpu_torch.objectives.cut_loss import hard_cut_value
 from gcn_maxcut_tpu_torch.ops.segment import spmm
+from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
 
 # The climb reads "did any start improve?" on the host once every this many
 # steps (a read per step would be one host round trip per move).
 _SYNC_EVERY = 16
+# The SA chains run in chunks of at most this many steps, one host read each.
+_SA_BLOCK = 1024
+# Captured climbs the card keeps, the most recently used (see _Climb).
+_CLIMBS_KEPT = 4
+_CLIMBS: "OrderedDict[tuple, _Climb]" = OrderedDict()
+# The graph fields a climb copies in: those its step reads, and the rest a
+# Graph must hold.
+_CLIMB_FIELDS = ("senders", "receivers", "weights", "edge_mask", "row_ptr", "degrees",
+                 "node_mask", "n_nodes", "n_edges")
 
 
 def _class_weights(g: Graph, assignment: torch.Tensor, k: int) -> torch.Tensor:
@@ -63,6 +87,62 @@ def _move_gains(
     return torch.where(stay, -torch.inf, gains)
 
 
+class _Climb:
+    """The lockstep climb of ``starts`` assignments on graphs of one padded
+    shape, on one device: a ``ChunkRunner`` over one step on the starts'
+    buffer and a graph.  On the card the graph is a set of buffers (the
+    step captured at the first block and replayed after), into which
+    ``run`` copies each graph; elsewhere it is ``g`` itself."""
+
+    def __init__(self, g: Graph, starts: int, k: int, num_fixed: int):
+        self.g = (Graph(**{f: getattr(g, f).clone() for f in _CLIMB_FIELDS})
+                  if g.device.type == "cuda" else g)
+        self.asn = torch.zeros((starts, g.n_pad), dtype=torch.int64, device=g.device)
+        self.rows = torch.arange(starts, device=g.device)
+        self.k, self.num_fixed = k, num_fixed
+        self.runner = ChunkRunner(self._step, [g.device], _SYNC_EVERY)
+
+    def _step(self) -> Tuple[None, torch.Tensor]:
+        """One move a start, the first best (row-major over ``[n_pad, k]``)
+        strictly improving one, gain > 1e-6; returns (no loss, no start
+        moved)."""
+        asn, rows, k = self.asn, self.rows, self.k
+        gains = _move_gains(self.g, asn, k, self.num_fixed).reshape(asn.shape[0], -1)
+        flat = torch.argmax(gains, dim=1)
+        take = gains[rows, flat] > 1e-6
+        i, c = flat // k, flat % k
+        asn[rows, i] = torch.where(take, c, asn[rows, i])
+        return None, ~take.any()
+
+    def run(self, g: Graph, asn: torch.Tensor, max_steps: int) -> torch.Tensor:
+        if self.g is not g:
+            for f in _CLIMB_FIELDS:
+                getattr(self.g, f).copy_(getattr(g, f))
+        self.asn.copy_(asn)
+        self.runner.run_many(max_steps, until_stop=True)
+        return self.asn.clone()
+
+
+def _climb(g: Graph, starts: int, k: int, num_fixed: int) -> _Climb:
+    """The climb for ``g``'s padded shape: on the card the one kept for it
+    (built at first use; the least recently used of more than
+    ``_CLIMBS_KEPT`` is dropped), elsewhere a new one."""
+    if g.device.type != "cuda":
+        return _Climb(g, starts, k, num_fixed)
+    key = (g.device, g.n_pad, g.e_pad, starts, k, num_fixed)
+    climb = _CLIMBS.pop(key, None) or _Climb(g, starts, k, num_fixed)
+    _CLIMBS[key] = climb
+    while len(_CLIMBS) > _CLIMBS_KEPT:
+        _CLIMBS.popitem(last=False)
+    return climb
+
+
+def clear_climbs() -> None:
+    """Drop the climbs the card keeps (their captured steps, memory pools
+    and graph buffers); the next climb of each shape captures again."""
+    _CLIMBS.clear()
+
+
 def greedy_flip_local_search(
     g: Graph,
     assignment: torch.Tensor,
@@ -75,22 +155,13 @@ def greedy_flip_local_search(
     the input.
 
     Each step applies, per start, the first best (row-major over
-    ``[n_pad, k]``) strictly improving move, gain > 1e-6.
+    ``[n_pad, k]``) strictly improving move, gain > 1e-6.  The steps run in
+    blocks of ``_SYNC_EVERY`` (the last block shorter), and the climb stops
+    after a block whose last step moved no start.
     """
     batched = assignment.dim() == 2
-    asn = (assignment if batched else assignment[None]).long().clone()
-    rows = torch.arange(asn.shape[0], device=asn.device)
-    steps = 0
-    while steps < max_steps:
-        for _ in range(min(_SYNC_EVERY, max_steps - steps)):
-            gains = _move_gains(g, asn, k, num_fixed).reshape(asn.shape[0], -1)
-            flat = torch.argmax(gains, dim=1)
-            take = gains[rows, flat] > 1e-6
-            i, c = flat // k, flat % k
-            asn[rows, i] = torch.where(take, c, asn[rows, i])
-            steps += 1
-        if not bool(take.any()):
-            break
+    asn = (assignment if batched else assignment[None]).long()
+    asn = _climb(g, asn.shape[0], k, num_fixed).run(g, asn, max_steps)
     out = asn if batched else asn[0]
     return out, hard_cut_value(g, out)
 
@@ -115,7 +186,8 @@ def simulated_annealing_from_draws(
     package ``vmap``s its ``lax.scan``).  Each chain's W update is one
     ``index_add_`` over the flattened [R·n_pad] rows, the edge test on
     [R, e_pad].  One chain, [n_pad] with draws [steps], is the batch of
-    one.
+    one.  The steps run in chunks of ``_SA_BLOCK`` (on the card one
+    captured step replayed), reading step t's draws at a device index.
     """
     batched = assignment.dim() == 2
     if not batched:
@@ -135,26 +207,32 @@ def simulated_annealing_from_draws(
     # every chain's senders as rows of the flattened [R·n_pad] update
     flat_senders = (rows[:, None] * g.n_pad + senders[None, :]).reshape(-1)
     eye = torch.eye(k, device=dev)
-    for t in range(steps):
-        i, c = nodes[:, t], classes[:, t]
+    t = torch.zeros(1, dtype=torch.int64, device=dev)     # the step, on the device
+
+    def step() -> None:
+        i, c = nodes.index_select(1, t)[:, 0], classes.index_select(1, t)[:, 0]
         a = asn[rows, i]
         delta = w[rows, i, a] - w[rows, i, c]     # the cut grows by delta
         legal = (c != a) & (g.node_mask[i] > 0)
         accept = legal & (
             (delta > 0)
-            | (uniforms[:, t] < torch.exp(torch.clamp(delta / ts[t], max=0.0)))
+            | (uniforms.index_select(1, t)[:, 0]
+               < torch.exp(torch.clamp(delta / ts.index_select(0, t), max=0.0)))
         )
         # every neighbour j of i moves w_ij from column a to column c
         wts = torch.where((receivers[None, :] == i[:, None]) & real, g.weights, 0.0)
         upd = torch.zeros(chains * g.n_pad, device=dev).index_add_(
             0, flat_senders, wts.reshape(-1)).view(chains, g.n_pad)
         move = eye[c] - eye[a]                    # [R, k]
-        w = torch.where(accept[:, None, None], w + upd[:, :, None] * move[:, None, :], w)
+        torch.where(accept[:, None, None], w + upd[:, :, None] * move[:, None, :], w, out=w)
         asn[rows, i] = torch.where(accept, c, a)
-        cut = torch.where(accept, cut + delta, cut)
+        torch.where(accept, cut + delta, cut, out=cut)
         better = cut > best_cut
-        best_asn = torch.where(better[:, None], asn, best_asn)
-        best_cut = torch.where(better, cut, best_cut)
+        torch.where(better[:, None], asn, best_asn, out=best_asn)
+        torch.where(better, cut, best_cut, out=best_cut)
+        t.add_(1)
+
+    ChunkRunner(step, [dev], max(1, min(steps, _SA_BLOCK))).run_many(steps)
     if not batched:
         return best_asn[0], best_cut[0]
     return best_asn, best_cut

@@ -47,7 +47,7 @@ from gcn_maxcut_tpu_torch.models.gcn import gcn_conv_init
 from gcn_maxcut_tpu_torch.ops.banded import banded_spmm_unit, banded_spmm_unit_packed
 from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
 from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner, chunk_sizes
+from gcn_maxcut_tpu_torch.train.chunks import chunk_sizes, chunk_step
 from gcn_maxcut_tpu_torch.train.optim import Adam
 
 G = 16  # lane-group width of the packed layout (classes padded to it)
@@ -59,6 +59,31 @@ def circulant_offsets(d: int, bandwidth: int, seed: int) -> tuple[int, ...]:
     rng = np.random.default_rng(seed)
     half = rng.choice(np.arange(1, bandwidth + 1), size=d // 2, replace=False)
     return tuple(int(o) for s in half for o in (s, -s))
+
+
+def banded_gcn_conv(
+    params: Dict[str, torch.Tensor], x: torch.Tensor, offsets: Sequence[int],
+    degree: int, block: int | None = None,
+) -> torch.Tensor:
+    """GraphConv (norm='both') on an exactly regular circulant graph:
+    ``(A · (x / √degree)) · W / √degree + b`` with A the circulant operator
+    of ``offsets`` (``ops/banded.banded_spmm_unit``, K2 on the card).
+
+    The projection runs first when it narrows the rows (out < in), so the
+    aggregation runs at the smaller width: DGL's rule, by FLOPs.  The JAX
+    package first prefers the 128-lane-aligned side (its Pallas kernel
+    takes only those widths), which is TPU mechanism: at 16 → 128 it
+    projects first, at 128 → 16 it aggregates first, the other way round
+    from this function.  The two orders are the same product, equal up to
+    float order.  ``block`` is the JAX kernel's row block, which the CUDA
+    kernel does not take; it is accepted and ignored."""
+    norm = 1.0 / math.sqrt(float(degree))
+    h = x * norm
+    if params["w"].shape[1] < params["w"].shape[0]:
+        h = banded_spmm_unit(h @ params["w"], offsets)
+    else:
+        h = banded_spmm_unit(h, offsets) @ params["w"]
+    return h * norm + params["b"]
 
 
 def _init_params(
@@ -157,33 +182,23 @@ def _seconds(fn: Callable[[], None], devices: Sequence[torch.device]) -> float:
 
 
 def _train(
-    loss_fn: Callable[[], torch.Tensor],
-    leaves: List[torch.Tensor],
-    optimizer: Adam,
+    chunk: Callable[[int], np.ndarray],
     devices: Sequence[torch.device],
     chunks: Sequence[int],
     on_chunk: Callable[[int, List[float]], None] | None = None,
 ) -> tuple[List[float], float, float]:
-    """Adam steps on ``leaves`` in chunks of ``chunks[i]`` epochs
-    (``train/chunks.py``: one CUDA graph replayed on the card); returns
-    (loss history, the first chunk's seconds, the mean seconds an epoch of
-    the later chunks, or of the first when it is the only one).  The first
-    chunk pays the kernels' build and the capture, on the host clock; the
-    later ones are timed with CUDA events on the card.  The loss lives on
-    ``devices[0]``; every device is synchronised before a time is read.
-    After each chunk but the last, ``on_chunk(epochs done in this call,
-    history so far)`` runs outside the timed stretches."""
-
-    def step() -> torch.Tensor:
-        loss = loss_fn()
-        optimizer.step(torch.autograd.grad(loss, leaves))
-        return loss.detach()
-
-    runner = ChunkRunner(step, devices, max(chunks), optimizer=optimizer)
+    """Runs ``chunk`` (``chunk_step``) on ``chunks[i]`` epochs in turn;
+    returns (loss history, the first chunk's seconds, the mean seconds an
+    epoch of the later chunks, or of the first when it is the only one).
+    The first chunk pays the kernels' build and the capture, on the host
+    clock; the later ones are timed with CUDA events on the card.  Every
+    device is synchronised before a time is read.  After each chunk but
+    the last, ``on_chunk(epochs done in this call, history so far)`` runs
+    outside the timed stretches."""
     history: List[float] = []
 
     def run(k: int) -> None:
-        history.extend(float(v) for v in runner.run(k)[0])
+        history.extend(float(v) for v in chunk(k))
 
     t0 = time.perf_counter()
     run(chunks[0])
@@ -274,27 +289,18 @@ def train_banded_giant(
               for k, v in params.items()}
     for t in _leaves(params):
         t.requires_grad_(True)
-    norm = 1.0 / math.sqrt(float(d))
-
-    def conv(p, x):
-        h = x * norm
-        if p["w"].shape[0] > p["w"].shape[1]:
-            h = banded_spmm_unit(h @ p["w"], offsets)
-        else:
-            h = banded_spmm_unit(h, offsets) @ p["w"]
-        return h * norm + p["b"]
 
     def loss_fn(p):
-        h = torch.relu(conv(p["conv1"], p["embed"]))
-        probs = torch.softmax(conv(p["conv2"], h), dim=-1)
+        h = torch.relu(banded_gcn_conv(p["conv1"], p["embed"], offsets, d))
+        probs = torch.softmax(banded_gcn_conv(p["conv2"], h, offsets, d), dim=-1)
         onehot = ste_argmax_onehot(pin_terminals(probs))
         same = torch.dot(onehot.reshape(-1), banded_spmm_unit(onehot, offsets).reshape(-1))
         return -(e_undirected - 0.5 * same)
 
     optimizer = Adam(_leaves(params), learning_rate)
     chunks = chunk_sizes(0, epochs, epochs_per_call, first_two=True)
-    history, first, steady = _train(
-        lambda: loss_fn(params), _leaves(params), optimizer, [dev], chunks)
+    chunk = chunk_step(lambda: loss_fn(params), _leaves(params), optimizer, [dev], max(chunks))
+    history, first, steady = _train(chunk, [dev], chunks)
     return _result(n, d, sum(chunks), history, first, steady, "plain", offsets)
 
 
@@ -424,8 +430,8 @@ def train_banded_giant_packed(
                 and start + done < epochs:
             save(start + done, history + hist)
 
-    new, first, steady = _train(
-        lambda: loss_fn(params), _leaves(params), optimizer, [dev], chunks, on_chunk)
+    chunk = chunk_step(lambda: loss_fn(params), _leaves(params), optimizer, [dev], max(chunks))
+    new, first, steady = _train(chunk, [dev], chunks, on_chunk)
     history += new
     epochs = start + sum(chunks)
     if checkpoint_path is not None:

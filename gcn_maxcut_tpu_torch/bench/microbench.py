@@ -6,8 +6,10 @@ Port of ``bench_spmm``, ``bench_spmm_banded``, ``bench_train_epoch`` and
 results carry the JAX package's keys, plus ``device``.  Times are CUDA
 events around each call on the card (best of ``iters`` after warm-up;
 ``{best_s, mean_s, spread_s, spread_frac, n, n_valid}``), the host clock on
-the CPU, where the numbers are no device metric.  The roofline is ``bench/roofline.py``'s least-bytes
-bound on an H100.
+the CPU, where the numbers are no device metric; ``bench_train_epoch``
+differences chunks of captured epochs on a synchronised host clock, as the
+JAX package times its epoch.  The roofline is ``bench/roofline.py``'s
+least-bytes bound on an H100.
 """
 
 from __future__ import annotations
@@ -273,25 +275,16 @@ def bench_spmm_banded(
     return res
 
 
-def recipe_trainer(
-    num_graphs: int = 20,
-    n: int = 500,
-    d_range=(6, 8),
-    max_nodes: int = 1000,
-    seed: int = 1000,
-    device: str | torch.device | None = None,
-):
+def _recipe_setup(num_graphs: int, n: int, d_range, max_nodes: int, seed: int, dev):
     """The reference recipe's training set-up (``num_graphs`` d-regular
-    graphs, 1000-wide features, the default ``TrainingConfig``) on the
-    device.  Returns ``(state, run_epoch)``: the train state and a function
-    that runs one epoch as ``train_model`` does and returns its loss."""
+    graphs, 1000-wide features, the default ``TrainingConfig``): the
+    stacked batch on the host, the config and a train state on ``dev``."""
     from gcn_maxcut_tpu_torch.core.graph import pad_graph_batch
     from gcn_maxcut_tpu_torch.data.generate import generate_graph
     from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
     from gcn_maxcut_tpu_torch.train.config import TrainingConfig
-    from gcn_maxcut_tpu_torch.train.loop import _run_epoch, epoch_inputs, setup_train_state
+    from gcn_maxcut_tpu_torch.train.loop import setup_train_state
 
-    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     specs = []
     while len(specs) < num_graphs:
@@ -300,12 +293,30 @@ def recipe_trainer(
             continue
         specs.append(generate_graph(n=n, d=deg, graph_type="reg", seed=seed + len(specs)))
     ds = process_graphs(specs, DataConfig(max_nodes=max_nodes))
-    batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)]).to(dev)
+    batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
     cfg = TrainingConfig(n_nodes=max_nodes)
-    state = setup_train_state(cfg, device=dev)
-    inputs = epoch_inputs(batch, cfg)
+    return batch, cfg, setup_train_state(cfg, device=dev)
+
+
+def recipe_trainer(
+    num_graphs: int = 20,
+    n: int = 500,
+    d_range=(6, 8),
+    max_nodes: int = 1000,
+    seed: int = 1000,
+    device: str | torch.device | None = None,
+):
+    """The reference recipe's training set-up on the device.  Returns
+    ``(state, run_epoch)``: the train state and a function that runs one
+    eager epoch as ``train_model`` does and returns its loss."""
+    from gcn_maxcut_tpu_torch.train.loop import make_epoch_fn
+
+    dev = resolve_device(device)
+    batch, cfg, state = _recipe_setup(num_graphs, n, d_range, max_nodes, seed, dev)
+    epoch_fn = make_epoch_fn(cfg, state)
+    inputs = epoch_fn.epoch_inputs(batch)
     gen = torch.Generator(device=dev).manual_seed(0)
-    return state, lambda: _run_epoch(state, inputs, gen)
+    return state, lambda: epoch_fn.run_epoch(inputs, gen)
 
 
 def bench_train_epoch(
@@ -318,37 +329,67 @@ def bench_train_epoch(
     device: str | torch.device | None = None,
 ) -> Dict[str, float]:
     """The reference recipe's epoch (20 graphs n = 500, d ∈ [6, 8],
-    1000-wide features, per-graph Adam steps) as the trainer runs it.
+    1000-wide features, per-graph Adam steps) inside one device call, as
+    the JAX package times it.
 
-    One warm-up epoch (``compile_time_s``: the first epoch's host-clock
-    seconds), then three rounds of ``epochs_timed`` epochs, each round
-    timed with CUDA events on the card (the host clock on the CPU); the
-    epoch time is the best round's mean.  ``speedup_vs_reference`` divides
-    the reference's CPU epoch, 171.81 s / 486 epochs (BASELINE.md §4).
+    The epochs run through ``train/loop.make_epoch_fn``: on the card an
+    epoch captured once and replayed, one host read a chunk.  Chunks of
+    k_hi = max(20, 2·``epochs_timed``) and k_lo = 5 epochs, each the best of
+    3 on a host clock between synchronisations that includes the chunk's
+    host read, are differenced: (best k_hi − best k_lo) / (k_hi − k_lo)
+    cancels the per-chunk cost.  Three such estimates; the epoch time is
+    the least, ``epoch_time_stats`` their mean and spread (``n_valid``
+    counts the positive differences).  ``compile_time_s``: the first chunk
+    of k_lo epochs, which builds the epoch's inputs and captures the epoch.
+    ``final_epoch_loss``: as in the JAX package, the loss of the last of
+    k_hi epochs from the initial parameters (the state is set back to them,
+    and the generator to its seed, after the timing).
+    ``speedup_vs_reference`` divides the reference's CPU epoch, 171.81 s /
+    486 epochs (BASELINE.md §4).  On the CPU the same epochs run eagerly
+    and the numbers are no device metric.
     """
+    from gcn_maxcut_tpu_torch.train.loop import make_epoch_fn
+
     dev = resolve_device(device)
-    _, run_epoch = recipe_trainer(num_graphs, n, d_range, max_nodes, seed, dev)
+    batch, cfg, state = _recipe_setup(num_graphs, n, d_range, max_nodes, seed, dev)
+    k_hi, k_lo = max(20, 2 * epochs_timed), 5
+    epoch_fn = make_epoch_fn(cfg, state, max_chunk=k_hi)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    start = state.params(), state.opt_state()
 
-    def run_epochs():
-        return [run_epoch() for _ in range(epochs_timed)]
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
-    t0 = time.perf_counter()
-    run_epoch()
-    compile_time = time.perf_counter() - t0
-    stats = time_stats(run_epochs, dev, 3, warmup=0)
-    losses = run_epochs()
+    def run(k: int) -> float:
+        sync()
+        t0 = time.perf_counter()
+        epoch_fn(batch, gen, k)
+        sync()
+        return time.perf_counter() - t0
+
+    compile_time = run(k_lo)
+    estimates = []
+    for _ in range(3):
+        best = {k: min(run(k) for _ in range(3)) for k in (k_hi, k_lo)}
+        d_t = best[k_hi] - best[k_lo]
+        if d_t > 0:
+            estimates.append(d_t / (k_hi - k_lo))
+    epoch_time = min(estimates) if estimates else float("nan")
+    state.load(*start)
+    gen.manual_seed(0)
+    losses = epoch_fn(batch, gen, k_hi)
     ref_epoch_time = 171.81 / 486.0
-    epoch_time = stats["best_s"] / epochs_timed
     return {
         "num_graphs": num_graphs,
         "n": n,
         "epoch_time_s": epoch_time,
         "epoch_time_stats": {
             "best_s": epoch_time,
-            "mean_s": stats["mean_s"] / epochs_timed,
-            "spread_s": stats["spread_s"] / epochs_timed,
-            "n": stats["n"],
-            "n_valid": stats["n_valid"],
+            "mean_s": sum(estimates) / len(estimates) if estimates else float("nan"),
+            "spread_s": max(estimates) - min(estimates) if estimates else float("nan"),
+            "n": 3,
+            "n_valid": len(estimates),
         },
         "compile_time_s": compile_time,
         "final_epoch_loss": float(losses[-1]),

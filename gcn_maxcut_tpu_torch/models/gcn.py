@@ -20,13 +20,16 @@ sigmoid, on the same layer and its order rule.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 from torch import nn
 
 from gcn_maxcut_tpu_torch.core.graph import Graph
 from gcn_maxcut_tpu_torch.ops.segment import spmm
+
+GCNParams = Dict[str, torch.Tensor]         # one conv layer: {"w", "b"}
+GCNSoftmaxParams = Dict[str, Any]           # {"conv1": GCNParams, "conv2": ...}
 
 
 def _glorot_uniform(

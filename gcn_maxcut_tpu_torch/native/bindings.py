@@ -13,7 +13,9 @@ compiled with ``native/Makefile``'s flags into
 ``build/native/libgraphtools.so`` at the repository root (``native/`` is
 never written).  If neither loads nor builds, every entry point raises:
 there is no silent fallback to the Python sampler, which draws other
-graphs.  Where a JAX entry point returns None when the library is
+graphs.  ``build`` compiles ``build/native/libgraphtools.so`` on request
+and reports success, as the JAX package's ``build`` does for its own
+path.  Where a JAX entry point returns None when the library is
 unavailable, the port's raises ``RuntimeError`` instead.
 """
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 import os
 import subprocess
 import tempfile
@@ -28,6 +31,8 @@ from pathlib import Path
 from typing import Tuple
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 ROOT = Path(__file__).resolve().parents[2]
 _COMMITTED = ROOT / "native" / "libgraphtools.so"
@@ -81,6 +86,21 @@ def _build() -> Path:
         raise RuntimeError(f"building {_SOURCE} failed:\n{proc.stderr}")
     os.replace(tmp, BUILT)
     return BUILT
+
+
+def build(force: bool = False) -> bool:
+    """Compile ``native/graphtools.cpp`` into ``BUILT``; returns success
+    (a compiler that is missing or fails logs a warning).  An existing
+    ``BUILT`` counts as success unless ``force``.  ``library()`` loads the
+    committed library first and ``BUILT`` only where that does not load."""
+    if BUILT.exists() and not force:
+        return True
+    try:
+        _build()
+    except (OSError, RuntimeError) as e:
+        logger.warning("native build failed: %s", e)
+        return False
+    return True
 
 
 @functools.cache

@@ -37,7 +37,6 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
-from gcn_maxcut_tpu_torch.convert import params_from_jax
 from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
 from gcn_maxcut_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gcn_maxcut_tpu_torch.parallel.partition import (
@@ -48,7 +47,7 @@ from gcn_maxcut_tpu_torch.parallel.partition import (
 )
 from gcn_maxcut_tpu_torch.parallel.spmm import Blocks, sharded_cut_edgeform, sharded_gcn_conv
 from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+from gcn_maxcut_tpu_torch.train.chunks import chunk_step
 from gcn_maxcut_tpu_torch.train.optim import Adam
 
 logger = logging.getLogger(__name__)
@@ -115,27 +114,33 @@ class GiantState:
     optimizer: Adam
 
     @classmethod
-    def create(cls, params: Dict[str, Any], mesh: Mesh, learning_rate: float) -> "GiantState":
+    def create(cls, params: Dict[str, Any], mesh: Mesh, learning_rate: float,
+               mu_dtype: str | None = None) -> "GiantState":
         """From parameters in the JAX layout (numpy or tensors)."""
-        return cls.from_blocks(params, mesh.devices, learning_rate)
+        return cls.from_blocks(params, mesh.devices, learning_rate, mu_dtype)
 
     @classmethod
-    def from_blocks(cls, params: Dict[str, Any], devices, learning_rate: float) -> "GiantState":
-        """From parameters in the JAX layout with ``embed`` [len(devices),
-        n_shard, F]: the conv parameters on ``devices[0]``, embedding block i
-        on ``devices[i]`` (the hybrid trainer's blocks: every graph's
-        shards, graph by graph)."""
-        conv = params_from_jax({k: params[k] for k in ("conv1", "conv2")}, devices[0])
-        embed = np.asarray(params["embed"], dtype=np.float32)
-        if embed.shape[0] != len(devices):
-            raise ValueError(f"embedding of {embed.shape[0]} blocks for {len(devices)} devices")
-        for layer in conv.values():
-            for t in layer.values():
-                t.requires_grad_(True)
-        embeds = [torch.from_numpy(e.copy()).to(dev).requires_grad_(True)
-                  for e, dev in zip(embed, devices)]
+    def from_blocks(cls, params: Dict[str, Any], devices, learning_rate: float,
+                    mu_dtype: str | None = None) -> "GiantState":
+        """From parameters in the JAX layout (numpy or tensors) with
+        ``embed`` [len(devices), n_shard, F]: fresh float32 leaves, the
+        conv parameters on ``devices[0]``, embedding block i on
+        ``devices[i]`` (the hybrid trainer's blocks: every graph's shards,
+        graph by graph), and their Adam state (``mu_dtype``: the first
+        moment's dtype, by name; default float32)."""
+        def leaf(x, dev) -> torch.Tensor:
+            t = x.detach() if torch.is_tensor(x) else torch.from_numpy(np.array(x, np.float32))
+            return t.to(dev, torch.float32).clone().requires_grad_(True)
+
+        conv = {name: {k: leaf(t, devices[0]) for k, t in params[name].items()}
+                for name in ("conv1", "conv2")}
+        embed = params["embed"]
+        if len(embed) != len(devices):
+            raise ValueError(f"embedding of {len(embed)} blocks for {len(devices)} devices")
+        embeds = [leaf(e, dev) for e, dev in zip(embed, devices)]
         state = cls(conv, embeds, None)
-        state.optimizer = Adam(state.leaves(), learning_rate)
+        state.optimizer = Adam(state.leaves(), learning_rate,
+                               mu_dtype=None if mu_dtype is None else getattr(torch, mu_dtype))
         return state
 
     def leaves(self) -> List[torch.Tensor]:
@@ -186,11 +191,17 @@ class GiantState:
         self.optimizer.load(int(inner[".count"]), flat(inner[".mu"]), flat(inner[".nu"]))
 
 
+def _loss(state: GiantState, sg: ShardedGraph, mesh: Mesh, config: GiantConfig) -> torch.Tensor:
+    """The epoch's loss, −cut of the pinned straight-through assignment,
+    on the first mesh device."""
+    onehot = _forward(state.conv, state.embeds, sg, mesh, config)
+    return -sharded_cut_edgeform(sg, onehot, mesh, config.schedule)
+
+
 def _epoch(state: GiantState, sg: ShardedGraph, mesh: Mesh, config: GiantConfig) -> torch.Tensor:
     """One forward, backward and Adam step; the epoch's loss (before the
     update), on the first mesh device."""
-    onehot = _forward(state.conv, state.embeds, sg, mesh, config)
-    loss = -sharded_cut_edgeform(sg, onehot, mesh, config.schedule)
+    loss = _loss(state, sg, mesh, config)
     state.optimizer.step(torch.autograd.grad(loss, state.leaves()))
     return loss.detach()
 
@@ -203,19 +214,12 @@ def make_giant_step(
     (default ``config.epochs_per_call``, at most ``max_chunk``), each a
     forward, backward and Adam step updating ``state`` in place, and
     returns their losses (before each update) as a float32 host array,
-    read once.  On one card the epochs are one captured CUDA graph
-    replayed k times (``train/chunks.py``); ``chunk.runner`` is the
+    read once (``train/chunks.chunk_step``).  On one card the epochs are
+    one captured CUDA graph replayed k times; ``chunk.runner`` is the
     ``ChunkRunner``.  One callable takes any k, as the JAX
     ``dynamic_epochs`` executable does."""
-    K = max(1, config.epochs_per_call)
-    runner = ChunkRunner(lambda: _epoch(state, sg, mesh, config), mesh.devices,
-                         max(K, max_chunk or K), optimizer=state.optimizer)
-
-    def chunk(k: int = K) -> np.ndarray:
-        return runner.run(k)[0]
-
-    chunk.runner = runner
-    return chunk
+    return chunk_step(lambda: _loss(state, sg, mesh, config), state.leaves(),
+                      state.optimizer, mesh.devices, config.epochs_per_call, max_chunk)
 
 
 def decode_assignment(

@@ -20,8 +20,10 @@ Conv parameters live on the first mesh device; each shard uses
 JAX ``psum``).  Embeddings and their Adam moments stay on their shards.
 The loss is the sum of the per-shard losses, −(E − ½·Σ_c ⟨s_c, (A s)_c⟩),
 with one backward, so both trainers take the true global gradient.  Epochs
-run in chunks of ``epochs_per_call`` (``train/chunks.py``; on a ring of one
-card, one captured CUDA graph replayed an epoch at a time).  (The
+run in chunks of ``epochs_per_call``, built by ``make_halo_giant_step`` and
+``make_packed_halo_step`` (the JAX step builders) over a ``parallel.giant.
+GiantState`` updated in place (``train/chunks.py``; on a ring of one card,
+one captured CUDA graph replayed an epoch at a time).  (The
 JAX plain trainer differentiates through a ``psum``, which scales its
 embedding gradients by the device count; Adam hides that factor up to its
 eps.)  Terminals are the first k nodes of shard 0.  ``params`` takes the
@@ -36,8 +38,9 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from gcn_maxcut_tpu_torch.bench.giant_demo import (
@@ -57,9 +60,9 @@ from gcn_maxcut_tpu_torch.ops.halo import (
     halo_banded_spmm_unit_packed,
 )
 from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
+from gcn_maxcut_tpu_torch.parallel.giant import GiantState
 from gcn_maxcut_tpu_torch.parallel.mesh import Mesh, make_mesh
-from gcn_maxcut_tpu_torch.train.chunks import chunk_sizes
-from gcn_maxcut_tpu_torch.train.optim import Adam
+from gcn_maxcut_tpu_torch.train.chunks import chunk_sizes, chunk_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,61 +97,47 @@ class PackedHaloGiantConfig:
     act_dtype: str | None = None        # bf16 activations (opt-in)
 
 
-def _place(
-    params: Dict[str, Any], mesh: Mesh, rows: int
-) -> tuple[Dict[str, Dict[str, torch.Tensor]], List[torch.Tensor]]:
-    """Conv parameters on the first mesh device and the embedding cut into
-    ``rows``-row contiguous shards, one on each device: fresh leaves."""
-    dev0 = mesh.devices[0]
-    conv = {name: {k: t.to(dev0).clone().requires_grad_(True)
-                   for k, t in params[name].items()}
-            for name in ("conv1", "conv2")}
+def _blocks(params: Dict[str, Any], mesh: Mesh, rows: int) -> Dict[str, Any]:
+    """``params`` with the global embedding cut into ``rows``-row
+    contiguous shards, one a mesh device (``GiantState.create``'s
+    layout)."""
     embed = params["embed"]
     if embed.shape[0] != rows * mesh.size:
         raise ValueError(f"embedding has {embed.shape[0]} rows, need "
                          f"{rows} x {mesh.size} shards")
-    embeds = [embed[c * rows:(c + 1) * rows].to(dev).clone().requires_grad_(True)
-              for c, dev in enumerate(mesh.devices)]
-    return conv, embeds
+    return {**params, "embed": embed.reshape(mesh.size, rows, *embed.shape[1:])}
 
 
-def _run(loss_fn, conv, embeds, config, mesh, n, offsets, layout, mu_dtype=None):
-    """Train every leaf with Adam in chunks of ``config.epochs_per_call``
-    epochs, ``config.epochs`` rounded up to whole chunks as in the JAX
-    trainers; the result keys of the JAX trainers and of
-    ``bench/giant_demo.py``."""
-    leaves = [conv["conv1"]["w"], conv["conv1"]["b"], conv["conv2"]["w"],
-              conv["conv2"]["b"], *embeds]
-    optimizer = Adam(leaves, config.learning_rate, mu_dtype=mu_dtype)
+def _run(step, config, mesh, n, offsets, layout):
+    """Runs ``step`` in chunks of ``config.epochs_per_call`` epochs,
+    ``config.epochs`` rounded up to whole chunks as in the JAX trainers;
+    the result keys of the JAX trainers and of ``bench/giant_demo.py``."""
     chunks = chunk_sizes(0, config.epochs, config.epochs_per_call)
     t0 = time.perf_counter()
-    history, first, steady = _train(loss_fn, leaves, optimizer, mesh.devices, chunks)
+    history, first, steady = _train(step, mesh.devices, chunks)
     res = _result(n, config.d, sum(chunks), history, first, steady, layout, offsets)
     res.update(num_devices=mesh.size, total_time_s=time.perf_counter() - t0)
     return res
 
 
-def train_halo_giant(
+def make_halo_giant_step(
+    mesh: Mesh, offsets: tuple[int, ...], config: HaloGiantConfig, state: GiantState,
     n_shard: int,
-    config: HaloGiantConfig = HaloGiantConfig(),
-    mesh: Mesh | None = None,
-    params: Dict[str, Any] | None = None,
-    return_assignment: bool = False,
-) -> Dict[str, Any]:
-    """Train on an (n_shard × mesh size)-node circulant graph, every
-    aggregation on K5.  ``params``: ``{"conv1": {"w": [emb, hidden], "b"},
-    "conv2": {"w": [hidden, classes], "b"}, "embed": [n, emb]}``.
-    ``return_assignment`` adds the decoded class of every node."""
-    mesh = mesh or make_mesh((config.axis,))
-    n = n_shard * mesh.size
-    k = config.num_classes
-    offsets = circulant_offsets(config.d, config.bandwidth, config.seed)
-    if params is None:
-        params = plain_params(n, config.dim_embedding, config.hidden_dim, k,
-                              config.seed, mesh.devices[0])
-    conv, embeds = _place(params, mesh, n_shard)
+) -> Tuple[Callable[..., np.ndarray], Callable[[], np.ndarray]]:
+    """The chunk of the JAX ``make_halo_giant_step`` over ``state`` (conv
+    parameters on the first mesh device, one [n_shard, emb] embedding
+    block a shard, their Adam state, ``GiantState.create``), updated in
+    place, and the decode: ``chunk(k)`` (default ``config.epochs_per_call``)
+    runs k epochs, every aggregation on K5 with unit weights, and returns
+    their losses; ``decode()`` is every node's class under the current
+    parameters (int32, node order).  The convs keep the JAX trainer's
+    projection order (``_halo_conv``: the 128-lane-aligned side first,
+    then fewer FLOPs), so the 128 → 3 layer aggregates at width 128.  On a
+    ring of one card the epochs are one captured CUDA graph replayed k
+    times (``chunk.runner``, ``train/chunks.chunk_step``)."""
+    conv, embeds = state.conv, state.embeds
     norm = 1.0 / math.sqrt(float(config.d))
-    e_total = n * config.d / 2.0
+    e_total = n_shard * mesh.size * config.d / 2.0
 
     def agg(hs):
         return halo_banded_spmm_unit(hs, offsets, mesh, config.block)
@@ -177,46 +166,43 @@ def train_halo_giant(
                    for a, b in zip(s, agg(s)))
         return -(e_total - 0.5 * same)
 
-    res = _run(loss_fn, conv, embeds, config, mesh, n, offsets, "plain")
-    if return_assignment:
-        with torch.no_grad():
-            res["assignment"] = torch.cat(
-                [torch.argmax(p, dim=-1).cpu() for p in pinned_probs()]
-            ).to(torch.int32).numpy()
-    return res
+    @torch.no_grad()
+    def decode() -> np.ndarray:
+        return torch.cat([torch.argmax(p, dim=-1).cpu()
+                          for p in pinned_probs()]).to(torch.int32).numpy()
+
+    chunk = chunk_step(loss_fn, state.leaves(), state.optimizer, mesh.devices,
+                       config.epochs_per_call)
+    return chunk, decode
 
 
-def train_halo_giant_packed(
-    n_shard: int,
-    config: PackedHaloGiantConfig = PackedHaloGiantConfig(),
-    mesh: Mesh | None = None,
-    params: Dict[str, Any] | None = None,
-    return_assignment: bool = False,
-) -> Dict[str, Any]:
-    """The packed trainer of ``train_banded_giant_packed`` node-sharded over
-    the mesh, every aggregation on K6; ``n_shard % r == 0``.  ``params``:
-    ``{"conv1": {"w": [emb, 16], "b"}, "conv2": {"w": [16, 16], "b"},
-    "embed": [n/r, r·emb]}`` (the JAX layout).  ``return_assignment`` adds
-    the decoded class of every node, in node order."""
+def make_packed_halo_step(
+    mesh: Mesh, offsets: tuple[int, ...], config: PackedHaloGiantConfig, state: GiantState,
+    m_shard: int,
+) -> Tuple[Callable[..., np.ndarray], Callable[[], np.ndarray]]:
+    """The chunk of the JAX ``make_packed_halo_step`` over ``state`` (conv
+    parameters on the first mesh device, one packed [m_shard, r·emb]
+    embedding block a shard, their Adam state, ``GiantState.create``),
+    updated in place, and the decode: ``chunk(k)`` (default
+    ``config.epochs_per_call``) runs k epochs of
+    ``train_banded_giant_packed``'s step node-sharded over the mesh, every
+    aggregation on K6, and returns their losses; ``decode()`` is every
+    node's class under the current parameters (int32, node order).
+    ``m_shard``: packed rows a shard (n_shard = m_shard · r nodes).  On a
+    ring of one card the epochs are one captured CUDA graph replayed k
+    times (``chunk.runner``, ``train/chunks.chunk_step``)."""
     r, k = config.r, config.num_classes
     if k > G or k > r:
         raise ValueError(f"need num_classes <= {min(G, r)}")
     if config.dim_embedding % G:
         raise ValueError("dim_embedding must be a multiple of 16")
-    if n_shard % r:
-        raise ValueError(f"n_shard={n_shard} must be a multiple of r={r}")
-    mesh = mesh or make_mesh((config.axis,))
-    n = n_shard * mesh.size
-    m_shard = n_shard // r
+    conv, embeds = state.conv, state.embeds
+    n_shard = m_shard * r
     emb = config.dim_embedding
-    offsets = circulant_offsets(config.d, config.bandwidth, config.seed)
     act = torch.float32 if config.act_dtype is None else getattr(torch, config.act_dtype)
     agg = None if config.agg_dtype is None else getattr(torch, config.agg_dtype)
     inv_d = 1.0 / config.d
-    e_total = n * config.d / 2.0
-    if params is None:
-        params = packed_params(n, r, emb, config.seed, mesh.devices[0])
-    conv, embeds = _place(params, mesh, m_shard)
+    e_total = n_shard * mesh.size * config.d / 2.0
     class_ok = {dev: (torch.arange(G, device=dev) < k).to(act) for dev in mesh.devices}
     # terminals: positions 0..k-1 of shard 0 (nodes 0, m, 2m)
     term_onehot = torch.eye(G, device=mesh.devices[0], dtype=act)[:k]
@@ -247,13 +233,68 @@ def train_halo_giant_packed(
                    for a, b in zip(s, spmm(s)))
         return -(e_total - 0.5 * same)
 
-    mu = None if config.mu_dtype is None else getattr(torch, config.mu_dtype)
-    res = _run(loss_fn, conv, embeds, config, mesh, n, offsets, "packed", mu)
+    @torch.no_grad()
+    def decode() -> np.ndarray:
+        cls = torch.cat([group_argmax(p, class_ok[p.device]).cpu()
+                         for p in pinned_probs()])                # position order
+        return cls.view(-1, r).T.reshape(-1).to(torch.int32).numpy()
+
+    chunk = chunk_step(loss_fn, state.leaves(), state.optimizer, mesh.devices,
+                       config.epochs_per_call)
+    return chunk, decode
+
+
+def train_halo_giant(
+    n_shard: int,
+    config: HaloGiantConfig = HaloGiantConfig(),
+    mesh: Mesh | None = None,
+    params: Dict[str, Any] | None = None,
+    return_assignment: bool = False,
+) -> Dict[str, Any]:
+    """Train on an (n_shard × mesh size)-node circulant graph, every
+    aggregation on K5 (``make_halo_giant_step``).  ``params``: ``{"conv1":
+    {"w": [emb, hidden], "b"}, "conv2": {"w": [hidden, classes], "b"},
+    "embed": [n, emb]}``.  ``return_assignment`` adds the decoded class of
+    every node."""
+    mesh = mesh or make_mesh((config.axis,))
+    n = n_shard * mesh.size
+    offsets = circulant_offsets(config.d, config.bandwidth, config.seed)
+    if params is None:
+        params = plain_params(n, config.dim_embedding, config.hidden_dim, config.num_classes,
+                              config.seed, mesh.devices[0])
+    state = GiantState.create(_blocks(params, mesh, n_shard), mesh, config.learning_rate)
+    step, decode = make_halo_giant_step(mesh, offsets, config, state, n_shard)
+    res = _run(step, config, mesh, n, offsets, "plain")
     if return_assignment:
-        with torch.no_grad():
-            cls = torch.cat([group_argmax(p, class_ok[p.device]).cpu()
-                             for p in pinned_probs()])        # position order
-            res["assignment"] = (
-                cls.view(n // r, r).T.reshape(n).to(torch.int32).numpy()
-            )
+        res["assignment"] = decode()
+    return res
+
+
+def train_halo_giant_packed(
+    n_shard: int,
+    config: PackedHaloGiantConfig = PackedHaloGiantConfig(),
+    mesh: Mesh | None = None,
+    params: Dict[str, Any] | None = None,
+    return_assignment: bool = False,
+) -> Dict[str, Any]:
+    """The packed trainer of ``train_banded_giant_packed`` node-sharded over
+    the mesh, every aggregation on K6 (``make_packed_halo_step``);
+    ``n_shard % r == 0``.  ``params``: ``{"conv1": {"w": [emb, 16], "b"},
+    "conv2": {"w": [16, 16], "b"}, "embed": [n/r, r·emb]}`` (the JAX
+    layout).  ``return_assignment`` adds the decoded class of every node,
+    in node order."""
+    r = config.r
+    if n_shard % r:
+        raise ValueError(f"n_shard={n_shard} must be a multiple of r={r}")
+    mesh = mesh or make_mesh((config.axis,))
+    n = n_shard * mesh.size
+    offsets = circulant_offsets(config.d, config.bandwidth, config.seed)
+    if params is None:
+        params = packed_params(n, r, config.dim_embedding, config.seed, mesh.devices[0])
+    state = GiantState.create(_blocks(params, mesh, n_shard // r), mesh,
+                              config.learning_rate, config.mu_dtype)
+    step, decode = make_packed_halo_step(mesh, offsets, config, state, n_shard // r)
+    res = _run(step, config, mesh, n, offsets, "packed")
+    if return_assignment:
+        res["assignment"] = decode()
     return res

@@ -1,12 +1,16 @@
 """Chunks of epochs in one device call: the port of the JAX package's
-``jit(lax.scan)`` over ``epochs_per_call`` epochs.
+``jit(lax.scan)`` over ``epochs_per_call`` epochs, and of its
+``while_loop``s over the steps of a search.
 
 A trainer hands ``ChunkRunner`` a one-epoch step: a closure over tensors
 that keep their storage for the whole run (parameters and optimizer state,
 updated in place, graph tables), returning the epoch's loss as a 0-d
-tensor, or ``(loss, stop)`` with the 0-d flag of a trainer that stops
-early.  ``run(k)`` runs k epochs and returns their losses and stop flags,
-read from the device once.
+tensor, or ``(loss, stop)`` with the 0-d flag of a loop that stops early;
+a step with no loss (a search step) returns None in its place.
+``run(k)`` runs k epochs and returns their losses and stop flags, read
+from the device once; ``run_many(n)`` runs n in chunks.  ``chunk_step``
+is the chunk callable of a trainer whose epoch is one Adam step on a
+loss's gradient.
 
 On a CUDA device the first epoch of the run is eager, on a side stream: it
 is the warm-up (kernels build, libraries load) and a real epoch of the
@@ -118,15 +122,25 @@ class ChunkRunner:
         if self.optimizer is not None:
             self.optimizer.nonfinite = self._bad
 
-    def _epoch(self) -> None:
+    def _epoch(self) -> Tuple[torch.Tensor | None, torch.Tensor | None]:
+        """One step; its loss as float32 [1] and its stop flag (None where
+        the step has none)."""
         out = self.step()
         loss, stop = out if isinstance(out, tuple) else (out, None)
-        loss = loss.detach().reshape(1).to(torch.float32)
-        self._losses.index_copy_(0, self._pos, loss)
+        if loss is not None:
+            loss = loss.detach().reshape(1).to(torch.float32)
+            if self._check:
+                self._bad.logical_or_(~torch.isfinite(loss))
+        return loss, stop
+
+    def _recorded_epoch(self) -> None:
+        """One step writing its loss and stop flag at the device index (the
+        captured form: a replay cannot hand its outputs to the host)."""
+        loss, stop = self._epoch()
+        if loss is not None:
+            self._losses.index_copy_(0, self._pos, loss)
         if stop is not None:
             self._stops.index_copy_(0, self._pos, stop.reshape(1).to(torch.float32))
-        if self._check:
-            self._bad.logical_or_(~torch.isfinite(loss))
         self._pos.add_(1)
 
     def _capture(self) -> None:
@@ -135,7 +149,7 @@ class ChunkRunner:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(here)
         with torch.cuda.stream(side):
-            self._epoch()
+            self._recorded_epoch()
         here.wait_stream(side)
         self.eager_epochs += 1
         counters = _counters()
@@ -145,7 +159,7 @@ class ChunkRunner:
             graph.register_generator_state(g)
         try:
             with torch.cuda.graph(graph, stream=side):
-                self._epoch()
+                self._recorded_epoch()
         except Exception as e:
             raise RuntimeError(
                 "capturing the epoch into a CUDA graph failed; a chunk's step must not "
@@ -158,17 +172,22 @@ class ChunkRunner:
         self.graph = graph
 
     def run(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        """k epochs; returns their losses and stop flags (float32, bool)."""
+        """k epochs; returns their losses and stop flags (float32, bool;
+        zeros and False where the step has none)."""
         if not 1 <= k <= self.max_chunk:
             raise ValueError(f"chunk of {k} epochs, runner takes 1..{self.max_chunk}")
-        self._pos.zero_()
         if self._check:
             self._bad.zero_()
         if not self.capture:
-            for _ in range(k):
-                self._epoch()
+            # eager: copies of the outputs (a step may return a buffer it
+            # updates later) stay in a list, joined once for the read
+            outs = [[None if t is None else t.reshape(1).to(torch.float32, copy=True)
+                     for t in self._epoch()] for _ in range(k)]
+            losses, stops = (torch.cat(col) if col[0] is not None
+                             else torch.zeros(k, device=self.device) for col in zip(*outs))
             self.eager_epochs += k
         else:
+            self._pos.zero_()
             replays = k
             if self.graph is None:
                 self._capture()
@@ -179,6 +198,51 @@ class ChunkRunner:
             for c, gain in zip(_counters(), self.captured_launches):
                 for name, v in gain.items():
                     c[name] += v * replays
-        out = torch.cat([self._losses[:k], self._stops[:k], self._bad.float()]).cpu().numpy()
+            losses, stops = self._losses[:k], self._stops[:k]
+        out = torch.cat([losses, stops, self._bad.float()]).cpu().numpy()
         self.nonfinite_seen = bool(out[-1])
         return out[:k], out[k:2 * k] > 0
+
+    def run_many(self, n: int, until_stop: bool = False) -> np.ndarray:
+        """n epochs in chunks of at most ``max_chunk`` (the last shorter);
+        returns their losses.  ``until_stop`` ends after a chunk whose last
+        epoch raised the stop flag."""
+        losses, done = [np.zeros(0, np.float32)], 0
+        while done < n:
+            k = min(self.max_chunk, n - done)
+            chunk, stops = self.run(k)
+            losses.append(chunk)
+            done += k
+            if until_stop and stops[-1]:
+                break
+        return np.concatenate(losses)
+
+
+def chunk_step(
+    loss_fn: Callable[[], torch.Tensor],
+    leaves: List[torch.Tensor],
+    optimizer,
+    devices: Sequence[torch.device | str],
+    per_call: int,
+    max_chunk: int | None = None,
+) -> Callable[..., np.ndarray]:
+    """``chunk(k=per_call)``: k Adam steps on ``leaves``, each on the
+    gradient of ``loss_fn()`` (a 0-d tensor on ``devices[0]``), updating
+    them in place; returns the k losses (before each update) as a float32
+    host array, read once.  ``max_chunk`` (default ``per_call``) is the
+    longest chunk it takes.  On one card the epochs are one captured CUDA
+    graph replayed k times; ``chunk.runner`` is the ``ChunkRunner``."""
+
+    def step() -> torch.Tensor:
+        loss = loss_fn()
+        optimizer.step(torch.autograd.grad(loss, leaves))
+        return loss.detach()
+
+    K = max(1, int(per_call))
+    runner = ChunkRunner(step, devices, max(K, max_chunk or K), optimizer=optimizer)
+
+    def chunk(k: int = K) -> np.ndarray:
+        return runner.run(k)[0]
+
+    chunk.runner = runner
+    return chunk

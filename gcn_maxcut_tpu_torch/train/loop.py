@@ -326,6 +326,51 @@ def _run_epoch(state: TrainState, inputs: EpochInputs,
     return torch.stack(losses).sum()
 
 
+def make_epoch_fn(
+    config: TrainingConfig, state: TrainState, max_chunk: int | None = None,
+) -> Callable[..., np.ndarray]:
+    """The JAX package's ``make_epoch_fn`` over a state held in place.
+
+    ``epoch_fn(batch, generator, num_epochs=1)`` runs ``num_epochs`` epochs
+    of ``config``'s steps on ``batch`` (a stacked ``Graph``, moved to the
+    state's device), dropout drawn from ``generator``, with no early
+    stopping; it updates ``state``'s parameters and Adam state in place and
+    returns the epochs' summed losses, float32 ``[num_epochs]``.  The
+    epochs run in chunks of at most ``max_chunk`` (default
+    ``config.epochs_per_call``) through one ``ChunkRunner``: on one card an
+    epoch captured once and replayed, the losses read once a chunk; on the
+    CPU the same epochs eagerly.  The runner is built at the first call
+    and again when ``batch`` or ``generator`` is another object
+    (``epoch_fn.runner``).  As in the JAX package, ``epoch_fn.run_epoch``
+    (``(inputs, generator) -> loss``: one eager epoch) and
+    ``epoch_fn.epoch_inputs`` (``batch -> EpochInputs``, the operators
+    built once a run) are the parts it runs.
+    """
+    run_state = dataclasses.replace(state, config=config)
+    dev = state.embed.device
+    K = max(1, int(max_chunk or config.epochs_per_call))
+    bound: Dict[str, Any] = {}
+
+    def run_epoch(inputs: EpochInputs, generator: torch.Generator) -> torch.Tensor:
+        return _run_epoch(run_state, inputs, generator)
+
+    def inputs_of(batch: Graph) -> EpochInputs:
+        return epoch_inputs(batch.to(dev), config)
+
+    def epoch_fn(batch: Graph, generator: torch.Generator, num_epochs: int = 1) -> np.ndarray:
+        if bound.get("batch") is not batch or bound.get("generator") is not generator:
+            inputs = inputs_of(batch)
+            epoch_fn.runner = ChunkRunner(lambda: run_epoch(inputs, generator), [dev], K,
+                                          optimizer=state.optimizer, generators=[generator])
+            bound.update(batch=batch, generator=generator)
+        return epoch_fn.runner.run_many(num_epochs)
+
+    epoch_fn.runner = None
+    epoch_fn.run_epoch = run_epoch
+    epoch_fn.epoch_inputs = inputs_of
+    return epoch_fn
+
+
 def init_early_stop_state(
     params: Dict[str, Any],
     best_loss: float = float("inf"),

@@ -39,6 +39,7 @@ from gcn_maxcut_tpu_torch.parallel import hybrid as thybrid
 from gcn_maxcut_tpu_torch.parallel import partition as tpart
 from gcn_maxcut_tpu_torch.parallel import spmm as tspmm
 from gcn_maxcut_tpu_torch.parallel.mesh import make_mesh
+from gcn_maxcut_tpu_torch.train import chunks as tchunks
 from gcn_maxcut_tpu_torch.train import loop as tloop
 from gcn_maxcut_tpu_torch.train import qubo_loop as tqubo
 from gcn_maxcut_tpu_torch.train.config import TrainingConfig
@@ -1384,8 +1385,8 @@ def test_cuda_packed_giant_chunks_equal_eager(cuda_device, monkeypatch):
     kw = dict(n=65_536, bandwidth=31, epochs=8, device=cuda_device)
     runs = {}
     for name, K, capture in (("k4", 4, None), ("k1", 1, None), ("eager", 4, False)):
-        monkeypatch.setattr(tgiant, "ChunkRunner", functools.partial(ChunkRunner,
-                                                                     capture=capture))
+        monkeypatch.setattr(tchunks, "ChunkRunner", functools.partial(ChunkRunner,
+                                                                      capture=capture))
         tb.reset_launches()
         runs[name] = tgiant.train_banded_giant_packed(epochs_per_call=K, **kw)
         assert tb.LAUNCHES["banded_spmm_unit_packed"] == 6 * 8
@@ -1410,7 +1411,7 @@ def test_cuda_k1_sharded_chunks_equal_eager(cuda_device, monkeypatch):
     assert sg.bell_senders is not None
     runs, counts = [], []
     for capture in (None, False):
-        monkeypatch.setattr(tpgiant, "ChunkRunner", functools.partial(ChunkRunner,
+        monkeypatch.setattr(tchunks, "ChunkRunner", functools.partial(ChunkRunner,
                                                                       capture=capture))
         params = locality_params(D * sg.n_shard, 128, 64, 3, 0)
         params["embed"] = params["embed"].reshape(D, sg.n_shard, -1)
@@ -1479,3 +1480,131 @@ def test_cuda_checked_raises_after_a_replayed_nan(cuda_device, where):
     if where == "loss":
         losses, _ = run(2)                      # clean again: the flag was reset
         assert np.isfinite(losses).all() and runner.replays == 5
+
+
+# The JAX package's one-device-call loops and step builders on the card:
+# the greedy climb and the SA chains captured a step at a time, make_epoch_fn
+# and the halo step builders, each against the same steps run eagerly
+# (ChunkRunner(capture=False)), bit for bit.
+
+def _eager_runner(monkeypatch, module):
+    import functools
+
+    monkeypatch.setattr(module, "ChunkRunner",
+                        functools.partial(module.ChunkRunner, capture=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_steps", [37, 500])
+def test_cuda_captured_climb_equals_eager_with_one_capture(cuda_device, monkeypatch,
+                                                           max_steps):
+    """Four recipe graphs of one padded shape climb on one captured step
+    (copied into its buffers graph by graph), equal to the eager climb;
+    500 = 31 blocks of 16 and one of 4."""
+    from gcn_maxcut_tpu_torch.baselines import local_search as tls
+
+    rng = np.random.default_rng(max_steps)
+    cases = []
+    for g in _recipe_graphs(4):
+        starts = torch.tensor(rng.integers(0, 3, (4, g.n_pad)))
+        starts[:, :3] = torch.arange(3)
+        cases.append((g.to(cuda_device), starts.to(cuda_device)))
+    tls.clear_climbs()
+    captured = [tls.greedy_flip_local_search(g, s, max_steps=max_steps) for g, s in cases]
+    assert len(tls._CLIMBS) == 1
+    (climb,) = tls._CLIMBS.values()
+    assert climb.runner.graph is not None and climb.runner.eager_epochs == 1
+    assert climb.runner.replays > 0
+    tls.clear_climbs()
+    _eager_runner(monkeypatch, tls)
+    eager = [tls.greedy_flip_local_search(g, s, max_steps=max_steps) for g, s in cases]
+    tls.clear_climbs()
+    for (a, c), (b, d) in zip(captured, eager):
+        assert torch.equal(a, b) and torch.equal(c, d)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_sa_chains_equal_eager(cuda_device, monkeypatch):
+    """R = 8 chains of 1,500 steps (a chunk of 1,024 and one of 476) on one
+    set of draws, captured and eager."""
+    from gcn_maxcut_tpu_torch.baselines import local_search as tls
+    from gcn_maxcut_tpu_torch.baselines.exact import _sa_restart_batch_from_draws
+
+    g = _solver_graph(100, 6, 2).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    R, steps = 8, 1500
+    draws = (torch.randint(0, 3, (R, g.n_pad), generator=gen, device=cuda_device),
+             torch.randint(3, g.n_pad, (R, steps), generator=gen, device=cuda_device),
+             torch.randint(0, 3, (R, steps), generator=gen, device=cuda_device),
+             torch.rand((R, steps), generator=gen, device=cuda_device))
+    tls.clear_climbs()
+    asn, cut = _sa_restart_batch_from_draws(g, *draws, 3, 3)
+    tls.clear_climbs()
+    _eager_runner(monkeypatch, tls)
+    asn_e, cut_e = _sa_restart_batch_from_draws(g, *draws, 3, 3)
+    tls.clear_climbs()
+    assert torch.equal(asn, asn_e) and float(cut) == float(cut_e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step_mode", ["per_graph", "batched"])
+def test_cuda_make_epoch_fn_k10_equals_k1(cuda_device, monkeypatch, step_mode):
+    specs, _ = generate_graph_dataset(4, 100, 100, 6, 8, base_seed=5)
+    ds = process_graphs(specs, DataConfig(max_nodes=128))
+    batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
+    cfg = TrainingConfig(n_nodes=128, seed=2, learning_rate=1e-2, step_mode=step_mode)
+    start = tloop.setup_train_state(cfg, device="cpu").params()
+
+    def run(max_chunk):
+        st = tloop.setup_train_state(cfg, params=start, device=cuda_device)
+        fn = tloop.make_epoch_fn(cfg, st, max_chunk=max_chunk)
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        losses = np.concatenate([fn(batch, gen, 10), fn(batch, gen, 10)])
+        return losses, st.params(), fn.runner
+
+    l10, p10, runner = run(10)
+    assert runner.graph is not None and runner.replays == 19
+    l1, p1, _ = run(1)
+    _eager_runner(monkeypatch, tloop)
+    le, pe, eager = run(10)
+    assert eager.graph is None
+    for losses, params in ((l1, p1), (le, pe)):
+        np.testing.assert_array_equal(losses, l10)
+        for layer in ("conv1", "conv2"):
+            for name in ("w", "b"):
+                assert torch.equal(params[layer][name], p10[layer][name])
+
+
+@pytest.mark.cuda
+def test_cuda_halo_step_builders_equal_trainers_and_eager(cuda_device, monkeypatch):
+    """On a ring of four shards of the card: each halo trainer's history is
+    its builder's captured chunks from the same start, and the same chunks
+    run eagerly, bit for bit."""
+    ring = make_mesh(devices=[cuda_device] * 4)
+    offsets = tgiant.circulant_offsets(4, 15, 0)
+    packed = tgb.PackedHaloGiantConfig(d=4, bandwidth=15, epochs=6, epochs_per_call=3)
+    p0 = tgiant.packed_params(4096, seed=0, device="cpu")
+    plain = tgb.HaloGiantConfig(d=4, dim_embedding=16, hidden_dim=128, epochs=6,
+                                epochs_per_call=3, bandwidth=15, block=64)
+    q0 = tgiant.plain_params(1024, 16, 128, 3, seed=0, device="cpu")
+
+    def builder_history():
+        out = {}
+        state = tpgiant.GiantState.create(tgb._blocks(p0, ring, 128), ring,
+                                          packed.learning_rate, packed.mu_dtype)
+        step, _ = tgb.make_packed_halo_step(ring, offsets, packed, state, 128)
+        out["packed"] = np.concatenate([step(), step()])
+        state = tpgiant.GiantState.create(tgb._blocks(q0, ring, 256), ring, plain.learning_rate)
+        step, _ = tgb.make_halo_giant_step(ring, offsets, plain, state, 256)
+        out["plain"] = np.concatenate([step(), step()])
+        return out
+
+    trained = {"packed": tgb.train_halo_giant_packed(1024, packed, ring, params=p0),
+               "plain": tgb.train_halo_giant(256, plain, ring, params=q0)}
+    captured = builder_history()
+    _eager_runner(monkeypatch, tchunks)
+    eager = builder_history()
+    for name in ("packed", "plain"):
+        hist = np.asarray(trained[name]["history"], np.float32)
+        np.testing.assert_array_equal(captured[name], hist)
+        np.testing.assert_array_equal(eager[name], hist)

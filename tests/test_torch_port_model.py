@@ -20,13 +20,13 @@ import gcn_maxcut_tpu.ops.segment as jseg
 import gcn_maxcut_tpu.ops.ste as jste
 import gcn_maxcut_tpu_torch.core.graph as tgraph
 import gcn_maxcut_tpu_torch.models.gcn as tgcn
-import gcn_maxcut_tpu_torch.objectives.cut_loss as tcut
 import gcn_maxcut_tpu_torch.ops.segment as tseg
 import gcn_maxcut_tpu_torch.ops.ste as tste
 from gcn_maxcut_tpu_torch.convert import params_from_jax
 
-# the JAX package's objectives/__init__ re-exports a function named cut_loss
+# each package's objectives/__init__ re-exports a function named cut_loss
 jcut = importlib.import_module("gcn_maxcut_tpu.objectives.cut_loss")
+tcut = importlib.import_module("gcn_maxcut_tpu_torch.objectives.cut_loss")
 
 RTOL, ATOL = 1e-4, 1e-5
 

@@ -22,15 +22,15 @@ import gcn_maxcut_tpu.models.gcn as jgcn
 import gcn_maxcut_tpu.ops.ste as jste
 import gcn_maxcut_tpu_torch.core.graph as tgraph
 import gcn_maxcut_tpu_torch.models.gcn as tgcn
-import gcn_maxcut_tpu_torch.objectives.cut_loss as tcut
 import gcn_maxcut_tpu_torch.objectives.qubo as tqubo
 import gcn_maxcut_tpu_torch.objectives.variants as tvar
 import gcn_maxcut_tpu_torch.ops.ste as tste
 from gcn_maxcut_tpu_torch.convert import params_from_jax
 from gcn_maxcut_tpu_torch.train.optim import cosine_decay_schedule
 
-# the JAX package's objectives/__init__ re-exports functions under module names
+# each package's objectives/__init__ re-exports functions under module names
 jcut = importlib.import_module("gcn_maxcut_tpu.objectives.cut_loss")
+tcut = importlib.import_module("gcn_maxcut_tpu_torch.objectives.cut_loss")
 jvar = importlib.import_module("gcn_maxcut_tpu.objectives.variants")
 jqubo = importlib.import_module("gcn_maxcut_tpu.objectives.qubo")
 
