@@ -26,7 +26,10 @@ one capture serves every graph of that shape: the card keeps the last
 ``_CLIMBS_KEPT`` such climbs.  The chains read step t's draws and
 temperature through a step index held on the device.  On the CPU the same
 steps run eagerly, on the caller's tensors.  ``clear_climbs()`` drops the
-kept climbs and their graphs' memory.
+kept climbs and their graphs' memory.  Under a profiler session the
+counters ``climb.steps`` (the lockstep steps run) and ``climb.captures``
+(climbs whose step was captured: a new padded shape, or one dropped and
+captured again) add up (``utils/profiling.py``).
 
 Random draws come from an explicit ``torch.Generator``.  Each randomized
 search also has a ``*_from_draws`` form that takes its draws as tensors,
@@ -45,6 +48,7 @@ from gcn_maxcut_tpu_torch.core.graph import Graph
 from gcn_maxcut_tpu_torch.objectives.cut_loss import hard_cut_value
 from gcn_maxcut_tpu_torch.ops.segment import spmm
 from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+from gcn_maxcut_tpu_torch.utils.profiling import count
 
 # The climb reads "did any start improve?" on the host once every this many
 # steps (a read per step would be one host round trip per move).
@@ -119,7 +123,10 @@ class _Climb:
             for f in _CLIMB_FIELDS:
                 getattr(self.g, f).copy_(getattr(g, f))
         self.asn.copy_(asn)
-        self.runner.run_many(max_steps, until_stop=True)
+        graph = self.runner.graph
+        count("climb.steps", len(self.runner.run_many(max_steps, until_stop=True)))
+        if self.runner.graph is not graph:
+            count("climb.captures")
         return self.asn.clone()
 
 

@@ -49,6 +49,7 @@ from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
 from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from gcn_maxcut_tpu_torch.train.chunks import chunk_sizes, chunk_step
 from gcn_maxcut_tpu_torch.train.optim import Adam
+from gcn_maxcut_tpu_torch.utils.profiling import span
 
 G = 16  # lane-group width of the packed layout (classes padded to it)
 
@@ -356,81 +357,86 @@ def train_banded_giant_packed(
     with the checkpoint's, and the epoch time is that of the epochs this
     call ran: the first chunk's own when it ran only one (the JAX trainer
     then reports a near-zero time).
+
+    Under a profiler session everything before the first chunk (the
+    parameters' copy to the device, the closures, Adam's state, the chunk
+    callable) is the span ``giant.setup`` (``utils/profiling.py``).
     """
     if hidden_dim != G or dim_embedding % G:
         raise ValueError("packed trainer expects hidden_dim=16, emb % 16 == 0")
     if n % r:
         raise ValueError(f"n={n} must be a multiple of r={r}")
-    dev = resolve_device(device)
-    act = torch.float32 if act_dtype is None else getattr(torch, act_dtype)
-    agg = None if agg_dtype is None else getattr(torch, agg_dtype)
-    m = n // r
-    offsets = circulant_offsets(d, bandwidth, seed)
-    e_undirected = n * d // 2
-    inv_d = 1.0 / d
-    if params is None:
-        params = packed_params(n, r, dim_embedding, seed, dev)
-    params = {k: ({n_: t.to(dev).clone() for n_, t in v.items()}
-                  if isinstance(v, dict) else v.to(dev).clone())
-              for k, v in params.items()}
-    for t in _leaves(params):
-        t.requires_grad_(True)
+    with span("giant.setup"):
+        dev = resolve_device(device)
+        act = torch.float32 if act_dtype is None else getattr(torch, act_dtype)
+        agg = None if agg_dtype is None else getattr(torch, agg_dtype)
+        m = n // r
+        offsets = circulant_offsets(d, bandwidth, seed)
+        e_undirected = n * d // 2
+        inv_d = 1.0 / d
+        if params is None:
+            params = packed_params(n, r, dim_embedding, seed, dev)
+        params = {k: ({n_: t.to(dev).clone() for n_, t in v.items()}
+                      if isinstance(v, dict) else v.to(dev).clone())
+                  for k, v in params.items()}
+        for t in _leaves(params):
+            t.requires_grad_(True)
 
-    class_ok = (torch.arange(G, device=dev) < num_classes).to(act)     # [16]
-    # terminals: positions 0..k-1 (nodes 0, m, 2m), pinned to their own class
-    term_onehot = torch.eye(G, device=dev, dtype=act)[:num_classes]
+        class_ok = (torch.arange(G, device=dev) < num_classes).to(act)     # [16]
+        # terminals: positions 0..k-1 (nodes 0, m, 2m), pinned to their own class
+        term_onehot = torch.eye(G, device=dev, dtype=act)[:num_classes]
 
-    def spmm(h):
-        if agg is not None and act == torch.float32:
-            h = h.to(agg)
-        return banded_spmm_unit_packed(h, offsets, r).to(act)
+        def spmm(h):
+            if agg is not None and act == torch.float32:
+                h = h.to(agg)
+            return banded_spmm_unit_packed(h, offsets, r).to(act)
 
-    def pinned_probs(p):
-        h = p["embed"].view(n, dim_embedding).to(act) @ p["conv1"]["w"].to(act)
-        h = torch.relu(spmm(h) * inv_d + p["conv1"]["b"].to(act))
-        h = h @ p["conv2"]["w"].to(act)
-        h = spmm(h) * inv_d + p["conv2"]["b"].to(act)
-        return pin_group_head(group_softmax(h, class_ok), term_onehot)
+        def pinned_probs(p):
+            h = p["embed"].view(n, dim_embedding).to(act) @ p["conv1"]["w"].to(act)
+            h = torch.relu(spmm(h) * inv_d + p["conv1"]["b"].to(act))
+            h = h @ p["conv2"]["w"].to(act)
+            h = spmm(h) * inv_d + p["conv2"]["b"].to(act)
+            return pin_group_head(group_softmax(h, class_ok), term_onehot)
 
-    def loss_fn(p):
-        onehot = group_onehot(pinned_probs(p), class_ok)
-        same = torch.dot(
-            onehot.to(torch.float32).reshape(-1),
-            spmm(onehot).to(torch.float32).reshape(-1),
+        def loss_fn(p):
+            onehot = group_onehot(pinned_probs(p), class_ok)
+            same = torch.dot(
+                onehot.to(torch.float32).reshape(-1),
+                spmm(onehot).to(torch.float32).reshape(-1),
+            )
+            return -(e_undirected - 0.5 * same)
+
+        optimizer = Adam(
+            _leaves(params), learning_rate,
+            mu_dtype=None if mu_dtype is None else getattr(torch, mu_dtype),
         )
-        return -(e_undirected - 0.5 * same)
+        history: List[float] = []
+        start, resume_s = 0, None
+        if resume_from is not None:
+            t0 = time.perf_counter()
+            start, history = _resume(resume_from, params, optimizer)
+            resume_s = time.perf_counter() - t0
+            if start >= epochs:
+                raise ValueError(f"checkpoint already at epoch {start} >= epochs={epochs}")
+        writes: List[Dict[str, Any]] = []
 
-    optimizer = Adam(
-        _leaves(params), learning_rate,
-        mu_dtype=None if mu_dtype is None else getattr(torch, mu_dtype),
-    )
-    history: List[float] = []
-    start, resume_s = 0, None
-    if resume_from is not None:
-        t0 = time.perf_counter()
-        start, history = _resume(resume_from, params, optimizer)
-        resume_s = time.perf_counter() - t0
-        if start >= epochs:
-            raise ValueError(f"checkpoint already at epoch {start} >= epochs={epochs}")
-    writes: List[Dict[str, Any]] = []
+        def save(done: int, hist: List[float]) -> None:
+            t0 = time.perf_counter()
+            path = save_checkpoint(checkpoint_path, params=params,
+                                   opt_state=_adam_state(optimizer), epoch=done,
+                                   loss_history=hist)
+            writes.append({"epoch": done, "seconds": time.perf_counter() - t0,
+                           "bytes": path.stat().st_size})
 
-    def save(done: int, hist: List[float]) -> None:
-        t0 = time.perf_counter()
-        path = save_checkpoint(checkpoint_path, params=params,
-                               opt_state=_adam_state(optimizer), epoch=done,
-                               loss_history=hist)
-        writes.append({"epoch": done, "seconds": time.perf_counter() - t0,
-                       "bytes": path.stat().st_size})
+        chunks = chunk_sizes(start, epochs, epochs_per_call, first_two=start == 0)
+        every = max(chunks[0], checkpoint_every // chunks[0] * chunks[0]) if checkpoint_every else 0
 
-    chunks = chunk_sizes(start, epochs, epochs_per_call, first_two=start == 0)
-    every = max(chunks[0], checkpoint_every // chunks[0] * chunks[0]) if checkpoint_every else 0
+        def on_chunk(done: int, hist: List[float]) -> None:
+            if checkpoint_path is not None and every and (start + done) % every == 0 \
+                    and start + done < epochs:
+                save(start + done, history + hist)
 
-    def on_chunk(done: int, hist: List[float]) -> None:
-        if checkpoint_path is not None and every and (start + done) % every == 0 \
-                and start + done < epochs:
-            save(start + done, history + hist)
-
-    chunk = chunk_step(lambda: loss_fn(params), _leaves(params), optimizer, [dev], max(chunks))
+        chunk = chunk_step(lambda: loss_fn(params), _leaves(params), optimizer, [dev], max(chunks))
     new, first, steady = _train(chunk, [dev], chunks, on_chunk)
     history += new
     epochs = start + sum(chunks)

@@ -41,6 +41,7 @@ from gcn_maxcut_tpu_torch.eval.decode import (
 from gcn_maxcut_tpu_torch.models.gcn import gcn_softmax_apply
 from gcn_maxcut_tpu_torch.objectives.cut_loss import hard_cut_value
 from gcn_maxcut_tpu_torch.train.loop import _resolve_dense_aggregation
+from gcn_maxcut_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -87,67 +88,83 @@ def test_single_graph(
     post-processed best).  ``measure_times=False`` reports 0.0 times.
 
     ``g`` is moved to the parameters' device.  Errors are caught per graph
-    and returned as ``{"success": False, "error": ...}``.
+    and returned as ``{"success": False, "error": ...}``.  Under a profiler
+    session the call is the span ``decode.graph``, its stages
+    ``decode.to_device``, ``decode.forward``, ``decode.rollouts`` (argmax
+    decode, uniforms, samples, best of samples), ``decode.climb`` and
+    ``decode.readback`` (the closing host reads), ``utils/profiling.py``.
     """
-    try:
-        dev = params["conv1"]["w"].device
-        g = g.to(dev)
-        probs = _forward(params, g)
-        simple_asn, simple_cut = _decode_simple(g, probs)
-        u = rollout_uniforms(probs, generator, post_processing_iterations)
-        post_asn, post_cut = best_of_samples(g, sample_partitions_from_uniforms(probs, u))
-        if refine and refine_starts > 1:
-            ref_asn, ref_cut = refine_multi_start_from_uniforms(g, probs, u, refine_starts)
-        elif refine:
-            ref_asn, ref_cut = refine_with_local_search(g, post_asn)
+    with span("decode.graph"):
+        try:
+            dev = params["conv1"]["w"].device
+            with span("decode.to_device"):
+                g = g.to(dev)
+            with span("decode.forward"):
+                probs = _forward(params, g)
+            with span("decode.rollouts"):
+                simple_asn, simple_cut = _decode_simple(g, probs)
+                u = rollout_uniforms(probs, generator, post_processing_iterations)
+                post_asn, post_cut = best_of_samples(g, sample_partitions_from_uniforms(probs, u))
+            if refine:
+                with span("decode.climb"):
+                    if refine_starts > 1:
+                        ref_asn, ref_cut = refine_multi_start_from_uniforms(
+                            g, probs, u, refine_starts)
+                    else:
+                        ref_asn, ref_cut = refine_with_local_search(g, post_asn)
 
-        simple_time = post_time = refined_time = 0.0
-        if measure_times:
-            timing_gen = torch.Generator(device=dev).manual_seed(0)
-            simple_time = _stage_time(lambda: _decode_simple(g, probs), dev)
-            post_time = _stage_time(
-                lambda: post_process(g, probs, timing_gen, post_processing_iterations), dev)
-            if refine and refine_starts > 1:
-                refined_time = _stage_time(lambda: refine_multi_start(
-                    g, probs, timing_gen, post_processing_iterations, refine_starts), dev)
-            elif refine:
-                refined_time = _stage_time(lambda: refine_with_local_search(g, post_asn), dev)
+            simple_time = post_time = refined_time = 0.0
+            if measure_times:
+                timing_gen = torch.Generator(device=dev).manual_seed(0)
+                simple_time = _stage_time(lambda: _decode_simple(g, probs), dev)
+                post_time = _stage_time(
+                    lambda: post_process(g, probs, timing_gen, post_processing_iterations), dev)
+                if refine and refine_starts > 1:
+                    refined_time = _stage_time(lambda: refine_multi_start(
+                        g, probs, timing_gen, post_processing_iterations, refine_starts), dev)
+                elif refine:
+                    refined_time = _stage_time(lambda: refine_with_local_search(g, post_asn), dev)
 
-        n = int(g.n_nodes)
-        refined: Dict[str, Any] = {}
-        if refine:
-            refined = {
-                "refined_cut": float(ref_cut),
-                "refined_time": refined_time,
-                "refined_assignment": ref_asn[:n].cpu().numpy(),
+            with span("decode.readback"):
+                n = int(g.n_nodes)
+                refined: Dict[str, Any] = {}
+                if refine:
+                    refined = {
+                        "refined_cut": float(ref_cut),
+                        "refined_time": refined_time,
+                        "refined_assignment": ref_asn[:n].cpu().numpy(),
+                    }
+                simple_cut, post_cut = float(simple_cut), float(post_cut)
+                simple_assignment = simple_asn[:n].cpu().numpy()
+                post_assignment = post_asn[:n].cpu().numpy()
+                node_probabilities = probs[:n].cpu().numpy()
+                edges = int(g.n_edges) // 2
+            improvement = post_cut - simple_cut
+            return refined | {
+                "success": True,
+                "nodes": n,
+                "edges": edges,
+                "simple_cut": simple_cut,
+                "simple_time": simple_time,
+                "simple_assignment": simple_assignment,
+                "post_cut": post_cut,
+                "post_time": post_time,
+                "post_assignment": post_assignment,
+                "improvement": improvement,
+                "improvement_percent": (
+                    improvement / simple_cut * 100 if simple_cut > 0 else 0.0
+                ),
+                "terminals": terminals if terminals is not None else [0, 1, 2],
+                "node_probabilities": node_probabilities,
             }
-        simple_cut, post_cut = float(simple_cut), float(post_cut)
-        improvement = post_cut - simple_cut
-        return refined | {
-            "success": True,
-            "nodes": n,
-            "edges": int(g.n_edges) // 2,
-            "simple_cut": simple_cut,
-            "simple_time": simple_time,
-            "simple_assignment": simple_asn[:n].cpu().numpy(),
-            "post_cut": post_cut,
-            "post_time": post_time,
-            "post_assignment": post_asn[:n].cpu().numpy(),
-            "improvement": improvement,
-            "improvement_percent": (
-                improvement / simple_cut * 100 if simple_cut > 0 else 0.0
-            ),
-            "terminals": terminals if terminals is not None else [0, 1, 2],
-            "node_probabilities": probs[:n].cpu().numpy(),
-        }
-    except Exception as e:  # per-graph error capture, reference :180-186
-        logger.exception("graph test failed")
-        return {
-            "success": False,
-            "error": str(e),
-            "nodes": int(g.n_nodes),
-            "edges": int(g.n_edges) // 2,
-        }
+        except Exception as e:  # per-graph error capture, reference :180-186
+            logger.exception("graph test failed")
+            return {
+                "success": False,
+                "error": str(e),
+                "nodes": int(g.n_nodes),
+                "edges": int(g.n_edges) // 2,
+            }
 
 
 def test_multiple_graphs(

@@ -36,6 +36,11 @@ names it in ``generators``: the graph registers its state before capture,
 so every replay advances the generator as an eager epoch would and draws
 the same numbers.
 
+Under a profiler session ``run`` records the spans ``chunk.run``,
+``chunk.capture`` (the warm-up epoch and the capture), ``chunk.replay``
+(the host's launches of the replays) and ``chunk.read`` (the chunk's one
+read), ``utils/profiling.py``.
+
 ``checked(run)`` (``utils/debug.py``) turns on a device flag that records
 any non-finite loss or gradient of the chunk (the gradients as the step's
 ``Adam`` sees them) and raises after the chunk.
@@ -49,6 +54,8 @@ from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from gcn_maxcut_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -145,61 +152,65 @@ class ChunkRunner:
 
     def _capture(self) -> None:
         """The warm-up epoch, then one epoch captured on the same side stream."""
-        here = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(here)
-        with torch.cuda.stream(side):
-            self._recorded_epoch()
-        here.wait_stream(side)
-        self.eager_epochs += 1
-        counters = _counters()
-        before = [dict(c) for c in counters]
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            graph.register_generator_state(g)
-        try:
-            with torch.cuda.graph(graph, stream=side):
+        with span("chunk.capture"):
+            here = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(here)
+            with torch.cuda.stream(side):
                 self._recorded_epoch()
-        except Exception as e:
-            raise RuntimeError(
-                "capturing the epoch into a CUDA graph failed; a chunk's step must not "
-                "read the device on the host or take shapes from its data") from e
-        finally:
-            self.captured_launches = [{k: c[k] - b.get(k, 0) for k in c}
-                                      for c, b in zip(counters, before)]
-            for c, b in zip(counters, before):
-                c.update(b)
-        self.graph = graph
+            here.wait_stream(side)
+            self.eager_epochs += 1
+            counters = _counters()
+            before = [dict(c) for c in counters]
+            graph = torch.cuda.CUDAGraph()
+            for g in self.generators:
+                graph.register_generator_state(g)
+            try:
+                with torch.cuda.graph(graph, stream=side):
+                    self._recorded_epoch()
+            except Exception as e:
+                raise RuntimeError(
+                    "capturing the epoch into a CUDA graph failed; a chunk's step must not "
+                    "read the device on the host or take shapes from its data") from e
+            finally:
+                self.captured_launches = [{k: c[k] - b.get(k, 0) for k in c}
+                                          for c, b in zip(counters, before)]
+                for c, b in zip(counters, before):
+                    c.update(b)
+            self.graph = graph
 
     def run(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """k epochs; returns their losses and stop flags (float32, bool;
         zeros and False where the step has none)."""
         if not 1 <= k <= self.max_chunk:
             raise ValueError(f"chunk of {k} epochs, runner takes 1..{self.max_chunk}")
-        if self._check:
-            self._bad.zero_()
-        if not self.capture:
-            # eager: copies of the outputs (a step may return a buffer it
-            # updates later) stay in a list, joined once for the read
-            outs = [[None if t is None else t.reshape(1).to(torch.float32, copy=True)
-                     for t in self._epoch()] for _ in range(k)]
-            losses, stops = (torch.cat(col) if col[0] is not None
-                             else torch.zeros(k, device=self.device) for col in zip(*outs))
-            self.eager_epochs += k
-        else:
-            self._pos.zero_()
-            replays = k
-            if self.graph is None:
-                self._capture()
-                replays -= 1
-            for _ in range(replays):
-                self.graph.replay()
-            self.replays += replays
-            for c, gain in zip(_counters(), self.captured_launches):
-                for name, v in gain.items():
-                    c[name] += v * replays
-            losses, stops = self._losses[:k], self._stops[:k]
-        out = torch.cat([losses, stops, self._bad.float()]).cpu().numpy()
+        with span("chunk.run"):
+            if self._check:
+                self._bad.zero_()
+            if not self.capture:
+                # eager: copies of the outputs (a step may return a buffer it
+                # updates later) stay in a list, joined once for the read
+                outs = [[None if t is None else t.reshape(1).to(torch.float32, copy=True)
+                         for t in self._epoch()] for _ in range(k)]
+                losses, stops = (torch.cat(col) if col[0] is not None
+                                 else torch.zeros(k, device=self.device) for col in zip(*outs))
+                self.eager_epochs += k
+            else:
+                self._pos.zero_()
+                replays = k
+                if self.graph is None:
+                    self._capture()
+                    replays -= 1
+                with span("chunk.replay"):
+                    for _ in range(replays):
+                        self.graph.replay()
+                self.replays += replays
+                for c, gain in zip(_counters(), self.captured_launches):
+                    for name, v in gain.items():
+                        c[name] += v * replays
+                losses, stops = self._losses[:k], self._stops[:k]
+            with span("chunk.read"):
+                out = torch.cat([losses, stops, self._bad.float()]).cpu().numpy()
         self.nonfinite_seen = bool(out[-1])
         return out[:k], out[k:2 * k] > 0
 

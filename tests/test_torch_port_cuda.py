@@ -1608,3 +1608,72 @@ def test_cuda_halo_step_builders_equal_trainers_and_eager(cuda_device, monkeypat
         hist = np.asarray(trained[name]["history"], np.float32)
         np.testing.assert_array_equal(captured[name], hist)
         np.testing.assert_array_equal(eager[name], hist)
+
+
+# The program's spans and counters on the card (utils/profiling.py): a
+# capture, the replays after it, and the climbs captured again.
+
+def _profiled_cpu():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+@pytest.mark.cuda
+def test_cuda_climb_captures_count_each_recapture(cuda_device):
+    """One more padded shape than the card keeps: after a warm-up cycle
+    every climb of a cycle over all of them captures again, and a cycle
+    over the kept ones captures none."""
+    from gcn_maxcut_tpu_torch.baselines import local_search as tls
+    from gcn_maxcut_tpu_torch.utils import profiling
+
+    graphs = [_solver_graph(24 + 8 * i, 4, 3).to(cuda_device)
+              for i in range(tls._CLIMBS_KEPT + 1)]
+    assert len({g.n_pad for g in graphs}) == len(graphs)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def cycle(gs):
+        profiling.reset()
+        with _profiled_cpu():
+            for g in gs:
+                starts = torch.randint(0, 3, (4, g.n_pad), generator=gen, device=cuda_device)
+                starts[:, :3] = torch.arange(3, device=cuda_device)
+                greedy_flip_local_search(g, starts, max_steps=100)
+        return profiling.counts()
+
+    tls.clear_climbs()
+    try:
+        cycle(graphs)                                   # warm-up: the last four kept
+        assert cycle(graphs).get("climb.captures") == len(graphs)
+        kept = cycle(graphs[1:])
+        assert kept.get("climb.captures", 0) == 0 and kept["climb.steps"] > 0
+    finally:
+        tls.clear_climbs()
+        profiling.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_a_captured_runner_records_one_capture_then_replays(cuda_device):
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+    from gcn_maxcut_tpu_torch.utils import profiling
+
+    x = torch.zeros((), device=cuda_device)
+
+    def step():
+        x.add_(1.0)
+        return x * 1.0
+
+    runner = ChunkRunner(step, [cuda_device], 4)
+    profiling.reset()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            losses = np.concatenate([runner.run(k)[0] for k in (4, 4, 2)])
+        totals = profiling.span_totals()
+    finally:
+        profiling.reset()
+    np.testing.assert_array_equal(losses, np.arange(1, 11, dtype=np.float32))
+    assert runner.replays == 9 and runner.eager_epochs == 1
+    assert totals["chunk.capture"]["count"] == 1
+    assert totals["chunk.run"]["count"] == totals["chunk.replay"]["count"] == 3
+    order = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+             if str(e.device_type).endswith("CPU") and e.name in ("chunk.capture", "chunk.replay")]
+    assert order == ["chunk.capture"] + ["chunk.replay"] * 3
