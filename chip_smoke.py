@@ -211,6 +211,7 @@ the JAX reference computes in full float32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1761,15 +1762,18 @@ def decode_ms(torch, counters, dataset: str, checkpoint: str) -> dict:
     """The default decode (``refine_multi_start``: 200 rollouts, the climb
     from the best 3 and the argmax decode) of the recipe's graphs (the
     ``test`` command's 20, n = 500, d in [6, 8]) with its final parameters:
-    ms a graph on a synchronised host clock, the climb captured (the climbs
-    kept for reuse dropped first, so the one capture of the shape is inside
-    the time) and eager, in turns (captured, eager, eager, captured); the
-    assignments equal bit for bit; then each mode's busy share over one
-    more pass (``busy_share``)."""
+    ms a graph on a synchronised host clock, the climb as ``csrc/climb.cu``
+    (the main path), captured and eager (the lockstep routes, forced by a
+    zero shared-memory limit; the climbs kept for reuse dropped first, so
+    the one capture of the shape is inside the time), in turns (kernel,
+    captured, eager, eager, captured, kernel); the assignments equal bit
+    for bit and the kernel launched once a graph on its route alone; then
+    each mode's busy share over one more pass (``busy_share``)."""
     from gcn_maxcut_tpu_torch.baselines import local_search as tls
     from gcn_maxcut_tpu_torch.data.io import load_dataset
     from gcn_maxcut_tpu_torch.eval.decode import refine_multi_start
     from gcn_maxcut_tpu_torch.eval.harness import _forward
+    from gcn_maxcut_tpu_torch.ops import climb as tclimb
     from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint
     from gcn_maxcut_tpu_torch.train.config import TrainingConfig
     from gcn_maxcut_tpu_torch.train.loop import setup_train_state
@@ -1787,42 +1791,57 @@ def decode_ms(torch, counters, dataset: str, checkpoint: str) -> dict:
             out.append(refine_multi_start(g, p, gen, 200, 4))
         return out
 
-    def timed_pass(mode: str):
+    @contextlib.contextmanager
+    def route(mode: str):
+        limit = tclimb._SMEM_LIMIT
         tls.clear_climbs()
-        with eager_chunks(tls, mode == "eager"):
+        if mode != "kernel":
+            tclimb._SMEM_LIMIT = 0
+        try:
+            with eager_chunks(tls, mode == "eager"):
+                yield
+        finally:
+            tclimb._SMEM_LIMIT = limit
+            tls.clear_climbs()
+
+    def timed_pass(mode: str):
+        with route(mode):
+            launched = tclimb.LAUNCHES
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = decode_all()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / len(graphs)
-        tls.clear_climbs()
-        return res, ms
+        return res, ms, tclimb.LAUNCHES - launched
 
-    ms = {"captured": [], "eager": []}
-    results = {}
-    for mode in ("captured", "eager", "eager", "captured"):
-        res, t = timed_pass(mode)
+    modes = ("kernel", "captured", "eager")
+    ms = {mode: [] for mode in modes}
+    results, launches = {}, {}
+    for mode in ("kernel", "captured", "eager", "eager", "captured", "kernel"):
+        res, t, n = timed_pass(mode)
         ms[mode].append(t)
         results.setdefault(mode, res)
+        launches.setdefault(mode, n)
     same = all(torch.equal(a, b) and float(c) == float(d)
-               for (a, c), (b, d) in zip(results["captured"], results["eager"]))
-    check(same, "the captured climb's refined assignments equal the eager climb's bit for bit")
+               for mode in modes[1:]
+               for (a, c), (b, d) in zip(results["kernel"], results[mode]))
+    check(same, "the kernel's refined assignments equal the captured and eager climbs' bit "
+          "for bit")
+    check(launches == {"kernel": len(graphs), "captured": 0, "eager": 0},
+          f"the climb kernel launched once a graph on its route alone: {launches}")
     busy = {}
-    for mode in ("captured", "eager"):
-        tls.clear_climbs()
-        with eager_chunks(tls, mode == "eager"):
+    for mode in modes:
+        with route(mode):
             decode_all()                                 # the capture, outside the window
             b = busy_share(torch, counters, f"default decode, {mode}", decode_all, 1, 1)
-        tls.clear_climbs()
         busy[mode] = {**b, "wall_ms_per_graph": b["wall_ms_per_epoch"] / len(graphs)}
-    cuts = [float(c) for _, c in results["captured"]]
-    log(f"  default decode of the recipe's {len(graphs)} graphs (n=500): captured "
-        f"{min(ms['captured']):.3f} ms a graph (passes {ms['captured']}), eager "
-        f"{min(ms['eager']):.3f} (passes {ms['eager']}); busy share captured "
-        f"{busy['captured']['busy_share']}, eager {busy['eager']['busy_share']}; assignments "
-        f"equal: {same}; refined cuts {cuts}")
+    cuts = [float(c) for _, c in results["kernel"]]
+    log(f"  default decode of the recipe's {len(graphs)} graphs (n=500): "
+        + ", ".join(f"{mode} {min(ms[mode]):.3f} ms a graph (passes {ms[mode]}, busy share "
+                    f"{busy[mode]['busy_share']})" for mode in modes)
+        + f"; assignments equal: {same}; refined cuts {cuts}")
     return {"graphs": len(graphs), "ms_per_graph": ms, "busy": busy, "equal": same,
-            "refined_cuts": cuts}
+            "launches": launches, "refined_cuts": cuts}
 
 
 def phase_timings(torch, counters, micro: dict, refine_s_at_500: float, recipe: dict) -> dict:

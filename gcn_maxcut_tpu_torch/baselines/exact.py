@@ -40,12 +40,12 @@ import numpy as np
 import torch
 
 from gcn_maxcut_tpu_torch.baselines.local_search import (
-    _class_weights,
     greedy_flip_local_search,
     simulated_annealing_from_draws,
 )
 from gcn_maxcut_tpu_torch.core.graph import Graph
 from gcn_maxcut_tpu_torch.objectives.cut_loss import hard_cut_value
+from gcn_maxcut_tpu_torch.ops.climb import class_weights
 
 BRUTE_FORCE_LIMIT = 50_000_000
 
@@ -302,7 +302,7 @@ def solver_balanced(
         under = [c for c in range(k) if sizes[c] < target]
         if not over or not under:
             break
-        w = _class_weights(g, padded(asn), k).cpu().numpy()[:n]
+        w = class_weights(g, padded(asn), k).cpu().numpy()[:n]
         c_from = over[0]
         cand = np.nonzero(asn[num_fixed:] == c_from)[0] + num_fixed
         if cand.size == 0:

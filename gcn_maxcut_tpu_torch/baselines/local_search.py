@@ -3,20 +3,26 @@ recursive 2-way-split k-way heuristic.
 
 Port of ``gcn_maxcut_tpu/baselines/local_search.py``.  All share one
 primitive: the class-weight matrix ``W[i, c] = Σ_{j∈N(i), a_j = c} w_ij``,
-one SpMM over the one-hot assignment (``ops/segment.spmm``, COO path).
-Moving node i from class a to class c changes the cut by
-``W[i, a] − W[i, c]``.
+one SpMM over the one-hot assignment (``ops/climb.class_weights``, the COO
+path of ``ops/segment.spmm``).  Moving node i from class a to class c
+changes the cut by ``W[i, a] − W[i, c]``.
 
 ``greedy_flip_local_search`` takes one assignment ``[n_pad]`` or a batch
-``[S, n_pad]``; a batch climbs in lockstep, one SpMM on ``[n_pad, S·k]`` a
-step (the JAX package ``vmap``s its ``while_loop``).  A climb with no
-improving move maps to itself, so a finished climb stays where it is while
-the others go on, as in the JAX loop.  ``simulated_annealing_from_draws``
-likewise takes R chains ``[R, n_pad]`` that step in lockstep (the batched
-restarts of ``exact.anytime_solver``).
+``[S, n_pad]``.  A start with no improving move maps to itself, so each
+start makes exactly min(moves to its local optimum, ``max_steps``) moves,
+whether the starts climb in lockstep (the JAX package ``vmap``s its
+``while_loop``) or each alone.  One rule, by what the input shows, picks
+how: on the card a graph marked symmetric whose start fits a block's
+shared memory (``ops/climb.kernel_fits``: n_pad up to 14,519 at k = 3)
+climbs in one launch of ``csrc/climb.cu``, each start alone to its end,
+with no host read; every other graph climbs in lockstep, one SpMM on
+``[n_pad, S·k]`` a step (``ops/climb.climb_step``).  Both give the same
+assignments, bit for bit.  ``simulated_annealing_from_draws`` likewise
+takes R chains ``[R, n_pad]`` that step in lockstep (the batched restarts
+of ``exact.anytime_solver``).
 
-Both loops run as the JAX package runs them, in one device call, as far as
-a card allows: a lockstep step is the step of a ``train.chunks.
+The lockstep loops run as the JAX package runs them, in one device call, as
+far as a card allows: a lockstep step is the step of a ``train.chunks.
 ChunkRunner``, on the card captured once into a CUDA graph and replayed a
 step at a time, the host reading once a block of steps (the climb's stop
 flag every ``_SYNC_EVERY`` steps, the chains every ``_SA_BLOCK``).
@@ -27,9 +33,12 @@ one capture serves every graph of that shape: the card keeps the last
 temperature through a step index held on the device.  On the CPU the same
 steps run eagerly, on the caller's tensors.  ``clear_climbs()`` drops the
 kept climbs and their graphs' memory.  Under a profiler session the
-counters ``climb.steps`` (the lockstep steps run) and ``climb.captures``
-(climbs whose step was captured: a new padded shape, or one dropped and
-captured again) add up (``utils/profiling.py``).
+counters add up (``utils/profiling.py``): ``climb.runs`` (climbs on the
+card), ``climb.kernel`` (those the kernel ran), ``climb.steps`` (the
+lockstep steps run; on the kernel route the steps a lockstep loop would
+have run, min(most moves of a start + 1, ``max_steps``), read from the
+device only while counting) and ``climb.captures`` (climbs whose step was
+captured: a new padded shape, or one dropped and captured again).
 
 Random draws come from an explicit ``torch.Generator``.  Each randomized
 search also has a ``*_from_draws`` form that takes its draws as tensors,
@@ -46,9 +55,9 @@ import torch
 
 from gcn_maxcut_tpu_torch.core.graph import Graph
 from gcn_maxcut_tpu_torch.objectives.cut_loss import hard_cut_value
-from gcn_maxcut_tpu_torch.ops.segment import spmm
+from gcn_maxcut_tpu_torch.ops import climb as tclimb
 from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
-from gcn_maxcut_tpu_torch.utils.profiling import count
+from gcn_maxcut_tpu_torch.utils.profiling import count, counting
 
 # The climb reads "did any start improve?" on the host once every this many
 # steps (a read per step would be one host round trip per move).
@@ -62,33 +71,6 @@ _CLIMBS: "OrderedDict[tuple, _Climb]" = OrderedDict()
 # Graph must hold.
 _CLIMB_FIELDS = ("senders", "receivers", "weights", "edge_mask", "row_ptr", "degrees",
                  "node_mask", "n_nodes", "n_edges")
-
-
-def _class_weights(g: Graph, assignment: torch.Tensor, k: int) -> torch.Tensor:
-    """W[..., i, c] = total edge weight from node i into class c, for
-    ``assignment`` [n_pad] or [S, n_pad]."""
-    onehot = torch.nn.functional.one_hot(assignment.long(), k).float()
-    if onehot.dim() == 2:
-        return spmm(g, onehot, edge_weights=g.weights * g.edge_mask)
-    s = onehot.shape[0]
-    x = onehot.permute(1, 0, 2).reshape(g.n_pad, s * k)
-    w = spmm(g, x, edge_weights=g.weights * g.edge_mask)
-    return w.reshape(g.n_pad, s, k).permute(1, 0, 2)
-
-
-def _move_gains(
-    g: Graph, assignment: torch.Tensor, k: int, num_fixed: int
-) -> torch.Tensor:
-    """gains[..., i, c]: cut delta of moving node i to class c (−inf if
-    illegal or staying put)."""
-    asn = assignment.long()
-    w = _class_weights(g, asn, k)
-    gains = torch.gather(w, -1, asn[..., None]) - w
-    ids = torch.arange(g.n_pad, device=asn.device)
-    movable = (ids >= num_fixed) & (g.node_mask > 0)
-    gains = torch.where(movable[:, None], gains, -torch.inf)
-    stay = torch.nn.functional.one_hot(asn, k).bool()
-    return torch.where(stay, -torch.inf, gains)
 
 
 class _Climb:
@@ -107,16 +89,9 @@ class _Climb:
         self.runner = ChunkRunner(self._step, [g.device], _SYNC_EVERY)
 
     def _step(self) -> Tuple[None, torch.Tensor]:
-        """One move a start, the first best (row-major over ``[n_pad, k]``)
-        strictly improving one, gain > 1e-6; returns (no loss, no start
-        moved)."""
-        asn, rows, k = self.asn, self.rows, self.k
-        gains = _move_gains(self.g, asn, k, self.num_fixed).reshape(asn.shape[0], -1)
-        flat = torch.argmax(gains, dim=1)
-        take = gains[rows, flat] > 1e-6
-        i, c = flat // k, flat % k
-        asn[rows, i] = torch.where(take, c, asn[rows, i])
-        return None, ~take.any()
+        """``ops.climb.climb_step`` on the starts' buffer; returns (no
+        loss, no start moved)."""
+        return None, tclimb.climb_step(self.g, self.asn, self.rows, self.k, self.num_fixed)
 
     def run(self, g: Graph, asn: torch.Tensor, max_steps: int) -> torch.Tensor:
         if self.g is not g:
@@ -150,6 +125,12 @@ def clear_climbs() -> None:
     _CLIMBS.clear()
 
 
+def _on_kernel(g: Graph, k: int) -> bool:
+    """The climb runs as ``csrc/climb.cu``: a graph on the card that the
+    kernel takes (``ops/climb.kernel_fits``)."""
+    return g.device.type == "cuda" and tclimb.kernel_fits(g.n_pad, k, g.symmetric)
+
+
 def greedy_flip_local_search(
     g: Graph,
     assignment: torch.Tensor,
@@ -158,17 +139,26 @@ def greedy_flip_local_search(
     max_steps: int = 1000,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best-improvement single-node moves until a local optimum or
-    ``max_steps`` steps.  Returns ``(assignment, cut_value)``, batched like
+    ``max_steps`` moves.  Returns ``(assignment, cut_value)``, batched like
     the input.
 
-    Each step applies, per start, the first best (row-major over
-    ``[n_pad, k]``) strictly improving move, gain > 1e-6.  The steps run in
-    blocks of ``_SYNC_EVERY`` (the last block shorter), and the climb stops
-    after a block whose last step moved no start.
+    Each move is, per start, the first best (row-major over ``[n_pad, k]``)
+    strictly improving one, gain > 1e-6.  On the kernel route (module
+    docstring) each start climbs alone in one launch; otherwise the steps
+    run in lockstep, in blocks of ``_SYNC_EVERY`` (the last block shorter),
+    and the climb stops after a block whose last step moved no start.
     """
     batched = assignment.dim() == 2
     asn = (assignment if batched else assignment[None]).long()
-    asn = _climb(g, asn.shape[0], k, num_fixed).run(g, asn, max_steps)
+    if g.device.type == "cuda":
+        count("climb.runs")
+    if _on_kernel(g, k):
+        count("climb.kernel")
+        asn, moves = tclimb.greedy_climb(g, asn.contiguous(), k, num_fixed, max_steps)
+        if counting():
+            count("climb.steps", min(int(moves.max()) + 1, max_steps))
+    else:
+        asn = _climb(g, asn.shape[0], k, num_fixed).run(g, asn, max_steps)
     out = asn if batched else asn[0]
     return out, hard_cut_value(g, out)
 
@@ -204,7 +194,7 @@ def simulated_annealing_from_draws(
     nodes, classes = nodes.long(), classes.long()
     chains, steps = nodes.shape
     dev = asn.device
-    w = _class_weights(g, asn, k)                 # [R, n_pad, k]
+    w = tclimb.class_weights(g, asn, k)           # [R, n_pad, k]
     cut = hard_cut_value(g, asn)
     best_asn, best_cut = asn.clone(), cut.clone()
     ts = torch.linspace(t_start, t_end, steps, device=dev)

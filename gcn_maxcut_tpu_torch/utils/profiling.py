@@ -14,7 +14,7 @@
     ``self_s`` (the total less the time its child spans cover).  With no
     session it checks one flag and records nothing;
   * ``count(name, n=1)``: adds ``n`` to ``counts()[name]``, only while a
-    session is active;
+    session is active (``counting()``);
   * ``reset()``: empties the span totals and the counters;
   * ``MetricsLogger`` (``train --metrics``): an append-only JSONL stream
     plus the in-memory history; each record holds the step, the wall-clock
@@ -98,6 +98,12 @@ def count(name: str, n: int = 1) -> None:
     """Adds ``n`` to the counter ``name`` while a profiler session is active."""
     if _autograd_profiler._is_profiler_enabled:
         _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counting() -> bool:
+    """Whether ``count`` adds now (a profiler session is active): a caller
+    reads the device for a counter only then."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 def span_totals() -> Dict[str, Dict[str, float]]:

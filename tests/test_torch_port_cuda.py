@@ -27,8 +27,10 @@ from gcn_maxcut_tpu_torch.data.generate import generate_graph_dataset, random_re
 from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
 from gcn_maxcut_tpu_torch.eval.decode import refine_multi_start_from_uniforms
 from gcn_maxcut_tpu_torch.models.gcn import embedding_init, gcn_dev_init
+from gcn_maxcut_tpu_torch.objectives.cut_loss import hard_cut_value
 from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
+from gcn_maxcut_tpu_torch.ops import climb as tclimb
 from gcn_maxcut_tpu_torch.ops import halo as th
 from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
 from gcn_maxcut_tpu_torch.ops.segment import spmm
@@ -1006,14 +1008,76 @@ def _recipe_graphs(count=3):
 
 @pytest.mark.cuda
 def test_cuda_batched_greedy_flip_equals_cpu(cuda_device):
+    """The recipe's graphs (n_pad 1000), 6 starts, 500 steps: the card's
+    climb (``csrc/climb.cu``, one launch a graph) against the CPU's eager
+    lockstep climb."""
     rng = np.random.default_rng(0)
     for g in _recipe_graphs():
         starts = torch.tensor(rng.integers(0, 3, (6, g.n_pad)))
         starts[:, :3] = torch.arange(3)
         asn, cut = greedy_flip_local_search(g, starts, max_steps=500)
+        launched = tclimb.LAUNCHES
         asn_c, cut_c = greedy_flip_local_search(g.to(cuda_device), starts.to(cuda_device),
                                                 max_steps=500)
+        assert tclimb.LAUNCHES == launched + 1
         assert torch.equal(asn_c.cpu(), asn) and torch.equal(cut_c.cpu(), cut)
+
+
+def _kernel_against_cpu(g, starts, max_steps, whole_weights=True):
+    """The kernel route against the CPU's eager lockstep climb and the
+    plain version's move counts; the kernel launched twice.  The cuts are
+    the CPU's where the weights are whole numbers; with other weights the
+    card's cut sums in another order, so it is held to the card's cut of
+    the CPU's assignments."""
+    asn, cut = greedy_flip_local_search(g, starts, max_steps=max_steps)
+    _, moves = tclimb.greedy_climb_plain(g, starts, 3, 3, max_steps)
+    launched = tclimb.LAUNCHES
+    gc, sc = g.to("cuda"), starts.to("cuda")
+    asn_c, cut_c = greedy_flip_local_search(gc, sc, max_steps=max_steps)
+    asn_k, moves_k = tclimb.greedy_climb(gc, sc, 3, 3, max_steps)
+    assert tclimb.LAUNCHES == launched + 2
+    assert torch.equal(asn_c.cpu(), asn) and torch.equal(asn_k.cpu(), asn)
+    assert torch.equal(moves_k.cpu(), moves)
+    want = cut if whole_weights else hard_cut_value(gc, asn.to("cuda")).cpu()
+    assert torch.equal(cut_c.cpu(), want)
+    return moves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_steps", [1, 5, 16, 17, 500])
+def test_cuda_climb_kernel_cut_short_equals_cpu(cuda_device, max_steps):
+    """The cap cuts climbs short at 1, 5, 16 and 17 moves (16 and 17: a
+    block of the lockstep loop's, and one more)."""
+    rng = np.random.default_rng(max_steps)
+    g = _recipe_graphs(1)[0]
+    starts = torch.tensor(rng.integers(0, 3, (4, g.n_pad)))
+    starts[:, :3] = torch.arange(3)
+    moves = _kernel_against_cpu(g, starts, max_steps)
+    assert int(moves.max()) == max_steps if max_steps < 500 else int(moves.max()) < 500
+
+
+@pytest.mark.cuda
+def test_cuda_climb_kernel_exact_with_non_integer_weights(cuda_device):
+    """Weights in [0.1, 2): W recomputed in CSR order after each move stays
+    the CPU's index_add sum bit for bit, and so do the climbs."""
+    rng = np.random.default_rng(4)
+    edges = np.asarray(random_regular_edges(400, 7, 4))
+    w = rng.uniform(0.1, 2.0, len(edges)).astype(np.float32)
+    g = graph_from_edges(edges, 400, weights=w, n_pad=512)
+    starts = torch.tensor(rng.integers(0, 3, (6, g.n_pad)))
+    starts[:, :3] = torch.arange(3)
+    assert int(_kernel_against_cpu(g, starts, 500, whole_weights=False).max()) > 50
+
+
+@pytest.mark.cuda
+def test_cuda_climb_kernel_breaks_ties_as_cpu(cuda_device):
+    """All-zero starts, beside random ones: many moves share the best gain,
+    the first best (lowest node, then class) is taken."""
+    g = _recipe_graphs(1)[0]
+    starts = torch.zeros((3, g.n_pad), dtype=torch.int64)
+    starts[1, :3] = torch.arange(3)
+    starts[2] = torch.tensor(np.random.default_rng(5).integers(0, 3, g.n_pad))
+    _kernel_against_cpu(g, starts, 500)
 
 
 @pytest.mark.cuda
@@ -1494,6 +1558,12 @@ def _eager_runner(monkeypatch, module):
                         functools.partial(module.ChunkRunner, capture=False))
 
 
+def _captured_route(monkeypatch):
+    """The climb takes the captured lockstep route on any graph: no start
+    fits the kernel's shared memory."""
+    monkeypatch.setattr(tclimb, "_SMEM_LIMIT", 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_steps", [37, 500])
 def test_cuda_captured_climb_equals_eager_with_one_capture(cuda_device, monkeypatch,
@@ -1503,6 +1573,7 @@ def test_cuda_captured_climb_equals_eager_with_one_capture(cuda_device, monkeypa
     500 = 31 blocks of 16 and one of 4."""
     from gcn_maxcut_tpu_torch.baselines import local_search as tls
 
+    _captured_route(monkeypatch)
     rng = np.random.default_rng(max_steps)
     cases = []
     for g in _recipe_graphs(4):
@@ -1618,13 +1689,14 @@ def _profiled_cpu():
 
 
 @pytest.mark.cuda
-def test_cuda_climb_captures_count_each_recapture(cuda_device):
+def test_cuda_climb_captures_count_each_recapture(cuda_device, monkeypatch):
     """One more padded shape than the card keeps: after a warm-up cycle
     every climb of a cycle over all of them captures again, and a cycle
     over the kept ones captures none."""
     from gcn_maxcut_tpu_torch.baselines import local_search as tls
     from gcn_maxcut_tpu_torch.utils import profiling
 
+    _captured_route(monkeypatch)
     graphs = [_solver_graph(24 + 8 * i, 4, 3).to(cuda_device)
               for i in range(tls._CLIMBS_KEPT + 1)]
     assert len({g.n_pad for g in graphs}) == len(graphs)
@@ -1648,6 +1720,49 @@ def test_cuda_climb_captures_count_each_recapture(cuda_device):
     finally:
         tls.clear_climbs()
         profiling.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["kernel", "not_symmetric"])
+def test_cuda_climb_routes_by_the_graph(cuda_device, route):
+    """A symmetric recipe graph climbs in one kernel launch, with no
+    capture and no kept climb; a graph that is not symmetric (each edge
+    stored one way) takes the captured route.  Both equal the CPU's climb,
+    and the counters say which route ran."""
+    from gcn_maxcut_tpu_torch.baselines import local_search as tls
+    from gcn_maxcut_tpu_torch.utils import profiling
+
+    if route == "kernel":
+        g = _recipe_graphs(1)[0]
+    else:
+        rng = np.random.default_rng(6)
+        edges = np.asarray(random_regular_edges(200, 6, 6))
+        g = graph_from_edges(edges, 200, weights=rng.integers(1, 4, len(edges)), n_pad=256,
+                             symmetrize=False)
+        assert not g.symmetric
+    starts = torch.tensor(np.random.default_rng(7).integers(0, 3, (4, g.n_pad)))
+    starts[:, :3] = torch.arange(3)
+    asn, cut = greedy_flip_local_search(g, starts, max_steps=500)
+    tls.clear_climbs()
+    launched = tclimb.LAUNCHES
+    profiling.reset()
+    try:
+        with _profiled_cpu():
+            asn_c, cut_c = greedy_flip_local_search(g.to(cuda_device), starts.to(cuda_device),
+                                                    max_steps=500)
+        counts = profiling.counts()
+        kept = len(tls._CLIMBS)
+    finally:
+        tls.clear_climbs()
+        profiling.reset()
+    assert torch.equal(asn_c.cpu(), asn) and torch.equal(cut_c.cpu(), cut)
+    assert counts["climb.runs"] == 1 and counts["climb.steps"] > 0
+    if route == "kernel":
+        assert tclimb.LAUNCHES == launched + 1 and kept == 0
+        assert counts["climb.kernel"] == 1 and "climb.captures" not in counts
+    else:
+        assert tclimb.LAUNCHES == launched and kept == 1
+        assert counts["climb.captures"] == 1 and "climb.kernel" not in counts
 
 
 @pytest.mark.cuda

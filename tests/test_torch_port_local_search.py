@@ -18,6 +18,7 @@ import gcn_maxcut_tpu.data as jdata
 import gcn_maxcut_tpu_torch.baselines.local_search as tls
 import gcn_maxcut_tpu_torch.data.generate as tgen
 import gcn_maxcut_tpu_torch.data.process as tproc
+import gcn_maxcut_tpu_torch.ops.climb as tclimb
 from gcn_maxcut_tpu_torch.objectives.cut_loss import hard_cut_value
 
 N_PAD = 64
@@ -78,7 +79,7 @@ def test_greedy_flip_reaches_local_optimum(graphs):
     assert float(cut) > init_cut
     assert float(hard_cut_value(gt, asn)) == float(cut)
     assert (asn[:3] == torch.arange(3)).all()
-    assert float(tls._move_gains(gt, asn, 3, 3).max()) <= 1e-6
+    assert float(tclimb.move_gains(gt, asn, 3, 3).max()) <= 1e-6
 
 
 def _sa_draws(key, steps, n_pad, k=3, num_fixed=3):
