@@ -25,6 +25,13 @@ that factor up to its eps.  Initial parameters are numpy draws from
 the JAX layout (``params``: ``{"conv1", "conv2", "embed": [D, n_shard,
 F]}``), so both packages can start from one draw.  Checkpoints use the JAX
 package's npz keys, so each package resumes the other's.
+
+Under a profiler session ``train_giant_graph`` records the spans
+``sharded.partition`` (node -> shard), ``sharded.assemble`` (the shards'
+tables and their move to the mesh), ``sharded.setup`` (the parameters'
+placement, Adam's state and the chunk callable) and ``sharded.decode``
+(the final forward and its host copy), ``utils/profiling.py``; the
+epochs' spans are the chunk runner's ``chunk.*``.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from gcn_maxcut_tpu_torch.parallel.spmm import Blocks, sharded_cut_edgeform, sha
 from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from gcn_maxcut_tpu_torch.train.chunks import chunk_step
 from gcn_maxcut_tpu_torch.train.optim import Adam
+from gcn_maxcut_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -333,23 +341,27 @@ def train_giant_graph(
     mesh = mesh or make_mesh()
     num_shards = mesh.size
     t0 = time.perf_counter()
-    owner = _partition(senders, receivers, n, num_shards, config.partition)
+    with span("sharded.partition"):
+        owner = _partition(senders, receivers, n, num_shards, config.partition)
     partition_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sg, g2l = shard_graph(
-        senders, receivers, n, num_shards, owner=owner,
-        local_reorder=config.local_reorder, block_ell=config.block_ell,
-        block_ell_outlier_frac=config.block_ell_outlier_frac,
-    )
-    sg = sg.to(mesh)
+    with span("sharded.assemble"):
+        sg, g2l = shard_graph(
+            senders, receivers, n, num_shards, owner=owner,
+            local_reorder=config.local_reorder, block_ell=config.block_ell,
+            block_ell_outlier_frac=config.block_ell_outlier_frac,
+        )
+        sg = sg.to(mesh)
     assembly_s = time.perf_counter() - t0
     n_shard = sg.n_shard
 
-    if params is None:
-        params = locality_params(num_shards * n_shard, config.dim_embedding,
-                                 config.hidden_dim, config.num_classes, config.seed)
-        params["embed"] = params["embed"].reshape(num_shards, n_shard, -1)
-    state = GiantState.create(params, mesh, config.learning_rate)
+    with span("sharded.setup"):
+        if params is None:
+            params = locality_params(num_shards * n_shard, config.dim_embedding,
+                                     config.hidden_dim, config.num_classes, config.seed)
+            params["embed"] = params["embed"].reshape(num_shards, n_shard, -1)
+        state = GiantState.create(params, mesh, config.learning_rate)
+        step = make_giant_step(sg, mesh, config, state)
 
     history: List[float] = []
     epoch = 0
@@ -366,7 +378,6 @@ def train_giant_graph(
                         embed=state.embed(), epoch=tag_epoch, loss_history=history)
         logger.info("checkpoint @ epoch %d -> %s", tag_epoch, checkpoint_path)
 
-    step = make_giant_step(sg, mesh, config, state)
     K = step.runner.max_chunk
     if (config.number_epochs - epoch) % K and epoch < config.number_epochs:
         logger.info("number_epochs=%d rounds up to whole chunks of %d epochs",
@@ -417,8 +428,9 @@ def train_giant_graph(
         }
     extra = {}
     if return_assignment:
-        sharded_asn = decode_assignment(sg, mesh, config, state.conv, state.embeds)
-        extra["assignment"] = sharded_asn[g2l // n_shard, g2l % n_shard]
+        with span("sharded.decode"):
+            sharded_asn = decode_assignment(sg, mesh, config, state.conv, state.embeds)
+            extra["assignment"] = sharded_asn[g2l // n_shard, g2l % n_shard]
     return {
         **timed,
         **extra,
