@@ -16,7 +16,8 @@ Phases; any failure ends the run with a non-zero exit code:
                 probes' warp gathers (P1/P2's window_warp_gather, P4's
                 panel_ell_gather) and the earlier bodies of P1/P2, P4 and
                 P5a; P5a runs on ``banded_stream.cu`` in its column-weight
-                mode) with nvcc for sm_90a, one nvcc
+                mode; ``climb.cu``: the decode's climb; ``adam.cu``: Adam's
+                step) with nvcc for sm_90a, one nvcc
                 per source, started together, and print the card's name and
                 power limit;
   2. kernels    hold K1 (``block_ell_spmm``: the microbenchmark's plan at
@@ -62,6 +63,15 @@ Phases; any failure ends the run with a non-zero exit code:
                 probe entry points (``gcn_maxcut_tpu_torch.experiments``)
                 and check their launch counts (none on an earlier body) and
                 errors;
+     adam       Adam's step (``ops/adam.py``): ``csrc/adam.cu`` against the
+                plain step on the card, bit for bit, at the giant's leaves
+                (the 10,002,432 x 32 embedding with a bf16 first moment and
+                the head's four) and at the recipe's four (1000 x 500,
+                500, 500 x 3, 3; float32 first moment), three steps each,
+                one update and one count launch a step; each step timed (the
+                kernel's two launches, and the plain step's passes) beside
+                the bytes bound of one pass and the library's fused step
+                (``torch._fused_adam_``, float32 first moment);
   3. giant      the packed giant trainer at its defaults (n = 10,002,432,
                 d = 8, bandwidth 63, bf16 aggregation and first moment, 40
                 epochs) through K3 on ``halo_stream.cu``, after a small run
@@ -69,7 +79,9 @@ Phases; any failure ends the run with a non-zero exit code:
                 and at the end (in a temporary directory, deleted); a
                 20-epoch run's checkpoint resumed to 40, its last 20 losses
                 equal to the uninterrupted run's (bit for bit) and K3's
-                launches on it counted exactly; each write's seconds and
+                launches on it counted exactly, and C2's (``adam.cu``) on
+                the full run, one update and one count an epoch; each
+                write's seconds and
                 bytes; then the plain-layout trainer at
                 n = 1,048,576 through K2 (F = 16 on ``halo_stream.cu``,
                 F = 3 on the earlier body), each launch counted by the kernel
@@ -90,7 +102,9 @@ Phases; any failure ends the run with a non-zero exit code:
                 greedy-flip refine (held against the randomized baseline);
                 then the ``test`` command on the pipeline's dataset and
                 final checkpoint, the refined cut at least the
-                post-processed one on every graph;
+                post-processed one on every graph; C2 (``adam.cu``)
+                launched once for the update and once for the count at
+                every Adam step of the training (a step a graph an epoch);
      variants   each training variant (batched steps, the cosine rate, the
                 quantile loss, entropy 0.5) and the QUBO loop on the card
                 against the CPU from one start, 10 epochs at n_pad 64
@@ -232,11 +246,18 @@ K4_SOURCE = "gcn_maxcut_tpu_torch/csrc/banded_stream.cu"
 K1_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_gather.cu"
 PROBE_SOURCE = "gcn_maxcut_tpu_torch/csrc/probe_kernels.cu"
 SUBBLOCK_SOURCE = "gcn_maxcut_tpu_torch/csrc/subblock_stream.cu"
+ADAM_SOURCE = "gcn_maxcut_tpu_torch/csrc/adam.cu"
 PAST_L2_N = 1_048_576           # P3's ring against K1's gather: x is 512 MB at F = 128
 PROBE_ITERS = 10                # timed calls of each probe case (plus 2 warm-up)
 
 GIANT_N = 10_002_432
 GIANT_EPOCHS = 40
+# Adam's leaves: the packed giant's (conv1 w, b; conv2 w, b; the embedding,
+# 1,250,304 x 256 packed = 10,002,432 x 32) and the recipe's GCNSoftmax
+ADAM_CASES = {
+    "giant": ([(32, 16), (16,), (16, 16), (16,), (GIANT_N // 8, 256)], "bfloat16"),
+    "recipe": ([(1000, 500), (500,), (500, 3), (3,)], "float32"),
+}
 GIANT_CHECKPOINT_EVERY = 20
 PLAIN_N = 1_048_576
 PLAIN_EPOCHS = 10
@@ -1350,6 +1371,70 @@ def phase_probes(torch, tpk, tb, tbell, probes) -> dict:
     return out
 
 
+def phase_adam(torch) -> dict:
+    """Adam's step: ``csrc/adam.cu`` against the plain step on the card, bit
+    for bit over three steps, then each step timed at ``ADAM_CASES`` beside
+    the library's fused step (``torch._fused_adam_``, as
+    ``torch.optim.Adam(fused=True)`` calls it after adding one to its step
+    counts), which takes a float32 first moment only; where the case's
+    moment is float32, whether its three steps equal the plain step's."""
+    from gcn_maxcut_tpu_torch.ops import adam as tadam
+    from gcn_maxcut_tpu_torch.train.optim import Adam
+
+    log("== adam")
+    out = {}
+    for case, (shapes, mu_name) in ADAM_CASES.items():
+        mu_dtype = getattr(torch, mu_name)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        start = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+        grads = [torch.randn(s, generator=gen, device="cuda") * 1e-2 for s in shapes]
+        lib = [t.clone() for t in start]
+        lib_mu, lib_nu = [torch.zeros_like(t) for t in lib], [torch.zeros_like(t) for t in lib]
+        lib_steps = [torch.zeros((), device="cuda") for _ in lib]
+        opt = Adam([t.clone() for t in start], 1e-3, mu_dtype=mu_dtype)
+        plain = Adam(start, 1e-3, mu_dtype=mu_dtype)
+
+        def library():
+            torch._foreach_add_(lib_steps, 1)
+            torch._fused_adam_(lib, grads, lib_mu, lib_nu, [], lib_steps, lr=1e-3,
+                               beta1=opt.b1, beta2=opt.b2, weight_decay=0.0, eps=opt.eps,
+                               amsgrad=False, maximize=False)
+
+        tadam.reset_launches()
+        for _ in range(3):
+            opt.step(grads)
+            tadam.step_plain(plain, grads)
+            library()
+        check(tadam.LAUNCHES == {"adam_update": 3, "adam_count": 3},
+              f"adam {case}: one update and one count launch a step")
+        for a, b in zip([*opt.params, *opt.mu, *opt.nu], [*plain.params, *plain.mu, *plain.nu]):
+            check(torch.equal(a, b), f"adam {case}: the kernel's step is the plain step's")
+        library_equal = None if mu_dtype != torch.float32 else all(
+            torch.equal(a, b) for a, b in zip([*lib, *lib_mu, *lib_nu],
+                                              [*plain.params, *plain.mu, *plain.nu]))
+        del plain
+        numel = sum(math.prod(s) for s in shapes)
+        # one pass: read g, p, nu and mu, write p, nu and mu
+        mu_bytes = torch.finfo(mu_dtype).bits // 8
+        bytes_ = numel * (4 * 5 + 2 * mu_bytes)
+        ms = ms_in_turns(torch, {"kernel": lambda: tadam.step_kernel(opt, grads),
+                                 "plain": lambda: tadam.step_plain(opt, grads),
+                                 "library": library})
+        row = {"leaves": [list(s) for s in shapes], "numel": numel, "mu_dtype": mu_name,
+               "ms": ms["kernel"], "plain_ms": ms["plain"], "library_ms": ms["library"],
+               "library_equal": library_equal, "bytes": bytes_,
+               "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3,
+               "library_bound_ms": numel * 28 / HBM_BYTES_PER_S * 1e3}
+        log(f"  {case}: {numel:,} elements, mu {mu_name}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({bytes_:,} bytes); "
+            f"library (float32 mu) {row['library_ms']:.4f} ms, bound "
+            f"{row['library_bound_ms']:.4f} ms, equal to the plain step: {library_equal}")
+        out[case] = row
+        del opt, start, grads, lib, lib_mu, lib_nu
+        torch.cuda.empty_cache()
+    return out
+
+
 def circulant_cut(torch, assignment, offsets) -> int:
     """Cut of a node-order assignment on the circulant graph: each positive
     offset s contributes the edges (i, i + s mod n)."""
@@ -1358,6 +1443,8 @@ def circulant_cut(torch, assignment, offsets) -> int:
 
 
 def phase_giant(torch, tb, giant) -> dict:
+    from gcn_maxcut_tpu_torch.ops import adam as tadam
+
     log("== giant")
     small = dict(n=4096, bandwidth=31, epochs=4, agg_dtype=None, mu_dtype=None,
                  return_assignment=True)
@@ -1376,10 +1463,12 @@ def phase_giant(torch, tb, giant) -> dict:
         log(f"  checkpoints in a temporary directory, {free_gb:.1f} GB free")
         torch.cuda.reset_peak_memory_stats()
         tb.reset_launches()
+        tadam.reset_launches()
         res = giant.train_banded_giant_packed(
             epochs=GIANT_EPOCHS, return_assignment=True, checkpoint_path=f"{tmp}/full",
             checkpoint_every=GIANT_CHECKPOINT_EVERY, device="cuda")
         launches = dict(tb.LAUNCHES)
+        adam_launches = dict(tadam.LAUNCHES)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         Path(f"{tmp}/full.npz").unlink()
         resume = phase_giant_resume(torch, tb, giant, tmp, res)
@@ -1388,9 +1477,13 @@ def phase_giant(torch, tb, giant) -> dict:
     log(f"  packed n={res['n']} d={res['d']} offsets {res['offsets']}: epoch "
         f"{res['epoch_time_s'] * 1e3:.3f} ms (first chunk {res['first_chunk_s']:.3f} s), "
         f"{res['edges_per_s_per_epoch']:.4g} edges/s, cut fraction {res['cut_fraction']:.5f} "
-        f"(decoded {cut / res['edges']:.5f}), peak {peak_gb:.2f} GB, launches {launches}")
+        f"(decoded {cut / res['edges']:.5f}), peak {peak_gb:.2f} GB, launches {launches}, "
+        f"Adam {adam_launches}")
     check(launches["banded_spmm_unit_packed"] == 6 * GIANT_EPOCHS + 2,
           "K3 launched halo_stream.cu 6 times an epoch plus 2 for the decode")
+    # one Adam step an epoch: the first chunk's warm-up epoch, then replays
+    check(adam_launches == {"adam_update": res["epochs"], "adam_count": res["epochs"]},
+          "C2 launched adam.cu's update and count once each an epoch")
     check(all(v == 0 for k, v in launches.items() if k != "banded_spmm_unit_packed"),
           "the packed trainer runs no earlier body, no K2 and no K4")
     check(all(map(math.isfinite, res["history"])), "finite loss history")
@@ -1424,7 +1517,8 @@ def phase_giant(torch, tb, giant) -> dict:
         r.pop("assignment", None)
     torch.cuda.empty_cache()
     return {"packed": {**res, "decoded_cut_fraction": cut / res["edges"],
-                       "peak_memory_gb": peak_gb, "launches": launches},
+                       "peak_memory_gb": peak_gb, "launches": launches,
+                       "adam_launches": adam_launches},
             "resume": resume,
             "plain": {**plain, "launches": plain_launches},
             "small_agreement": agree}
@@ -1557,9 +1651,14 @@ def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> 
 
 
 def phase_recipe(tb, run_pipeline, cli_main) -> dict:
+    from gcn_maxcut_tpu_torch.ops import adam as tadam
+    from gcn_maxcut_tpu_torch.train.config import TrainingConfig
+
     log("== recipe")
     tb.reset_launches()
+    tadam.reset_launches()
     res = run_pipeline(OUT_DIR / "chip_smoke_pipeline", device="cuda")
+    adam_launches = dict(tadam.LAUNCHES)
     tested_path = OUT_DIR / "chip_smoke_pipeline" / "test_results.json"
     check(cli_main(["test", "--dataset", res["dataset"], "--checkpoint",
                     res["final_checkpoint"], "--output", str(tested_path),
@@ -1572,7 +1671,15 @@ def phase_recipe(tb, run_pipeline, cli_main) -> dict:
         f"({res['avg_refine_s']:.5f} s a graph), randomized {res['avg_randomized_cut']:.2f}; "
         f"test command on the {len(tested)} training graphs: post "
         f"{sum(r['post_cut'] for r in tested) / len(tested):.2f}, refined "
-        f"{sum(r['refined_cut'] for r in tested) / len(tested):.2f}; launches {launches}")
+        f"{sum(r['refined_cut'] for r in tested) / len(tested):.2f}; launches {launches}, "
+        f"Adam {adam_launches}")
+    # an Adam step a graph an epoch; a stop inside a chunk runs its frozen
+    # epochs to the chunk's end
+    steps = adam_launches["adam_count"]
+    chunk = TrainingConfig.epochs_per_call
+    check(adam_launches["adam_update"] == steps and steps % len(tested) == 0
+          and res["epochs_run"] <= steps // len(tested) < res["epochs_run"] + chunk,
+          "C2 launched adam.cu's update and count once each an Adam step of the training")
     # The JAX package's own pipeline on this configuration (python -m
     # gcn_maxcut_tpu pipeline, run on the CPU) decodes a post-processed
     # average cut of REFERENCE_POST_CUT and does not beat its randomized
@@ -1588,7 +1695,7 @@ def phase_recipe(tb, run_pipeline, cli_main) -> dict:
           "the test command's refined cut at least its post-processed cut on every graph")
     res.pop("summary")
     res.pop("history")
-    return {**res, "launches": launches,
+    return {**res, "launches": launches, "adam_launches": adam_launches,
             "test_command": {"graphs": len(tested),
                              "post": [r["post_cut"] for r in tested],
                              "refined": [r["refined_cut"] for r in tested]}}
@@ -3061,6 +3168,7 @@ def main() -> int:
     report["kernels_probes"] = phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph,
                                                     probes)
     report["probes"] = phase_probes(torch, tpk, tb, tbell, probes)
+    report["adam"] = phase_adam(torch)
     report["giant"] = phase_giant(torch, tb, giant)
     report["halo"] = phase_halo(torch, tb, th, tgb, giant, make_mesh,
                                 report["giant"]["packed"]["cut_fraction"])
@@ -3194,6 +3302,18 @@ def main() -> int:
             "library_ms": row["library_ms"], "shape": [row["n"], row["F"]], "dtype": row["dtype"],
             "earlier_ms": row.get("earlier_ms"),
         })
+    adam = report["adam"]["giant"]
+    packed = report["giant"]["packed"]
+    kernels.append({
+        "name": "C2 Adam step (ops/adam.step_kernel)", "route": "cuda", "source": ADAM_SOURCE,
+        "replaces": "none: optax.adam under XLA's fusion",
+        # measured on the packed giant's 40-epoch run: launches an Adam step
+        "launches": sum(packed["adam_launches"].values()) / packed["epochs"],
+        "ms": adam["ms"], "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
+        "bound_by": "bytes", "library_ms": adam["library_ms"],
+        "library_equal": adam["library_equal"], "shape": adam["leaves"],
+        "dtype": f"float32, mu {adam['mu_dtype']}", "recipe": report["adam"]["recipe"],
+    })
     log(f"total {report['seconds']:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

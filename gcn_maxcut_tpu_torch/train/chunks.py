@@ -26,10 +26,10 @@ once): capture across cards waits for a machine with more cards.  On the
 CPU every epoch is eager: the same code, with the same single read a chunk.
 
 The kernel launch counters (``LAUNCHES`` of ``ops/block_ell.py``,
-``ops/banded.py``, ``ops/halo.py`` and ``ops/probe_kernels.py``) count the
-wrappers' Python calls, and a replay makes none.  So the runner takes back
-what the counters gained while capturing (a capture launches nothing) and
-adds that gain once for every replay.
+``ops/banded.py``, ``ops/halo.py``, ``ops/probe_kernels.py`` and
+``ops/adam.py``) count the wrappers' Python calls, and a replay makes
+none.  So the runner takes back what the counters gained while capturing
+(a capture launches nothing) and adds that gain once for every replay.
 
 A step that draws from its own ``torch.Generator`` (the recipe's dropout)
 names it in ``generators``: the graph registers its state before capture,
@@ -59,7 +59,7 @@ from gcn_maxcut_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
-_COUNTER_MODULES = ("block_ell", "banded", "halo", "probe_kernels")
+_COUNTER_MODULES = ("block_ell", "banded", "halo", "probe_kernels", "adam")
 _LOGGED: set = set()
 
 

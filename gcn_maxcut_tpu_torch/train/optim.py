@@ -30,6 +30,10 @@ rate, and ``1 − b^t`` taken in double as PyTorch divides by it.  On the
 CPU ``x / b`` is a float32 division by float32(b); PyTorch's CUDA kernel
 multiplies by the float32 of 1 / b taken in double instead (PyTorch 2.11),
 so on the card the table holds those reciprocals and the step multiplies.
+
+The step itself is ``ops/adam.py``'s: on a card one launch of
+``csrc/adam.cu`` for all the card's leaves and one for the count, the same
+bits as the plain step, which the CPU runs.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from gcn_maxcut_tpu_torch.ops import adam
 
 
 def cosine_decay_schedule(
@@ -103,6 +109,8 @@ class Adam:
         # [3, last + 1], column t for an update at count t: −lr(t), then
         # the two bias corrections
         self._tables = torch.from_numpy(np.stack([rate, *bcs])).to(dev)
+        # each other card of a mesh: its count slot and tables (ops/adam.py)
+        self._side = adam.side_state(self.params, self._count, self._tables)
         self.nonfinite: torch.Tensor | None = None   # set by train.chunks.checked
 
     @property
@@ -126,29 +134,6 @@ class Adam:
         """Every tensor a step writes: parameters, moments and the count."""
         return [*self.params, *self.mu, *self.nu, self._count]
 
-    @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        at = torch.clamp(self._count, max=self._last)
-        home = self._count.device
-        scalars = {home: self._tables.index_select(1, at).view(3)}
-        self._count.add_(1)
-        for i, (p, g) in enumerate(zip(self.params, grads)):
-            if p.device not in scalars:     # a mesh over several cards
-                scalars[p.device] = scalars[home].to(p.device)
-            neg_lr, bc1, bc2 = scalars[p.device]
-            if self.nonfinite is not None:
-                self.nonfinite.logical_or_((~torch.isfinite(g).all()).to(home))
-            # (1 − b1)·g + b1·mu and (1 − b2)·g² + b2·nu, in place where the
-            # stored moment is float32 (a sum of two rounded products either way)
-            mu = g * (1.0 - self.b1)
-            if self.mu[i].dtype == mu.dtype:
-                mu = self.mu[i].mul_(self.b1).add_(mu)
-            else:
-                mu = mu + self.b1 * self.mu[i]
-                self.mu[i].copy_(mu)
-            nu = self.nu[i].mul_(self.b2).add_((g * g) * (1.0 - self.b2))
-            if self._reciprocal:
-                update = (mu * bc1) / (torch.sqrt(nu * bc2) + self.eps)
-            else:
-                update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_(update * neg_lr)
+        """One update of every leaf by its gradient (``ops/adam.step``)."""
+        adam.step(self, grads)

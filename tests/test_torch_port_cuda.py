@@ -1354,6 +1354,205 @@ def test_cuda_captured_adam_equals_the_python_number_step(cuda_device, schedule)
             assert torch.equal(a, b)
 
 
+# Adam's step (ops/adam.py): csrc/adam.cu against the plain step on the card,
+# bit for bit (a NaN against a NaN, whatever its payload).
+
+ADAM_SIZES = [(1,), (3,), (500,), (1000, 500), (1_000_003,)]
+ADAM_UNALIGNED = 4099       # one more leaf, 4 bytes past a 16-byte boundary
+
+
+def _adam_pairs(device):
+    """The leaves twice over (the kernel's and the plain step's): the sizes
+    above, then a view at storage offset 1."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    leaves = [torch.randn(s, generator=gen, device=device) for s in ADAM_SIZES]
+    base = torch.randn(1 + ADAM_UNALIGNED, generator=gen, device=device)
+    return ([t.clone() for t in leaves] + [base.clone()[1:]],
+            [t.clone() for t in leaves] + [base.clone()[1:]])
+
+
+def _adam_grads(device, step: int):
+    """Gradients of the leaves of ``_adam_pairs`` at one step, 1e-3 to 10 in
+    scale; the last one also on an unaligned offset."""
+    gen = torch.Generator(device=device).manual_seed(1000 + step)
+    scale = 10.0 ** (step % 5 - 3)
+    grads = [torch.randn(s, generator=gen, device=device) * scale for s in ADAM_SIZES]
+    base = torch.randn(1 + ADAM_UNALIGNED, generator=gen, device=device) * scale
+    return grads + [base[1:]]
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.int64: torch.int64}
+    same = a.view(ints[a.dtype]) == b.view(ints[b.dtype])
+    if a.is_floating_point():
+        same |= torch.isnan(a) & torch.isnan(b)
+    return bool(same.all())
+
+
+def _adam_state(opt) -> list:
+    return [*opt.params, *opt.mu, *opt.nu, opt._count]
+
+
+def _adam_launches(tadam, before: dict) -> tuple:
+    """Update and count launches since ``before``."""
+    return tuple(tadam.LAUNCHES[k] - before[k] for k in ("adam_update", "adam_count"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ["zero", "past_the_tables"])
+@pytest.mark.parametrize("lr", ["constant", "cosine"])
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16], ids=["f32_mu", "bf16_mu"])
+def test_cuda_adam_kernel_equals_the_plain_step(cuda_device, mu_dtype, lr, start):
+    """60 eager steps on the kernel route equal the plain step on the card
+    bit for bit, one update and one count launch a step: from count 0 past the cosine's decay
+    steps, and from 30 before the tables' last entry past it (the clamp)."""
+    from gcn_maxcut_tpu_torch.ops import adam as tadam
+    from gcn_maxcut_tpu_torch.train.optim import Adam, cosine_decay_schedule
+
+    rate = cosine_decay_schedule(3e-2, 25, 0.05) if lr == "cosine" else 3e-2
+    got, ref = _adam_pairs(cuda_device)
+    opt, plain = Adam(got, rate, mu_dtype=mu_dtype), Adam(ref, rate, mu_dtype=mu_dtype)
+    if start == "past_the_tables":
+        opt.count = plain.count = opt._last - 30
+    for step in range(60):
+        grads = _adam_grads(cuda_device, step)
+        launched = dict(tadam.LAUNCHES)
+        opt.step(grads)
+        assert _adam_launches(tadam, launched) == (1, 1)
+        tadam.step_plain(plain, grads)
+    torch.cuda.synchronize()
+    assert opt.count == plain.count == (60 if start == "zero" else opt._last + 30)
+    for a, b in zip(_adam_state(opt), _adam_state(plain)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16], ids=["f32_mu", "bf16_mu"])
+def test_cuda_adam_kernel_flags_a_nonfinite_gradient(cuda_device, mu_dtype):
+    """A NaN in one gradient (step 3) and an inf in another (step 5) set
+    ``nonfinite`` as the plain step sets it, and the states stay equal."""
+    from gcn_maxcut_tpu_torch.ops import adam as tadam
+    from gcn_maxcut_tpu_torch.train.optim import Adam
+
+    got, ref = _adam_pairs(cuda_device)
+    opt, plain = Adam(got, 1e-2, mu_dtype=mu_dtype), Adam(ref, 1e-2, mu_dtype=mu_dtype)
+    for o in (opt, plain):
+        o.nonfinite = torch.zeros(1, dtype=torch.bool, device=cuda_device)
+    for step in range(8):
+        grads = _adam_grads(cuda_device, step)
+        if step == 3:
+            grads[4][123_457] = float("nan")
+        if step == 5:
+            grads[2][499] = float("inf")
+        opt.step(grads)
+        tadam.step_plain(plain, grads)
+        assert bool(opt.nonfinite) == bool(plain.nonfinite) == (step >= 3)
+    for a, b in zip(_adam_state(opt), _adam_state(plain)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype", [torch.float32, torch.bfloat16], ids=["f32_mu", "bf16_mu"])
+def test_cuda_captured_adam_kernel_equals_the_plain_step(cuda_device, mu_dtype):
+    """The kernel's step captured in a ``ChunkRunner`` (one eager epoch, one
+    capture, 59 replays) equals 60 eager plain steps bit for bit; the
+    counters carry the captured launches over the replays, two a step."""
+    from gcn_maxcut_tpu_torch.ops import adam as tadam
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+    from gcn_maxcut_tpu_torch.train.optim import Adam, cosine_decay_schedule
+
+    rate = cosine_decay_schedule(3e-2, 40, 0.05)
+    got, ref = _adam_pairs(cuda_device)
+    opt, plain = Adam(got, rate, mu_dtype=mu_dtype), Adam(ref, rate, mu_dtype=mu_dtype)
+
+    def grads_of(ps):
+        return [torch.sin(p * 3.0) * 10.0 for p in ps]
+
+    def step():
+        opt.step(grads_of(got))
+        return got[0].sum()
+
+    launched = dict(tadam.LAUNCHES)
+    runner = ChunkRunner(step, [cuda_device], 10)
+    for _ in range(6):
+        runner.run(10)
+    assert runner.replays == 59 and _adam_launches(tadam, launched) == (60, 60)
+    for _ in range(60):
+        tadam.step_plain(plain, grads_of(ref))
+    torch.cuda.synchronize()
+    assert opt.count == plain.count == 60
+    for a, b in zip(_adam_state(opt), _adam_state(plain)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_adam_kernel_splits_past_its_leaf_limit(cuda_device):
+    """70 leaves, past the 64 a launch takes: two updates and the count a
+    step, equal to the plain step."""
+    from gcn_maxcut_tpu_torch.ops import adam as tadam
+    from gcn_maxcut_tpu_torch.train.optim import Adam
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    sizes = [1 + 37 * i for i in range(70)]
+    start = [torch.randn(n, generator=gen, device=cuda_device) for n in sizes]
+    got, ref = [t.clone() for t in start], [t.clone() for t in start]
+    opt, plain = Adam(got, 1e-2), Adam(ref, 1e-2)
+    for step in range(5):
+        grads = [torch.randn(n, generator=gen, device=cuda_device) for n in sizes]
+        launched = dict(tadam.LAUNCHES)
+        opt.step(grads)
+        assert _adam_launches(tadam, launched) == (2, 1)
+        tadam.step_plain(plain, grads)
+    for a, b in zip(_adam_state(opt), _adam_state(plain)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_adam_kernel_on_a_mesh_of_two_cards(cuda_device):
+    """Leaves on two cards: one update launch on each and the count on the
+    first, equal to the plain step."""
+    from gcn_maxcut_tpu_torch.ops import adam as tadam
+    from gcn_maxcut_tpu_torch.train.optim import Adam
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    gen = torch.Generator().manual_seed(6)
+    start = [torch.randn(n, generator=gen) for n in (5, 4099, 70_001)]
+    places = [devs[0], devs[1], devs[1]]
+    got = [t.to(d) for t, d in zip(start, places)]
+    ref = [t.to(d) for t, d in zip(start, places)]
+    opt, plain = Adam(got, 1e-2, mu_dtype=torch.bfloat16), Adam(ref, 1e-2, mu_dtype=torch.bfloat16)
+    for o in (opt, plain):
+        o.nonfinite = torch.zeros(1, dtype=torch.bool, device=devs[0])
+    for step in range(12):
+        grads = [(torch.randn(t.shape, generator=gen) * 10.0 ** (step % 3 - 1)).to(d)
+                 for t, d in zip(start, places)]
+        launched = dict(tadam.LAUNCHES)
+        opt.step(grads)
+        assert _adam_launches(tadam, launched) == (2, 1)
+        tadam.step_plain(plain, grads)
+    torch.cuda.synchronize()
+    assert not bool(opt.nonfinite) and opt.count == plain.count == 12
+    for a, b in zip(_adam_state(opt), _adam_state(plain)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_adam_kernel_rests_on_bf16_times_a_python_number_in_float32(cuda_device):
+    """What ``csrc/adam.cu`` follows: on the card ``b1 * mu`` of a bfloat16
+    ``mu`` multiplies by float32(b1) in float32 and rounds to bfloat16."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    mu = (torch.randn(1 << 16, generator=gen, device=cuda_device)
+          * 10.0 ** torch.randint(-6, 3, (1 << 16,), generator=gen, device=cuda_device)
+          ).to(torch.bfloat16)
+    for b1 in (0.9, 0.99, 0.5):
+        want = (mu.float() * torch.tensor(b1, dtype=torch.float32, device=cuda_device))
+        assert _same_bits(b1 * mu, want.to(torch.bfloat16))
+
+
 def _chunk_batch():
     specs, _ = generate_graph_dataset(num_graphs=3, min_nodes=40, max_nodes=56, min_degree=3,
                                       max_degree=6, base_seed=21)
