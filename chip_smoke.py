@@ -11,11 +11,11 @@ Phases; any failure ends the run with a non-zero exit code:
                 where rows take 16-byte copies; ``banded_window.cu``: K2,
                 K3 and K4 at other widths and their earlier body and, in its
                 halo mode, K5's and K6's;
-                ``block_ell_window.cu``: K1's and P3's earlier body;
                 ``subblock_stream.cu``: P3's ring; ``probe_kernels.cu``: the
                 probes' warp gathers (P1/P2's window_warp_gather, P4's
-                panel_ell_gather) and the earlier bodies of P1/P2, P4 and
-                P5a; P5a runs on ``banded_stream.cu`` in its column-weight
+                panel_ell_gather) and P5a's earlier body, which takes its
+                rows that are not 16-byte pieces; P5a runs on
+                ``banded_stream.cu`` in its column-weight
                 mode; ``climb.cu``: the decode's climb; ``adam.cu``: Adam's
                 step) with nvcc for sm_90a, one nvcc
                 per source, started together, and print the card's name and
@@ -47,19 +47,18 @@ Phases; any failure ends the run with a non-zero exit code:
                 ``torch.sparse.mm`` of the shard's row operator (bf16 on the
                 values widened to float32);
      probes     hold the design probes' kernels against their plain versions
-                at the probes' sizes, bit for bit, and against their earlier
-                bodies (``window_gather`` on the warp gather at every P1
-                (W, B), float32 and bf16 x, and P2's d = 16;
-                ``subblock_spmm`` on P3's ring at both P3 configurations;
-                ``panel_ell_spmm`` on the gather at every P4 (W, W_P) the
-                5% rule keeps; ``banded_spmm_cols`` on K4's ring with
-                column weights, and K4 on every P5 variant's weights), time
-                each beside its bound, its plain version,
-                ``torch.sparse.mm`` and, in turns, its earlier body; time
-                P1's function at (255, 512) in float32 on the gather, its
-                earlier body and P3's ring in turns; time P3's ring in turns
-                with K1's gather past the L2 (n = 1,048,576, F = 128, x
-                512 MB); then run the five
+                at the probes' sizes, bit for bit (``window_gather`` on the
+                warp gather at every P1 (W, B), float32 and bf16 x, and
+                P2's d = 16; ``subblock_spmm`` on P3's ring at both P3
+                configurations; ``panel_ell_spmm`` on the gather at every
+                P4 (W, W_P) the 5% rule keeps; ``banded_spmm_cols`` on K4's
+                ring with column weights, also against its earlier body,
+                and K4 on every P5 variant's weights), time each beside its
+                bound, its plain version, ``torch.sparse.mm`` and, for
+                P5a, in turns, its earlier body; time P1's function at
+                (255, 512) in float32 on the gather and P3's ring in turns;
+                time P3's ring in turns with K1's gather past the L2
+                (n = 1,048,576, F = 128, x 512 MB); then run the five
                 probe entry points (``gcn_maxcut_tpu_torch.experiments``)
                 and check their launch counts (none on an earlier body) and
                 errors;
@@ -236,6 +235,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from gcn_maxcut_tpu_torch.ops import launches as registry
+
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -371,6 +372,12 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
+def launches_but_adam() -> dict:
+    """The launch registry's counts less Adam's kernel, which every
+    trainer's step launches (the adam, giant and recipe phases count it)."""
+    return {k: v for k, v in registry.LAUNCHES.items() if not k.startswith("adam_")}
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -455,7 +462,7 @@ def phase_build(build) -> dict:
 
 
 def circulant_op(name: str) -> str:
-    """The ``tb.LAUNCHES`` key of K2 or K3."""
+    """The launch registry's key of K2 or K3."""
     return "banded_spmm_unit" if name == "K2" else "banded_spmm_unit_packed"
 
 
@@ -693,35 +700,23 @@ def time_block_ell(torch, tbell, g, F: int, gen, label: str) -> dict:
         lib = torch.sparse.mm(csr, x)
         row["library_max_abs_err"] = float(
             (lib - tbell.block_ell_spmm_plain(x, *ops, n, B, wp)).abs().max())
-        y = tbell._launch(x, ops[0], ops[1], n, B, wp)
-        check(torch.equal(y, tbell._slice_launch(x, ops[0], ops[1], n, B, wp)),
-              "K1's earlier body equals the kernel bit for bit")
-        del y
-        # the op (kernel + outlier index_add_) and the same op on the earlier
-        # body (block_ell_window.cu), its plain version and sparse.mm, in turns
-        times = ms_in_turns(torch, {
+        # the op (kernel + outlier index_add_), its plain version and
+        # sparse.mm in turns, then the kernel alone
+        row.update(ms_in_turns(torch, {
             "ms": lambda: tbell.block_ell_spmm(x, *ops, n, B, wp),
-            "earlier_ms": lambda: tbell._add_outliers(
-                tbell._slice_launch(x, ops[0], ops[1], n, B, wp), x, *ops[2:]),
             "plain_ms": lambda: tbell.block_ell_spmm_plain(x, *ops, n, B, wp),
             "library_ms": lambda: torch.sparse.mm(csr, x),
-        })
-        kernels = ms_in_turns(torch, {
-            "kernel_only_ms": lambda: tbell._launch(x, ops[0], ops[1], n, B, wp),
-            "earlier_kernel_only_ms": lambda: tbell._slice_launch(x, ops[0], ops[1], n, B, wp),
-        })
-        row.update(times, **kernels)
+        }))
+        row["kernel_only_ms"] = best_ms(torch, lambda: tbell._launch(x, ops[0], ops[1], n, B, wp))
     bytes_ms = (2 * n * F * 4 + n * width * 8 + o_pad * (2 * F * 4 + 12)) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * n * width * F / F32_OPS_PER_S * 1e3
     row["bound_ms"] = max(bytes_ms, ops_ms)
     row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     row["kernel_bound_ms"] = (2 * n * F * 4 + n * width * 8) / HBM_BYTES_PER_S * 1e3
     log(f"  K1 {label} n={n} F={F} B={B} Wp={wp} width={width} o_pad={o_pad} (vec "
-        f"{row['vec']}): op {row['ms']:.4f} ms, earlier op "
-        f"{row['earlier_ms']:.4f}, plain {row['plain_ms']:.4f}, sparse.mm {row['library_ms']:.4f}, "
-        f"bound {row['bound_ms']:.4f} ({row['bound_by']}); kernel alone {row['kernel_only_ms']:.4f}"
-        f", earlier kernel {row['earlier_kernel_only_ms']:.4f}, kernel bound "
-        f"{row['kernel_bound_ms']:.4f}")
+        f"{row['vec']}): op {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, sparse.mm "
+        f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}); kernel alone "
+        f"{row['kernel_only_ms']:.4f}, kernel bound {row['kernel_bound_ms']:.4f}")
     return row
 
 
@@ -831,7 +826,7 @@ def halo_bound(n_shard: int, L: int, d: int, wp: int, elsize: int,
 
 
 def halo_op(r) -> str:
-    """The ``th.LAUNCHES`` key of K5 (``r`` None) or K6."""
+    """The launch registry's key of K5 (``r`` None) or K6."""
     return "halo_banded_spmm" if r is None else "halo_banded_spmm_unit_packed"
 
 
@@ -1066,9 +1061,9 @@ def time_past_l2(torch, np, tpk, tbell, gen) -> dict:
     on one table past the 50 MB L2: n = 1,048,576, F = 128 (x 512 MB), 8
     senders a row within ±255 made with numpy from a seed, so at B = 256,
     Wp = 256 every slot lies in its 128-row sub-block's slice.  Both are
-    held bit for bit to the plain version, then timed in turns with P3's
-    earlier body and ``torch.sparse.mm``; one bound for both (the same
-    bytes: x and y once, the table once)."""
+    held bit for bit to the plain version, then timed in turns with
+    ``torch.sparse.mm``; one bound for both (the same bytes: x and y once,
+    the table once)."""
     n, F, d, B, wp = PAST_L2_N, 128, 8, 256, 256
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
@@ -1088,7 +1083,6 @@ def time_past_l2(torch, np, tpk, tbell, gen) -> dict:
         row = ms_in_turns(torch, {
             "ring_ms": lambda: tpk.subblock_spmm(x, sidx, w, n, B, wp),
             "gather_ms": lambda: tbell._launch(x, sidx, w, n, B, wp),
-            "earlier_ms": lambda: tpk._subblock_window_launch(x, sidx, w, n, B, wp),
             "library_ms": lambda: torch.sparse.mm(csr, x),
         })
     row.update(n=n, F=F, d=d, B=B, wp=wp, x_mb=n * F * 4 / 1e6)
@@ -1097,8 +1091,8 @@ def time_past_l2(torch, np, tpk, tbell, gen) -> dict:
     row["bound_ms"] = max(bytes_ms, ops_ms)
     row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     log(f"  past L2 n={n} F={F} d={d} B={B} Wp={wp} (x {row['x_mb']:.0f} MB): P3 ring "
-        f"{row['ring_ms']:.4f} ms, K1 gather {row['gather_ms']:.4f} ms, P3 earlier body "
-        f"{row['earlier_ms']:.4f} ms, sparse.mm {row['library_ms']:.4f} ms, bound "
+        f"{row['ring_ms']:.4f} ms, K1 gather {row['gather_ms']:.4f} ms, sparse.mm "
+        f"{row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     del x, sidx, w, csr
     torch.cuda.empty_cache()
@@ -1106,13 +1100,13 @@ def time_past_l2(torch, np, tpk, tbell, gen) -> dict:
 
 
 def time_window_ring(torch, np, tpk, gp, gen) -> dict:
-    """P1's function at (W, B) = (255, 512) in float32 on three kernels: the
-    warp gather (``window_gather``), its earlier staging body, and P3's ring
-    (``subblock_spmm`` at B = Wp = 256 on the table's global sender ids, x
-    unpadded: every sender lies within ±255 of its receiver, so in its
-    128-row sub-block's slice).  All three are held bit for bit to the
-    plain version, then timed in turns with ``torch.sparse.mm``; one bound
-    (x padded read once, y written once, the table once)."""
+    """P1's function at (W, B) = (255, 512) in float32 on two kernels: the
+    warp gather (``window_gather``) and P3's ring (``subblock_spmm`` at
+    B = Wp = 256 on the table's global sender ids, x unpadded: every sender
+    lies within ±255 of its receiver, so in its 128-row sub-block's
+    slice).  Both are held bit for bit to the plain version, then timed in
+    turns with ``torch.sparse.mm``; one bound (x padded read once, y
+    written once, the table once)."""
     W, B, ring_b, ring_wp = 255, 512, 256, 256
     nbr, lidx, n, wp = gp.block_table(W, B)
     d, F = lidx.shape[1], gp.F
@@ -1125,15 +1119,13 @@ def time_window_ring(torch, np, tpk, gp, gen) -> dict:
     with torch.no_grad():
         ref = tpk.window_gather_plain(xpad, li, w, B, wp)
         check(torch.equal(tpk.window_gather(xpad, li, w, B, wp), ref)
-              and torch.equal(tpk._window_gather_window_launch(xpad, li, w, B, wp), ref)
               and torch.equal(tpk.subblock_spmm(x, sidx, w, n, ring_b, ring_wp), ref),
-              "P1's function: the gather, its earlier body and P3's ring equal the plain version")
+              "P1's function: the gather and P3's ring equal the plain version")
         del ref
         csr = csr_of(torch, torch.arange(n, device=dev).repeat_interleave(d), sidx.reshape(-1),
                      w.reshape(-1), n)
         row = ms_in_turns(torch, {
             "gather_ms": lambda: tpk.window_gather(xpad, li, w, B, wp),
-            "earlier_ms": lambda: tpk._window_gather_window_launch(xpad, li, w, B, wp),
             "ring_ms": lambda: tpk.subblock_spmm(x, sidx, w, n, ring_b, ring_wp),
             "library_ms": lambda: torch.sparse.mm(csr, x),
         })
@@ -1143,8 +1135,8 @@ def time_window_ring(torch, np, tpk, gp, gen) -> dict:
     row["bound_ms"] = max(bytes_ms, ops_ms)
     row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     log(f"  P1's function n={n} F={F} d={d} (W, B) = ({W}, {B}) float32: warp gather "
-        f"{row['gather_ms']:.4f} ms, earlier body {row['earlier_ms']:.4f} ms, P3 ring (B = Wp "
-        f"= {ring_wp}) {row['ring_ms']:.4f} ms, sparse.mm {row['library_ms']:.4f} ms, bound "
+        f"{row['gather_ms']:.4f} ms, P3 ring (B = Wp = {ring_wp}) {row['ring_ms']:.4f} ms, "
+        f"sparse.mm {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     del x, xpad, li, sidx, w, csr
     torch.cuda.empty_cache()
@@ -1165,7 +1157,7 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
     errors, timings = {}, []
 
     # P1 at every (W, B), float32 and bf16 x; P2's d = 16 case: the warp
-    # gather bit for bit against its plain version and its earlier body
+    # gather bit for bit against its plain version
     tables = [(W, B, gp.block_table(W, B)) for W, B in gp.CONFIGS]
     tables.append((255, 256, gp2.block_table(255, 256, d=16)))
     for W, B, (_, lidx, n_use, Wp) in tables:
@@ -1183,24 +1175,20 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
             ref = tpk.window_gather_plain(xf, li, w, B, Wp)
             err = check_probe(torch, y, ref, errors, "window_gather")
             case = f"W={W} B={B} d={d} {str(dtype)[6:]} x"
-            check(torch.equal(y, ref) and torch.equal(
-                y, tpk._window_gather_window_launch(xpad, li, w, B, Wp)),
-                f"window_gather equals its plain version and its earlier body at {case}")
+            check(torch.equal(y, ref), f"window_gather equals its plain version at {case}")
             log(f"  window_gather n={n_use} F={F} {case}: max |err| {err:.3g}")
             nbytes = (n_use + 2 * Wp) * F * xpad.element_size() + n_use * F * 4 + n_use * d * 8
             row = probe_timing(torch, "window_gather", case,
                                lambda: tpk.window_gather(xpad, li, w, B, Wp),
                                lambda: tpk.window_gather_plain(xpad, li, w, B, Wp),
-                               csr, xf, nbytes, 2 * n_use * d * F,
-                               earlier=lambda: tpk._window_gather_window_launch(xpad, li, w,
-                                                                                B, Wp))
+                               csr, xf, nbytes, 2 * n_use * d * F)
             timings.append({**row, "W": W, "B": B, "d": d, "n": n_use, "F": F,
                             "dtype": str(dtype)[6:]})
         del x, li, w, csr, rows, cols, xpad, xf, y, ref
     window_ring = time_window_ring(torch, np, tpk, gp, gen)
 
     # P3 on its ring and P4 on its gather, on the probes' two graphs, each
-    # bit for bit against its plain version and its earlier body
+    # bit for bit against its plain version
     n, d = MICRO_N, 8
     n_pad = tgraph.round_up(n, 2048)
     graphs = {W: micro._banded_regular_graph(n, d, W, n_pad=n_pad) for W, _ in pp.CONFIGS}
@@ -1212,9 +1200,7 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
         y = tpk.subblock_spmm(x, si, w, n_pad, B, wp)
         ref = tpk.subblock_spmm_plain(x, si, w, n_pad, B, wp)
         err = check_probe(torch, y, ref, errors, "subblock_spmm")
-        check(torch.equal(y, ref) and torch.equal(
-            y, tpk._subblock_window_launch(x, si, w, n_pad, B, wp)),
-            f"P3's ring equals its plain version and its earlier body at W={W}")
+        check(torch.equal(y, ref), f"P3's ring equals its plain version at W={W}")
         log(f"  subblock_spmm n={n_pad} F={F} W={W} B={B} Wp={wp}: max |err| {err:.3g}")
         r0 = tbell.sub_block_rows(B)
         start = (torch.arange(n_pad, device=dev) // r0 * r0)[:, None]
@@ -1225,8 +1211,7 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
                            lambda: tpk.subblock_spmm(x, si, w, n_pad, B, wp),
                            lambda: tpk.subblock_spmm_plain(x, si, w, n_pad, B, wp),
                            csr, x, 2 * n_pad * F * 4 + n_pad * d * 8,
-                           2 * int(valid.sum()) * F,
-                           earlier=lambda: tpk._subblock_window_launch(x, si, w, n_pad, B, wp))
+                           2 * int(valid.sum()) * F)
         timings.append({**row, "W": W, "B": B, "wp": wp, "n": n_pad, "F": F, "dtype": "float32"})
         del x, si, w, y, ref, csr, rows, valid, start
     past_l2 = time_past_l2(torch, np, tpk, tbell, gen)
@@ -1251,9 +1236,8 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
             y = tpk.panel_ell_spmm(x, ii, wg, n_pad, B, wp, W_P)
             ref = tpk.panel_ell_spmm_plain(x, ii, wg, n_pad, B, wp, W_P)
             err = check_probe(torch, y, ref, errors, "panel_ell_spmm")
-            check(torch.equal(y, ref) and torch.equal(
-                y, tpk._panel_window_launch(x, ii, wg, n_pad, B, wp, W_P)),
-                f"P4's gather equals its plain version and its earlier body at W={W} W_P={W_P}")
+            check(torch.equal(y, ref),
+                  f"P4's gather equals its plain version at W={W} W_P={W_P}")
             log(f"  panel_ell_spmm n={n_pad} F={F} W={W} B={B} Wp={wp} W_P={W_P} "
                 f"({idx.shape[1]} slots, {n_drop} edges dropped): max |err| {err:.3g}")
             valid = ii >= 0
@@ -1266,9 +1250,7 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
                                lambda: tpk.panel_ell_spmm(x, ii, wg, n_pad, B, wp, W_P),
                                lambda: tpk.panel_ell_spmm_plain(x, ii, wg, n_pad, B, wp, W_P),
                                csr, x, 2 * n_pad * F * 4 + n_pad * idx.shape[1] * 8,
-                               2 * int(valid.sum()) * F,
-                               earlier=lambda: tpk._panel_window_launch(x, ii, wg, n_pad, B, wp,
-                                                                        W_P))
+                               2 * int(valid.sum()) * F)
             timings.append({**row, "W": W, "B": B, "wp": wp, "W_P": W_P, "slots": idx.shape[1],
                             "n": n_pad, "F": F, "dtype": "float32"})
             del x, ii, wg, y, ref, csr, rows, cols, valid
@@ -1312,7 +1294,7 @@ def phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph, probes) -> di
             "past_l2": past_l2, "window_ring": window_ring}
 
 
-def phase_probes(torch, tpk, tb, tbell, probes) -> dict:
+def phase_probes(torch, probes) -> dict:
     """The five probe entry points at the JAX probes' sizes, each with the
     launch counters set to 0 just before it and read just after; checks
     the exact launch counts and each case's error."""
@@ -1320,12 +1302,11 @@ def phase_probes(torch, tpk, tb, tbell, probes) -> dict:
     calls = PROBE_ITERS + 3        # a correctness call, 2 warm-up calls, the timed calls
     out = {}
     for name, mod in probes.items():
-        for counters in (tpk, tb, tbell):
-            counters.reset_launches()
+        registry.reset()
         t0 = time.perf_counter()
         res = mod.main(n=mod.N, iters=PROBE_ITERS, device="cuda")
         torch.cuda.synchronize()
-        launches = {**tpk.LAUNCHES, **tb.LAUNCHES, **tbell.LAUNCHES}
+        launches = dict(registry.LAUNCHES)
         res["launches"] = launches
         res["seconds"] = time.perf_counter() - t0
         log(f"  {name}: {res['seconds']:.2f} s, launches {launches}")
@@ -1400,13 +1381,14 @@ def phase_adam(torch) -> dict:
                                beta1=opt.b1, beta2=opt.b2, weight_decay=0.0, eps=opt.eps,
                                amsgrad=False, maximize=False)
 
-        tadam.reset_launches()
+        registry.reset()
         for _ in range(3):
             opt.step(grads)
             tadam.step_plain(plain, grads)
             library()
-        check(tadam.LAUNCHES == {"adam_update": 3, "adam_count": 3},
-              f"adam {case}: one update and one count launch a step")
+        check({k: v for k, v in registry.LAUNCHES.items() if v}
+              == {"adam_update": 3, "adam_count": 3},
+              f"adam {case}: one update and one count launch a step, and no other kernel")
         for a, b in zip([*opt.params, *opt.mu, *opt.nu], [*plain.params, *plain.mu, *plain.nu]):
             check(torch.equal(a, b), f"adam {case}: the kernel's step is the plain step's")
         library_equal = None if mu_dtype != torch.float32 else all(
@@ -1442,9 +1424,7 @@ def circulant_cut(torch, assignment, offsets) -> int:
     return int(sum(int((a != torch.roll(a, -s)).sum()) for s in offsets if s > 0))
 
 
-def phase_giant(torch, tb, giant) -> dict:
-    from gcn_maxcut_tpu_torch.ops import adam as tadam
-
+def phase_giant(torch, giant) -> dict:
     log("== giant")
     small = dict(n=4096, bandwidth=31, epochs=4, agg_dtype=None, mu_dtype=None,
                  return_assignment=True)
@@ -1462,16 +1442,15 @@ def phase_giant(torch, tb, giant) -> dict:
         free_gb = shutil.disk_usage(tmp).free / 1e9
         log(f"  checkpoints in a temporary directory, {free_gb:.1f} GB free")
         torch.cuda.reset_peak_memory_stats()
-        tb.reset_launches()
-        tadam.reset_launches()
+        registry.reset()
         res = giant.train_banded_giant_packed(
             epochs=GIANT_EPOCHS, return_assignment=True, checkpoint_path=f"{tmp}/full",
             checkpoint_every=GIANT_CHECKPOINT_EVERY, device="cuda")
-        launches = dict(tb.LAUNCHES)
-        adam_launches = dict(tadam.LAUNCHES)
+        launches = launches_but_adam()
+        adam_launches = {k: registry.LAUNCHES[k] for k in ("adam_update", "adam_count")}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         Path(f"{tmp}/full.npz").unlink()
-        resume = phase_giant_resume(torch, tb, giant, tmp, res)
+        resume = phase_giant_resume(torch, giant, tmp, res)
     cut = circulant_cut(torch, res["assignment"], res["offsets"])
     m = res["n"] // 8
     log(f"  packed n={res['n']} d={res['d']} offsets {res['offsets']}: epoch "
@@ -1493,9 +1472,9 @@ def phase_giant(torch, tb, giant) -> dict:
           and list(res["assignment"][[0, m, 2 * m]]) == [0, 1, 2],
           "terminals keep their classes")
 
-    tb.reset_launches()
+    registry.reset()
     plain = giant.train_banded_giant(n=PLAIN_N, epochs=PLAIN_EPOCHS, device="cuda")
-    plain_launches = dict(tb.LAUNCHES)
+    plain_launches = launches_but_adam()
     # two whole chunks of 10, as the JAX trainer runs 10 epochs
     check(plain["epochs"] == len(plain["history"]) == 2 * PLAIN_EPOCHS,
           "the plain trainer runs two chunks")
@@ -1524,7 +1503,7 @@ def phase_giant(torch, tb, giant) -> dict:
             "small_agreement": agree}
 
 
-def phase_giant_resume(torch, tb, giant, tmp: str, full: dict) -> dict:
+def phase_giant_resume(torch, giant, tmp: str, full: dict) -> dict:
     """Checkpoints of the packed giant trainer at full size: the
     uninterrupted run ``full`` wrote after epoch 20 and at the end; a run
     of 20 epochs writes its checkpoint, and a resumed run trains from it to
@@ -1532,10 +1511,10 @@ def phase_giant_resume(torch, tb, giant, tmp: str, full: dict) -> dict:
     run's, and K3's launches on it are counted exactly."""
     half = giant.train_banded_giant_packed(epochs=GIANT_CHECKPOINT_EVERY,
                                            checkpoint_path=f"{tmp}/half", device="cuda")
-    tb.reset_launches()
+    registry.reset()
     resumed = giant.train_banded_giant_packed(epochs=GIANT_EPOCHS, resume_from=f"{tmp}/half",
                                               return_assignment=True, device="cuda")
-    launches = dict(tb.LAUNCHES)
+    launches = launches_but_adam()
     Path(f"{tmp}/half.npz").unlink()
     ran = GIANT_EPOCHS - GIANT_CHECKPOINT_EVERY
     tail, ref = resumed["history"][-ran:], full["history"][-ran:]
@@ -1569,7 +1548,7 @@ def phase_giant_resume(torch, tb, giant, tmp: str, full: dict) -> dict:
             "write_share_of_40_epochs": share}
 
 
-def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> dict:
+def phase_halo(torch, tgb, giant, make_mesh, single_fraction: float) -> dict:
     """The node-sharded trainers on a ring of 4 shards on the card."""
     log("== halo")
     ring = make_mesh(devices=["cuda:0"] * HALO_SHARDS)
@@ -1596,11 +1575,10 @@ def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> 
                                rtol=1e-3, atol=0)
 
     torch.cuda.reset_peak_memory_stats()
-    tb.reset_launches()
-    th.reset_launches()
+    registry.reset()
     res = tgb.train_halo_giant_packed(HALO_PACKED_SHARD, tgb.PackedHaloGiantConfig(epochs=GIANT_EPOCHS),
                                       ring, return_assignment=True)
-    launches = {**tb.LAUNCHES, **th.LAUNCHES}
+    launches = launches_but_adam()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cut = circulant_cut(torch, res["assignment"], res["offsets"])
     m = res["n"] // 8
@@ -1620,11 +1598,10 @@ def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> 
     check(abs(res["cut_fraction"] - single_fraction) <= 0.005,
           "packed halo cut within 0.005 of the single-chip packed trainer's")
 
-    tb.reset_launches()
-    th.reset_launches()
+    registry.reset()
     plain = tgb.train_halo_giant(HALO_PLAIN_SHARD, tgb.HaloGiantConfig(epochs=HALO_PLAIN_EPOCHS),
                                  ring)
-    plain_launches = {**tb.LAUNCHES, **th.LAUNCHES}
+    plain_launches = launches_but_adam()
     log(f"  plain halo n={plain['n']} on {plain['num_devices']} shards: epoch "
         f"{plain['epoch_time_s'] * 1e3:.3f} ms, cut {plain['initial_cut']:.0f} -> "
         f"{plain['final_cut']:.0f} (fraction {plain['cut_fraction']:.5f}), launches {plain_launches}")
@@ -1650,20 +1627,18 @@ def phase_halo(torch, tb, th, tgb, giant, make_mesh, single_fraction: float) -> 
             "small_agreement": agree, "one_shard_max_rel_diff": one_rel}
 
 
-def phase_recipe(tb, run_pipeline, cli_main) -> dict:
-    from gcn_maxcut_tpu_torch.ops import adam as tadam
+def phase_recipe(run_pipeline, cli_main) -> dict:
     from gcn_maxcut_tpu_torch.train.config import TrainingConfig
 
     log("== recipe")
-    tb.reset_launches()
-    tadam.reset_launches()
+    registry.reset()
     res = run_pipeline(OUT_DIR / "chip_smoke_pipeline", device="cuda")
-    adam_launches = dict(tadam.LAUNCHES)
+    adam_launches = {k: registry.LAUNCHES[k] for k in ("adam_update", "adam_count")}
     tested_path = OUT_DIR / "chip_smoke_pipeline" / "test_results.json"
     check(cli_main(["test", "--dataset", res["dataset"], "--checkpoint",
                     res["final_checkpoint"], "--output", str(tested_path),
                     "--device", "cuda"]) == 0, "the test command ran")
-    launches = dict(tb.LAUNCHES)
+    launches = dict(registry.LAUNCHES)
     tested = json.loads(tested_path.read_text())["individual_results"]
     log(f"  {res['epochs_run']} epochs, {res['epoch_ms']:.3f} ms an epoch (training "
         f"{res['training_s']:.2f} s); held-out avg cut simple {res['avg_simple_cut']:.2f}, "
@@ -1701,17 +1676,17 @@ def phase_recipe(tb, run_pipeline, cli_main) -> dict:
                              "refined": [r["refined_cut"] for r in tested]}}
 
 
-def phase_quality(tb, quality, arm: str = "default") -> dict:
+def phase_quality(quality, arm: str = "default") -> dict:
     """The quality suite at the JAX defaults, with one arm of
     ``experiments/quality_sweep.py`` (``QUALITY_ARMS``); each size printed
     beside the JAX package's numbers for that arm (cuts, not times)."""
     train_kwargs, reference, jax_simple_mean, gate_simple = QUALITY_ARMS[arm]
     log(f"== quality ({arm}: train_kwargs {train_kwargs})")
-    tb.reset_launches()
+    registry.reset()
     t0 = time.perf_counter()
     res = quality.run_quality_suite(recipe="mixed", train_kwargs=train_kwargs, device="cuda")
     seconds = time.perf_counter() - t0
-    launches = dict(tb.LAUNCHES)
+    launches = dict(registry.LAUNCHES)
     log(f"  {seconds:.1f} s; per size: port [JAX package] "
         "simple, post, refined, randomized, refined-random")
     for s, v in res["per_size"].items():
@@ -1745,7 +1720,7 @@ def _epoch_ms(times: list) -> float:
     return (times[-1] - times[0]) / (len(times) - 1) * 1e3
 
 
-def phase_variants(torch, counters) -> dict:
+def phase_variants(torch) -> dict:
     """The training variants at the recipe's full width, the card against
     the CPU on each variant at n_pad 64, and the QUBO loop."""
     from gcn_maxcut_tpu_torch.baselines.randomized import randomized_k_way_maxcut
@@ -1804,13 +1779,13 @@ def phase_variants(torch, counters) -> dict:
                      ("per_graph", dict(number_epochs=VARIANT_PER_GRAPH_EPOCHS))):
         cfg = TrainingConfig(n_nodes=1000, learning_rate=1e-3, seed=1000, **kw)
         times = []
-        reset_all(counters)
+        registry.reset()
         params, best, final_epoch, _, hist = tloop.train_model(
             batch, cfg, callback=lambda e, loss: times.append(time.perf_counter()),
             device="cuda")
         runs[name] = {"params": params, "best_loss": best, "epochs_run": final_epoch + 1,
                       "history": hist, "epoch_ms": _epoch_ms(times),
-                      "launches": all_launches(counters)}
+                      "launches": launches_but_adam()}
     b, pg = runs["batched"], runs["per_graph"]
     log(f"  recipe data (20 graphs n=500, 1000-wide): batched + cosine {b['epochs_run']} epochs, "
         f"{b['epoch_ms']:.3f} ms an epoch; per_graph {pg['epoch_ms']:.3f} ms an epoch "
@@ -1820,7 +1795,7 @@ def phase_variants(torch, counters) -> dict:
     check(b["best_loss"] < b["history"][0] and b["history"][-1] < b["history"][0],
           "batched + cosine training improves the loss")
     check(all(v == 0 for r in runs.values() for v in r["launches"].values()),
-          "the recipe's variants run no hand-written kernel (dense aggregation)")
+          "the recipe's variants run no hand-written kernel but Adam's (dense aggregation)")
 
     test_specs, _ = generate_graph_dataset(5, 500, 500, 6, 8, base_seed=1000 + 5000)
     tds = process_graphs(test_specs, DataConfig(max_nodes=1000))
@@ -1840,10 +1815,10 @@ def phase_variants(torch, counters) -> dict:
     # 3. the QUBO loop at the legacy widths (emb 80, hidden 40, lr 1e-4) on the
     #    first recipe graph, its depth cut to QUBO_EPOCHS epochs
     g = ds.graphs[0]
-    reset_all(counters)
+    registry.reset()
     qparams, q = tqubo.run_gnn_training(g, tqubo.QuboConfig(number_epochs=QUBO_EPOCHS),
                                         device="cuda")
-    qlaunches = all_launches(counters)
+    qlaunches = launches_but_adam()
     edges = int(g.n_edges) // 2
     bit_cut = float(hard_cut_value(g.to("cuda"), q["best_bitstring"].long()))
     log(f"  qubo (emb 80, hidden 40): {q['epochs']} epochs in {q['runtime_s']:.2f} s "
@@ -1854,7 +1829,8 @@ def phase_variants(torch, counters) -> dict:
     check(q["final_loss"] < q["loss_history"][0], "the QUBO loss improves")
     check(bit_cut == q["best_cut"], "the best bitstring cuts best_cut edges")
     check(q["best_cut"] > edges / 2, "the QUBO cut beats a uniform 2-way split's E/2")
-    check(all(v == 0 for v in qlaunches.values()), "the QUBO loop runs no hand-written kernel")
+    check(all(v == 0 for v in qlaunches.values()),
+          "the QUBO loop runs no hand-written kernel but Adam's")
     for r in runs.values():
         r.pop("params")
         r.pop("history")
@@ -1865,7 +1841,7 @@ def phase_variants(torch, counters) -> dict:
                      "final_loss": q["final_loss"]}}
 
 
-def decode_ms(torch, counters, dataset: str, checkpoint: str) -> dict:
+def decode_ms(torch, dataset: str, checkpoint: str) -> dict:
     """The default decode (``refine_multi_start``: 200 rollouts, the climb
     from the best 3 and the argmax decode) of the recipe's graphs (the
     ``test`` command's 20, n = 500, d in [6, 8]) with its final parameters:
@@ -1913,13 +1889,13 @@ def decode_ms(torch, counters, dataset: str, checkpoint: str) -> dict:
 
     def timed_pass(mode: str):
         with route(mode):
-            launched = tclimb.LAUNCHES
+            launched = registry.LAUNCHES["climb"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = decode_all()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / len(graphs)
-        return res, ms, tclimb.LAUNCHES - launched
+        return res, ms, registry.LAUNCHES["climb"] - launched
 
     modes = ("kernel", "captured", "eager")
     ms = {mode: [] for mode in modes}
@@ -1940,7 +1916,7 @@ def decode_ms(torch, counters, dataset: str, checkpoint: str) -> dict:
     for mode in modes:
         with route(mode):
             decode_all()                                 # the capture, outside the window
-            b = busy_share(torch, counters, f"default decode, {mode}", decode_all, 1, 1)
+            b = busy_share(torch, f"default decode, {mode}", decode_all, 1, 1)
         busy[mode] = {**b, "wall_ms_per_graph": b["wall_ms_per_epoch"] / len(graphs)}
     cuts = [float(c) for _, c in results["kernel"]]
     log(f"  default decode of the recipe's {len(graphs)} graphs (n=500): "
@@ -1951,13 +1927,13 @@ def decode_ms(torch, counters, dataset: str, checkpoint: str) -> dict:
             "launches": launches, "refined_cuts": cuts}
 
 
-def phase_timings(torch, counters, micro: dict, refine_s_at_500: float, recipe: dict) -> dict:
+def phase_timings(torch, micro: dict, refine_s_at_500: float, recipe: dict) -> dict:
     """The recipe timings, ``bench --what train`` and ``--what post``, as
     ``bench --what all`` printed them in the microbench phase, and the
     default decode captured against eager (``decode_ms``)."""
     log("== timings")
     card = card_line()
-    decode = decode_ms(torch, counters, recipe["dataset"], recipe["final_checkpoint"])
+    decode = decode_ms(torch, recipe["dataset"], recipe["final_checkpoint"])
     train, post = micro["train"], micro["post"]
     log(f"  recipe epoch {train['epoch_time_s'] * 1e3:.3f} ms (the least of 3 differenced "
         f"estimates, mean {train['epoch_time_stats']['mean_s'] * 1e3:.3f} ms; first chunk "
@@ -1970,7 +1946,7 @@ def phase_timings(torch, counters, micro: dict, refine_s_at_500: float, recipe: 
             "decode": decode, "card": card}
 
 
-def phase_locality(torch, np, tbell, tb, loc) -> dict:
+def phase_locality(torch, np, loc) -> dict:
     log("== locality")
     small = dict(n=4096, epochs=10)
     p0 = loc.locality_params(4096)
@@ -1992,10 +1968,9 @@ def phase_locality(torch, np, tbell, tb, loc) -> dict:
     np.save(OUT_DIR / "locality_rcm_perm.npy", perm)
     log(f"  SciPy {scipy.__version__} (its RCM relabels the graph; saved to "
         f"{OUT_DIR.name}/locality_rcm_perm.npy)")
-    tbell.reset_launches()
-    tb.reset_launches()
+    registry.reset()
     res = loc.train_locality(n=LOCALITY_N, device="cuda")
-    launches = {**tbell.LAUNCHES, **tb.LAUNCHES}
+    launches = launches_but_adam()
     ratio = res["final_cut"] / REFERENCE_LOCALITY_CUT
     log(f"  n={res['n']} (n_pad {res['n_pad']}, RCM bandwidth {res['rcm_bandwidth']}, B="
         f"{res['bell_block']}, Wp={res['bell_wp']}, width {res['bell_width']}, "
@@ -2022,18 +1997,6 @@ def phase_locality(torch, np, tbell, tb, loc) -> dict:
     torch.cuda.empty_cache()
     return {**res, "launches": launches, "reference_cut": REFERENCE_LOCALITY_CUT,
             "reference_graph": REFERENCE_LOCALITY_GRAPH, "small_agreement": agree}
-
-
-def all_launches(counters) -> dict:
-    out = {}
-    for c in counters:
-        out.update(c.LAUNCHES)
-    return out
-
-
-def reset_all(counters) -> None:
-    for c in counters:
-        c.reset_launches()
 
 
 def check_shard_k1(torch, tbell, sg, d: int, gen) -> float:
@@ -2090,7 +2053,7 @@ def time_shard_k1(torch, tbell, sg, d: int, F: int, gen, case: str = "kway") -> 
     return row
 
 
-def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway_sweep, scaling,
+def phase_kway(torch, np, tbell, make_mesh, micro, tpart, tgiant, kway_sweep, scaling,
                random_regular_edges) -> dict:
     """BASELINE config 4 on the node-sharded trainer: card against CPU, the
     sweep at full size, the 4-shard ring, K1 on the sharded path, scaling."""
@@ -2106,10 +2069,10 @@ def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway
     small = tgiant.GiantConfig(number_epochs=20, log_every=1)
     runs = {}
     for name, mesh in (("card", ring), ("cpu", cpu_ring)):
-        reset_all(counters)
+        registry.reset()
         runs[name] = tgiant.train_giant_graph(src, dst, 4096, small, mesh=mesh,
                                               return_assignment=True)
-        runs[name]["launches"] = all_launches(counters)
+        runs[name]["launches"] = launches_but_adam()
     agree = float((runs["card"]["assignment"] == runs["cpu"]["assignment"]).mean())
     log(f"  n=4096 k=3 on {KWAY_SHARDS} shards, card vs CPU ring: history "
         f"{runs['card']['loss_history']} vs {runs['cpu']['loss_history']}, assignments agree "
@@ -2118,14 +2081,14 @@ def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway
                                torch.tensor(runs["cpu"]["loss_history"]), rtol=1e-3, atol=0)
     check(agree >= 0.999, "small k-way run: card and CPU assignments agree")
     check(not any(runs["card"]["launches"].values()),
-          "the expander's shards do not band: no hand-written kernel runs")
+          "the expander's shards do not band: no hand-written kernel but Adam's runs")
 
     # 2. the sweep at full size on one card (one shard), then k = 3 on the ring
-    reset_all(counters)
+    registry.reset()
     one = make_mesh(devices=["cuda:0"])
     sweep = kway_sweep(n=KWAY_N, d=KWAY_D, ks=tuple(REFERENCE_KWAY), epochs=KWAY_EPOCHS,
                             mesh=one)
-    sweep_launches = all_launches(counters)
+    sweep_launches = launches_but_adam()
     log(f"  n={KWAY_N} d={KWAY_D}, {KWAY_EPOCHS} epochs a k, 1 shard; card: {card}")
     log("  k | cut fraction | floor | margin (gate; JAX) | epoch ms | edges/s (amortized) | "
         "partition s | assembly s")
@@ -2142,7 +2105,7 @@ def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway
         check(r["margin_points"] >= KWAY_GATE[k],
               f"k={k}: margin {r['margin_points']:.2f} points >= half of PARITY.md's")
     check(not any(sweep_launches.values()), "the sweep's expander runs the gather tables only")
-    reset_all(counters)
+    registry.reset()
     (ring3,) = kway_sweep(n=KWAY_N, d=KWAY_D, ks=(3,), epochs=KWAY_EPOCHS, mesh=ring)
     ring3["margin_points"] = 100 * (ring3["cut_fraction"] - ring3["random_fraction"])
     log(f"  k=3 on a {KWAY_SHARDS}-shard virtual ring (one card): cut fraction "
@@ -2150,7 +2113,7 @@ def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway
         f"{ring3['epoch_time_s_amortized'] * 1e3:.4f} ms, {ring3['edges_per_s_amortized']:.4g} "
         f"edges/s amortized, assembly {ring3['assembly_s']:.4f} s; card: {card}")
     check(ring3["cut_fraction"] > ring3["random_fraction"], "4-shard ring k=3 above its floor")
-    check(not any(all_launches(counters).values()), "the ring's expander runs no kernel")
+    check(not any(launches_but_adam().values()), "the ring's expander runs no kernel but Adam's")
 
     # 3. K1 on the sharded path: the banded-random graph in 4 contiguous
     # shards, each banded after its RCM, hop 0 on K1
@@ -2158,9 +2121,9 @@ def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway
     src = np.concatenate([e[:, 0], e[:, 1]])
     dst = np.concatenate([e[:, 1], e[:, 0]])
     cfg = tgiant.GiantConfig(number_epochs=KWAY_EPOCHS, block_ell=True, local_reorder="rcm")
-    reset_all(counters)
+    registry.reset()
     banded = tgiant.train_giant_graph(src, dst, KWAY_N, cfg, mesh=ring, return_assignment=True)
-    k1_launches = all_launches(counters)
+    k1_launches = launches_but_adam()
     asn = banded["assignment"]
     decoded = float(np.sum(asn[e[:, 0]] != asn[e[:, 1]])) / e.shape[0]
     log(f"  banded-random n={KWAY_N} on {KWAY_SHARDS} shards (n_shard {banded['n_shard']}), "
@@ -2190,7 +2153,7 @@ def phase_kway(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, kway
 
     # 4. bench --what scaling at its defaults (D = 1 on one card), then the
     # sharded conv on the virtual ring
-    reset_all(counters)
+    registry.reset()
     scale = scaling.scaling_sweep(n=KWAY_N, d=KWAY_D, feature_dim=128)
     scale.append(scaling.bench_sharded_conv(KWAY_N, KWAY_D, 128, 128,
                                             devices=["cuda:0"] * KWAY_SHARDS))
@@ -2248,7 +2211,7 @@ def cli_json(cli_main, argv: list) -> dict:
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
-def phase_hybrid(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, thybrid,
+def phase_hybrid(torch, np, tbell, make_mesh, micro, tpart, tgiant, thybrid,
                  locality_params, random_regular_edges, cli_main) -> dict:
     """The hybrid data × graph trainer on 2 × 4 meshes of one card: against
     a CPU mesh, a duplicated graph against the giant trainer, two
@@ -2268,9 +2231,9 @@ def phase_hybrid(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, th
     small = tgiant.GiantConfig(number_epochs=20, log_every=1)
     runs = {}
     for name, m in (("card", mesh), ("cpu", cpu_mesh)):
-        reset_all(counters)
+        registry.reset()
         runs[name] = thybrid.train_hybrid(lists, HYBRID_SMALL_N, small, mesh=m)
-        runs[name]["launches"] = all_launches(counters)
+        runs[name]["launches"] = launches_but_adam()
     log(f"  n={HYBRID_SMALL_N} d=8, 2 graphs on {R} x {D}, card vs CPU: history "
         f"{runs['card']['loss_history']} vs {runs['cpu']['loss_history']}; cuts "
         f"{runs['card']['per_graph_cuts']} vs {runs['cpu']['per_graph_cuts']}")
@@ -2280,7 +2243,8 @@ def phase_hybrid(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, th
     for key in ("loss_history", "per_graph_cuts"):
         torch.testing.assert_close(torch.tensor(runs["card"][key]),
                                    torch.tensor(runs["cpu"][key]), rtol=1e-3, atol=0)
-    check(not any(runs["card"]["launches"].values()), "the expanders run no hand-written kernel")
+    check(not any(runs["card"]["launches"].values()),
+          "the expanders run no hand-written kernel but Adam's")
 
     # 2. one graph twice, equal embeddings: tracks the giant trainer on a ring
     s, r = lists[0]
@@ -2324,9 +2288,9 @@ def phase_hybrid(torch, np, counters, tbell, make_mesh, micro, tpart, tgiant, th
         e = micro.banded_random_edges(KWAY_N, KWAY_D, 255, seed)
         edges.append(e)
         lists.append((np.concatenate([e[:, 0], e[:, 1]]), np.concatenate([e[:, 1], e[:, 0]])))
-    reset_all(counters)
+    registry.reset()
     res = thybrid.train_hybrid(lists, KWAY_N, full, mesh=mesh)
-    launches = all_launches(counters)
+    launches = launches_but_adam()
     fractions = [c / e.shape[0] for c, e in zip(res["per_graph_cuts"], edges)]
     sgb = thybrid.stack_sharded_graphs([
         tpart.shard_graph(s, r, KWAY_N, D, local_reorder="rcm", block_ell=True)[0]
@@ -2379,7 +2343,7 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_dp(torch, np, counters, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
+def phase_dp(torch, np, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
              locality_params, random_regular_edges, variants: dict) -> dict:
     """Data-parallel recipe training on a data mesh of 4 entries of one
     card: against the CPU, the recipe's data at full width with the default
@@ -2432,9 +2396,9 @@ def phase_dp(torch, np, counters, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
     batch = pad_graph_batch([ds.graphs[k] for k in sorted(ds.graphs)])
     cfg = TrainingConfig(n_nodes=1000, learning_rate=1e-3, seed=1000)
     times = []
-    reset_all(counters)
+    registry.reset()
     losses, state = dp_run(batch, cfg, mesh, RECIPE_EPOCHS, None, "cuda", times)
-    launches = all_launches(counters)
+    launches = launches_but_adam()
     epoch_ms = _epoch_ms(times)
     log(f"  recipe data (20 graphs n=500, 1000-wide), {DP_ENTRIES} entries of one card: "
         f"{RECIPE_EPOCHS} epochs, {epoch_ms:.3f} ms an epoch (variants phase, same run: "
@@ -2443,7 +2407,7 @@ def phase_dp(torch, np, counters, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
         f"(best {min(losses):.1f}); card: {card}")
     check(all(map(math.isfinite, losses)), "finite DP loss history")
     check(losses[-1] < losses[0] and min(losses) < losses[0], "DP training improves the loss")
-    check(not any(launches.values()), "DP on the recipe runs no hand-written kernel")
+    check(not any(launches.values()), "DP on the recipe runs no hand-written kernel but Adam's")
     test_specs, _ = generate_graph_dataset(5, 500, 500, 6, 8, base_seed=1000 + 5000)
     tds = process_graphs(test_specs, DataConfig(max_nodes=1000))
     results, _ = harness.test_multiple_graphs(state.params(), tds, [500],
@@ -2519,10 +2483,13 @@ DEVICE_KERNEL = {
     "halo_banded_spmm_unit_packed": "halo_stream_kernel",
     "banded_spmm_unit_window": "banded_window_kernel",
     "halo_banded_spmm_window": "banded_window_kernel",
+    "adam_update": "adam_kernel",
+    "adam_count": "adam_count_kernel",
+    "climb": "climb_kernel",
 }
 
 
-def traced_launches(torch, counters, what: str, fn):
+def traced_launches(torch, what: str, fn):
     """``fn()`` under ``torch.profiler``; returns the trace and each
     hand-written kernel's launches in it, the device's own count, beside
     what the launch counters gained over the same call (a replay's as the
@@ -2530,12 +2497,12 @@ def traced_launches(torch, counters, what: str, fn):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    reset_all(counters)
+    registry.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     counted = {}
-    for name, v in all_launches(counters).items():
+    for name, v in registry.LAUNCHES.items():
         if v:
             check(name in DEVICE_KERNEL, f"{what}: {name}'s device function is known")
             counted[DEVICE_KERNEL[name]] = counted.get(DEVICE_KERNEL[name], 0) + v
@@ -2551,7 +2518,7 @@ def traced_launches(torch, counters, what: str, fn):
     return prof, {"traced": traced, "counted": counted}
 
 
-def busy_share(torch, counters, what: str, run, K: int, epochs: int) -> dict:
+def busy_share(torch, what: str, run, K: int, epochs: int) -> dict:
     """The device's busy share over epochs // K chunks: the device time of
     the kernels and copies ``torch.profiler`` traces, over the host-clock
     wall time of the same chunks run without the profiler (one stream, so
@@ -2575,7 +2542,7 @@ def busy_share(torch, counters, what: str, run, K: int, epochs: int) -> dict:
     chunks()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    prof, launches = traced_launches(torch, counters, what, chunks)
+    prof, launches = traced_launches(torch, what, chunks)
     dev = sum(device_us(e) for e in prof.key_averages())
     ms = wall * 1e3 / (epochs // K * K)
     return {"busy_share": dev / 1e6 / wall if dev > 0 else None, "wall_ms_per_epoch": ms,
@@ -2603,7 +2570,7 @@ class eager_chunks:
 RUNS = (("k1", 1, None), ("k10", CHUNK_K, None), ("eager", CHUNK_K, False))
 
 
-def chunk_runs(torch, np, counters, make_run) -> dict:
+def chunk_runs(torch, np, make_run) -> dict:
     """``make_run(K, capture)`` -> a chunk callable (k -> the k losses) on a
     fresh state from one start.  For K = 1, K = 10 and K = 10 eager: the
     first CHUNK_EPOCHS losses and the launches they made, then the ms an
@@ -2611,9 +2578,9 @@ def chunk_runs(torch, np, counters, make_run) -> dict:
     out = {}
     for name, K, capture in RUNS:
         run = make_run(K, capture)
-        reset_all(counters)
+        registry.reset()
         hist = np.concatenate([run(K) for _ in range(CHUNK_EPOCHS // K)])
-        out[name] = {"history": [float(v) for v in hist], "launches": all_launches(counters),
+        out[name] = {"history": [float(v) for v in hist], "launches": launches_but_adam(),
                      "epoch_ms": epochs_ms(torch, run, K, CHUNK_TIMED),
                      "replays": getattr(getattr(run, "runner", None), "replays", None)}
         del run
@@ -2621,17 +2588,17 @@ def chunk_runs(torch, np, counters, make_run) -> dict:
     return out
 
 
-def trainer_runs(torch, counters, module, call) -> dict:
+def trainer_runs(torch, module, call) -> dict:
     """``call(K)`` -> a trainer's result (``history``, ``epoch_time_s``: its
     steady chunks on CUDA events) for K = 1, K = 10 and K = 10 with
     ``module``'s chunks run eagerly."""
     out = {}
     for name, K, capture in RUNS:
         with eager_chunks(module, capture is False):
-            reset_all(counters)
+            registry.reset()
             res = call(K)
         out[name] = {"history": [float(v) for v in res["history"]],
-                     "launches": all_launches(counters), "epochs": res["epochs"],
+                     "launches": launches_but_adam(), "epochs": res["epochs"],
                      "epoch_ms": res["epoch_time_s"] * 1e3}
         torch.cuda.empty_cache()
     return out
@@ -2664,7 +2631,7 @@ def held_equal(name: str, runs: dict, per_epoch: dict, exact: bool, rtol: float 
         "history_equal_to_k1": same[k], "max_rel_diff_to_k1": rel[k]} for k, r in runs.items()}
 
 
-def phase_chunks(torch, np, counters, giant, tgiant, tgb, thybrid, tpart, make_mesh, micro,
+def phase_chunks(torch, np, giant, tgiant, tgb, thybrid, tpart, make_mesh, micro,
                  locality_params, random_regular_edges) -> dict:
     """``epochs_per_call`` on the card: each chunked path at K = 1 and at
     K = 10 (and eagerly) from one start, held equal, launches counted
@@ -2722,37 +2689,37 @@ def phase_chunks(torch, np, counters, giant, tgiant, tgb, thybrid, tpart, make_m
         run.runner = runner
         return run
 
-    runs = chunk_runs(torch, np, counters, recipe_run)
+    runs = chunk_runs(torch, np, recipe_run)
     out["recipe"] = held_equal("recipe (per_graph, 20 graphs, 1000-wide)", runs, {}, True)
     busy = {}
     for name, K, capture in RUNS[1:]:
         run = recipe_run(K, capture)
         run(K)
-        busy[name] = busy_share(torch, counters, f"recipe {name}", run, K, CHUNK_K)
+        busy[name] = busy_share(torch, f"recipe {name}", run, K, CHUNK_K)
     log(f"  recipe busy share: {busy}")
     out["recipe"] = {**out["recipe"], "runs": recipe, "busy": busy}
 
     # 2. the single-chip giant trainers: packed (K3) and plain (K2)
-    runs = trainer_runs(torch, counters, tchunks, lambda K: giant.train_banded_giant_packed(
+    runs = trainer_runs(torch, tchunks, lambda K: giant.train_banded_giant_packed(
         epochs=CHUNK_EPOCHS, epochs_per_call=K, device="cuda"))
     out["giant_packed"] = held_equal(f"packed giant n={GIANT_N}", runs,
                                      {"banded_spmm_unit_packed": 6}, True)
     out["giant_packed"]["traced_launches"] = traced_launches(
-        torch, counters, f"packed giant K={CHUNK_K}", lambda: giant.train_banded_giant_packed(
+        torch, f"packed giant K={CHUNK_K}", lambda: giant.train_banded_giant_packed(
             epochs=CHUNK_EPOCHS, epochs_per_call=CHUNK_K, device="cuda"))[1]
-    runs = trainer_runs(torch, counters, tchunks, lambda K: giant.train_banded_giant(
+    runs = trainer_runs(torch, tchunks, lambda K: giant.train_banded_giant(
         n=PLAIN_N, epochs=CHUNK_EPOCHS, epochs_per_call=K, device="cuda"))
     out["giant_plain"] = held_equal(f"plain giant n={PLAIN_N}", runs,
                                     {"banded_spmm_unit": 2, "banded_spmm_unit_window": 4}, True)
 
     # 3. the halo trainers on a 4-shard ring of the card (K6; K5)
     ring = make_mesh(devices=["cuda:0"] * HALO_SHARDS)
-    runs = trainer_runs(torch, counters, tchunks, lambda K: tgb.train_halo_giant_packed(
+    runs = trainer_runs(torch, tchunks, lambda K: tgb.train_halo_giant_packed(
         HALO_PACKED_SHARD, tgb.PackedHaloGiantConfig(epochs=CHUNK_EPOCHS, epochs_per_call=K),
         ring))
     out["halo_packed"] = held_equal(f"packed halo, {HALO_SHARDS} shards", runs,
                                     {"halo_banded_spmm_unit_packed": 6 * HALO_SHARDS}, True)
-    runs = trainer_runs(torch, counters, tchunks, lambda K: tgb.train_halo_giant(
+    runs = trainer_runs(torch, tchunks, lambda K: tgb.train_halo_giant(
         HALO_PLAIN_SHARD, tgb.HaloGiantConfig(epochs=CHUNK_EPOCHS, epochs_per_call=K), ring))
     out["halo_plain"] = held_equal(f"plain halo, {HALO_SHARDS} shards", runs,
                                    {"halo_banded_spmm": 4 * HALO_SHARDS,
@@ -2779,7 +2746,7 @@ def phase_chunks(torch, np, counters, giant, tgiant, tgb, thybrid, tpart, make_m
     check(sg.bell_senders is not None, "a hop-0 plan on every shard of the k-way ring")
     base = tgiant.GiantConfig(block_ell=True, local_reorder="rcm")
     make = giant_path(sg, kring, base)
-    runs = chunk_runs(torch, np, counters, make)
+    runs = chunk_runs(torch, np, make)
     # K1 sums its outliers with index_add_ (atomic float adds): no bit equality
     out["kway_ring"] = held_equal(f"k-way ring, banded-random n={KWAY_N}, {KWAY_SHARDS} shards, "
                                   "hop 0 on K1", runs, {"block_ell_spmm": 6 * KWAY_SHARDS}, False)
@@ -2787,14 +2754,14 @@ def phase_chunks(torch, np, counters, giant, tgiant, tgb, thybrid, tpart, make_m
     for name, K, capture in RUNS[1:]:
         run = make(K, capture)
         run(K)
-        busy[name] = busy_share(torch, counters, f"k-way ring {name}", run, K, CHUNK_K)
+        busy[name] = busy_share(torch, f"k-way ring {name}", run, K, CHUNK_K)
     log(f"  k-way ring busy share: {busy}")
     out["kway_ring"]["busy"] = busy
     e = random_regular_edges(KWAY_N, KWAY_D, seed=0)
     one = make_mesh(devices=["cuda:0"])
     sg = tpart.shard_graph(np.concatenate([e[:, 0], e[:, 1]]),
                            np.concatenate([e[:, 1], e[:, 0]]), KWAY_N, 1)[0].to(one)
-    runs = chunk_runs(torch, np, counters, giant_path(sg, one, tgiant.GiantConfig()))
+    runs = chunk_runs(torch, np, giant_path(sg, one, tgiant.GiantConfig()))
     out["kway_one_shard"] = held_equal(f"k-way, expander n={KWAY_N}, one shard", runs, {}, True)
 
     # 5. the hybrid trainer: two banded-random graphs on a 2 x 4 mesh, hop 0 on K1
@@ -2820,7 +2787,7 @@ def phase_chunks(torch, np, counters, giant, tgiant, tgb, thybrid, tpart, make_m
         run.runner = step.runner
         return run
 
-    runs = chunk_runs(torch, np, counters, hybrid_run)
+    runs = chunk_runs(torch, np, hybrid_run)
     out["hybrid"] = held_equal(f"hybrid, 2 banded-random graphs on {R} x {D}", runs,
                                {"block_ell_spmm": 6 * R * D}, False)
     out["seconds"] = time.perf_counter() - t0
@@ -2843,7 +2810,7 @@ def cli_lines(cli_main, argv: list) -> dict:
     return merged
 
 
-def phase_microbench(counters, cli_main, chunk_recipe_ms: float) -> dict:
+def phase_microbench(cli_main, chunk_recipe_ms: float) -> dict:
     """``bench --what all`` on the card: spmm (K1), banded (K2, K4), train
     and post, in that order, through the CLI, the counters read after the
     whole command.  ``train`` is the recipe's epoch in captured chunks,
@@ -2851,9 +2818,9 @@ def phase_microbench(counters, cli_main, chunk_recipe_ms: float) -> dict:
     of ``chunk_recipe_ms``, the chunks phase's recipe epoch at K = 10 (CUDA
     events over chunks that end in their host reads)."""
     log("== microbench")
-    reset_all(counters)
+    registry.reset()
     res = cli_lines(cli_main, ["bench", "--what", "all", "--device", "cuda"])
-    launches = all_launches(counters)
+    launches = launches_but_adam()
     check(list(res) == ["spmm", "banded", "train", "post"],
           "bench --what all printed spmm, banded, train and post, in that order")
     spmm, banded = res["spmm"], res["banded"]
@@ -2911,7 +2878,7 @@ def _undirected(np, g):
     return np.stack([s[s < r], r[s < r]], axis=1)
 
 
-def phase_solvers(torch, np, counters, cli_main, recipe_checkpoint: str) -> dict:
+def phase_solvers(torch, np, cli_main, recipe_checkpoint: str) -> dict:
     """The classical solvers, ``solve``, ``convert``, the baseline stats and
     the examples on the card."""
     from gcn_maxcut_tpu_torch.baselines import local_search as tls
@@ -2934,7 +2901,7 @@ def phase_solvers(torch, np, counters, cli_main, recipe_checkpoint: str) -> dict
 
     log("== solvers")
     card = card_line()
-    reset_all(counters)
+    registry.reset()
     out = {"card": card}
 
     def graph(n, d, seed, pad=None):
@@ -3101,7 +3068,7 @@ def phase_solvers(torch, np, counters, cli_main, recipe_checkpoint: str) -> dict
     log(f"  examples: torch_migration {mig_s:.2f} s (losses {mig['losses']}), "
         f"giant_scale_pipeline N={EXAMPLE_GIANT_N} {giant_s:.2f} s, "
         f"complete_training_pipeline --quick {quick_s:.2f} s; card: {card}")
-    out["launches"] = all_launches(counters)
+    out["launches"] = dict(registry.LAUNCHES)
     return out
 
 
@@ -3115,7 +3082,6 @@ def main() -> int:
         print(f"chip_smoke: no gcn_maxcut_tpu_torch package beside {__file__}",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
     import numpy as np
 
     from gcn_maxcut_tpu_torch import build
@@ -3167,33 +3133,29 @@ def main() -> int:
               "weighted_probe": weighted_probe}
     report["kernels_probes"] = phase_kernels_probes(torch, np, tpk, tb, tbell, micro, tgraph,
                                                     probes)
-    report["probes"] = phase_probes(torch, tpk, tb, tbell, probes)
+    report["probes"] = phase_probes(torch, probes)
     report["adam"] = phase_adam(torch)
-    report["giant"] = phase_giant(torch, tb, giant)
-    report["halo"] = phase_halo(torch, tb, th, tgb, giant, make_mesh,
+    report["giant"] = phase_giant(torch, giant)
+    report["halo"] = phase_halo(torch, tgb, giant, make_mesh,
                                 report["giant"]["packed"]["cut_fraction"])
-    report["recipe"] = phase_recipe(tb, run_pipeline, cli_main)
-    report["variants"] = phase_variants(torch, (tbell, tb, th, tpk))
-    report["quality"] = phase_quality(tb, quality)
-    report["quality_ent05"] = phase_quality(tb, quality, "ent05")
-    report["quality_quant"] = phase_quality(tb, quality, "quant")
-    report["locality"] = phase_locality(torch, np, tbell, tb, loc)
-    report["kway"] = phase_kway(torch, np, (tbell, tb, th, tpk), tbell, make_mesh, micro, tpart,
-                                tgiant, kway_sweep, scaling, random_regular_edges)
-    report["hybrid"] = phase_hybrid(torch, np, (tbell, tb, th, tpk), tbell, make_mesh, micro,
-                                    tpart, tgiant, thybrid, loc.locality_params,
-                                    random_regular_edges, cli_main)
-    report["dp"] = phase_dp(torch, np, (tbell, tb, th, tpk), make_mesh, tdp, tloop, tgiant,
-                            thybrid, tpart, loc.locality_params, random_regular_edges,
-                            report["variants"])
-    report["chunks"] = phase_chunks(torch, np, (tbell, tb, th, tpk), giant, tgiant, tgb, thybrid,
-                                    tpart, make_mesh, micro, loc.locality_params,
-                                    random_regular_edges)
-    report["solvers"] = phase_solvers(torch, np, (tbell, tb, th, tpk), cli_main,
-                                      report["recipe"]["final_checkpoint"])
-    report["microbench"] = phase_microbench((tbell, tb, th, tpk), cli_main,
+    report["recipe"] = phase_recipe(run_pipeline, cli_main)
+    report["variants"] = phase_variants(torch)
+    report["quality"] = phase_quality(quality)
+    report["quality_ent05"] = phase_quality(quality, "ent05")
+    report["quality_quant"] = phase_quality(quality, "quant")
+    report["locality"] = phase_locality(torch, np, loc)
+    report["kway"] = phase_kway(torch, np, tbell, make_mesh, micro, tpart, tgiant, kway_sweep,
+                                scaling, random_regular_edges)
+    report["hybrid"] = phase_hybrid(torch, np, tbell, make_mesh, micro, tpart, tgiant, thybrid,
+                                    loc.locality_params, random_regular_edges, cli_main)
+    report["dp"] = phase_dp(torch, np, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
+                            loc.locality_params, random_regular_edges, report["variants"])
+    report["chunks"] = phase_chunks(torch, np, giant, tgiant, tgb, thybrid, tpart, make_mesh,
+                                    micro, loc.locality_params, random_regular_edges)
+    report["solvers"] = phase_solvers(torch, np, cli_main, report["recipe"]["final_checkpoint"])
+    report["microbench"] = phase_microbench(cli_main,
                                             report["chunks"]["recipe"]["k10"]["epoch_ms"])
-    report["timings"] = phase_timings(torch, (tbell, tb, th, tpk), report["microbench"],
+    report["timings"] = phase_timings(torch, report["microbench"],
                                       report["quality"]["per_size"][500]["refine_time_s"],
                                       report["recipe"])
     report["seconds"] = time.perf_counter() - t_start
@@ -3262,7 +3224,7 @@ def main() -> int:
         "shape": [rows[name]["n"], rows[name]["F"]], "dtype": rows[name]["dtype"],
         **({"shards": rows[name]["shards"], "op_ms": rows[name]["op_ms"],
             "exchange_ms": rows[name]["exchange_ms"]} if name.startswith(("K5", "K6")) else {}),
-        "earlier_ms": rows[name]["earlier_ms"],
+        "earlier_ms": rows[name].get("earlier_ms"),
     } for name in ("K1", "K2", "K2 window", "K3", "K4", "K5", "K5 window", "K6")]
     kernels[0]["launches_by_path"] = k1_paths
     kernels[3]["launches_by_path"] = {

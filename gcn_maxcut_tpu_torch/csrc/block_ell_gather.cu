@@ -21,10 +21,9 @@
 // shape (n = 100,352, F = 64, width 8) that is ~58 MB, ~0.017 ms at
 // 3.35 TB/s.
 //
-// Design.  The earlier body (csrc/block_ell_window.cu, also P3's)
-// staged an R0 + 2*Wp slice for each 128-row sub-block: a 4-6x re-read of
-// x at the planner's Wp, and the staging did not overlap the sums.  Here
-// nothing is staged.  A thread owns one receiver row and VEC adjacent
+// Design.  Nothing is staged: staging an R0 + 2*Wp slice for each 128-row
+// sub-block would re-read x 4-6x at the planner's Wp, and the staging
+// would not overlap the sums.  A thread owns one receiver row and VEC adjacent
 // columns and loads each in-slice sender's VEC values straight from
 // L2/device memory (16-byte __ldg when F % 4 == 0, VEC = 4; else the
 // scalar path, VEC = 1, for the locality trainer's F = 3).  The slice keeps

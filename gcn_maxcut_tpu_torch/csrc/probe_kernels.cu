@@ -7,19 +7,16 @@
 // P1/P2 (window_warp_gather) and P4 (panel_ell_gather) are warp gathers
 // here, sharing one ballot walk (probe_ballot_sum); P3 has its own source
 // (csrc/subblock_stream.cu) and P5 runs on K4's ring (csrc/banded_stream.cu,
-// P5a in its column-weight mode).  The earlier staging bodies of P1/P2
-// (window_gather_kernel), P4 (panel_ell_kernel) and P5a
-// (banded_cols_kernel) stay for comparison, and banded_cols_kernel for
-// P5a's rows that are not whole 16-byte pieces.  Each kernel below sums in
-// float32 in its plain version's order, with separate multiply and add
-// roundings (ops/probe_kernels.py), so results agree with it bit for bit.
-// No TMA or wgmma: there is no matrix product here.
+// P5a in its column-weight mode).  banded_cols_kernel, P5a's earlier
+// staging body, takes P5a's rows that are not whole 16-byte pieces.  Each
+// kernel below sums in float32 in its plain version's order, with separate
+// multiply and add roundings (ops/probe_kernels.py), so results agree with
+// it bit for bit.  No TMA or wgmma: there is no matrix product here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define PROBE_THREADS 1024
 #define PROBE_UNROLL 4
 #define PROBE_PANEL 128
 #define PROBE_MAX_OFFSETS 32
@@ -34,14 +31,13 @@ __device__ __forceinline__ float probe_to_f32(__nv_bfloat16 v) {
 // [c0, c0 + cols), into win[t * fc + cl], taking each row mod n (one wrap:
 // the caller keeps first >= -n and first + rows <= 2n).  PROBE_UNROLL loads
 // are in flight per thread before they are stored.
-template <typename T>
-__device__ __forceinline__ void probe_stage(T* win, const T* __restrict__ x,
+__device__ __forceinline__ void probe_stage(float* win, const float* __restrict__ x,
                                             int first, int rows, int n, int F,
                                             int c0, int cols, int fc) {
   const int staged = rows * cols;
   for (int base = threadIdx.x; base < staged;
        base += PROBE_UNROLL * blockDim.x) {
-    T v[PROBE_UNROLL];
+    float v[PROBE_UNROLL];
     int dst[PROBE_UNROLL];
 #pragma unroll
     for (int u = 0; u < PROBE_UNROLL; ++u) {
@@ -64,128 +60,6 @@ __device__ __forceinline__ void probe_stage(T* win, const T* __restrict__ x,
     for (int u = 0; u < PROBE_UNROLL; ++u) {
       if (dst[u] >= 0) win[dst[u]] = v[u];
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// window_gather (P1, P2): the earlier body
-//
-// Replaces experiments/gather_probe.py::_kernel (pallas_call in
-// proto_block_ell) and experiments/gather_probe2.py::_kernel (pallas_call in
-// proto).  It computes
-//   out[i, c] = sum_j w[i, j] * xpad[bi*B + lidx[i, j], c],   bi = i / B,
-// over slots with 0 <= lidx < B + 2*Wp, where xpad is x with Wp zero rows
-// before and after (no wrap: the probes clip their graphs).  The local
-// index is relative to the receiver's B-row block window, so a row may read
-// anywhere in it.  x is float32, or bfloat16 stored and summed in float32:
-// the TPU's "default" precision truncated x to bf16 inside the MXU, which
-// here is a bf16 array and half the bytes.
-//
-// Bound on this card: bytes.  The function reads xpad once ((n + 2*Wp)*F
-// elements), the [n, d] int32 + float32 tables once, and writes y once
-// (n*F*4 bytes), against 2*n*d*F operations.  At the probes' n = 99,840,
-// F = 128, d = 8, f32: ~109 MB at Wp = 256 (~0.033 ms at 3.35 TB/s) to
-// ~110 MB at Wp = 1024; bf16 x takes ~26 MB off; at d = 16 the tables add
-// 6.4 MB.  The operations need ~3-6 us at 67 TFLOP/s.
-//
-// This is P1/P2's earlier body, kept for comparison with
-// window_warp_gather below (ops/probe_kernels.py
-// _window_gather_window_launch).
-// Design: one block per (B-row block, column tile of Fc columns).  It stages
-// the block's whole [B + 2*Wp, Fc] window in shared memory with coalesced
-// loads, then each thread sums its (row, column) outputs over the row's
-// slots in slot order.  Neighbouring threads take neighbouring columns of
-// one row, so the table entry is a broadcast load.  Fc is the caller's,
-// from the shared-memory budget; every window row is read from device
-// memory once per block, so the whole window costs (B + 2*Wp) / B reads of
-// x (3x at B = Wp = 512, against 9x for P3's 128-row slices at that Wp).
-template <typename T>
-__global__ void __launch_bounds__(PROBE_THREADS)
-window_gather_kernel(const T* __restrict__ xpad, const int* __restrict__ lidx,
-                     const float* __restrict__ w, float* __restrict__ out,
-                     int n_pad_rows, int F, int d, int B, int Wp, int fc) {
-  extern __shared__ __align__(16) unsigned char probe_smem[];
-  T* win = reinterpret_cast<T*>(probe_smem);
-
-  const int row0 = blockIdx.x * B;
-  const int c0 = blockIdx.y * fc;
-  const int cols = min(fc, F - c0);
-  const int win_rows = B + 2 * Wp;
-
-  probe_stage<T>(win, xpad, row0, win_rows, n_pad_rows, F, c0, cols, fc);
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < B * cols; idx += blockDim.x) {
-    const int i = idx / cols;
-    const int cl = idx - i * cols;
-    const int64_t gi = (int64_t)row0 + i;
-    const int* lrow = lidx + gi * d;
-    const float* wrow = w + gi * d;
-    float acc = 0.0f;
-    for (int j = 0; j < d; ++j) {
-      const int l = __ldg(lrow + j);
-      if ((unsigned)l < (unsigned)win_rows) {
-        acc = __fadd_rn(acc, __fmul_rn(__ldg(wrow + j),
-                                       probe_to_f32(win[l * fc + cl])));
-      }
-    }
-    out[gi * F + c0 + cl] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// panel_ell_spmm (P4)
-//
-// Replaces experiments/panel_ell_probe.py::_panel_kernel (pallas_call in
-// panel_spmm).  With the block's window xwin_i[t] = x[(bi*B - Wp + t) mod n],
-// t in [0, B + 2*Wp), cut into 128-row panels, it computes
-//   out[i, c] = sum_s wgt[i, s] * xwin_i[(s / W_P)*128 + idx[i, s], c]
-// over the slots s in [0, n_panels*W_P) with 0 <= idx < 128 (idx = -1 marks
-// an empty slot).  The tables are build_panel_tables' as they are.
-//
-// Bound on this card: bytes.  x read once and y written once (2*n*F*4) plus
-// the [n, n_panels*W_P] int32 + float32 tables (n*slots*8), against
-// 2*n*(filled slots)*F operations.  At n = 100,352, F = 128, W = 255 and
-// W_P = 4 (6 panels, 24 slots): ~122 MB, ~0.036 ms; at W = 511 and W_P = 4
-// (12 panels, 48 slots) ~141 MB.  The table is 3-6x K1's: the bucketing that
-// cut the TPU's one-hot build costs bytes here.
-//
-// This is P4's earlier body, kept for comparison with panel_ell_gather
-// below (ops/probe_kernels.py _panel_window_launch).  Design: as
-// window_gather, on the wrapped window (the probe's in-window rule is
-// block-relative, so a 128-row slice does not cover a row), and a thread
-// walks all of its row's slots, skipping the empty ones.  It stages
-// (B + 2*Wp) / B rows for each row of output, synchronously, and re-reads
-// the table once per column tile.
-__global__ void __launch_bounds__(PROBE_THREADS)
-panel_ell_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                 const float* __restrict__ wgt, float* __restrict__ out, int n,
-                 int F, int slots, int W_P, int B, int Wp, int fc) {
-  extern __shared__ __align__(16) unsigned char probe_smem[];
-  float* win = reinterpret_cast<float*>(probe_smem);
-
-  const int row0 = blockIdx.x * B;
-  const int c0 = blockIdx.y * fc;
-  const int cols = min(fc, F - c0);
-
-  probe_stage<float>(win, x, row0 - Wp, B + 2 * Wp, n, F, c0, cols, fc);
-  __syncthreads();
-
-  for (int o = threadIdx.x; o < B * cols; o += blockDim.x) {
-    const int i = o / cols;
-    const int cl = o - i * cols;
-    const int64_t gi = (int64_t)row0 + i;
-    const int* irow = idx + gi * slots;
-    const float* wrow = wgt + gi * slots;
-    float acc = 0.0f;
-    for (int s = 0; s < slots; ++s) {
-      const int k = __ldg(irow + s);
-      if ((unsigned)k < (unsigned)PROBE_PANEL) {
-        const int t = (s / W_P) * PROBE_PANEL + k;
-        acc = __fadd_rn(acc, __fmul_rn(__ldg(wrow + s), win[t * fc + cl]));
-      }
-    }
-    out[gi * F + c0 + cl] = acc;
   }
 }
 
@@ -301,21 +175,27 @@ __device__ __forceinline__ void probe_warp_gather_row(const T* __restrict__ x,
 // ---------------------------------------------------------------------------
 // window_warp_gather (P1, P2)
 //
-// The same function as window_gather_kernel above, on the same operands,
-// as a direct gather.  It replaces experiments/gather_probe.py::_kernel
-// (pallas_call in proto_block_ell) and experiments/gather_probe2.py::_kernel
-// (pallas_call in proto):
+// Replaces experiments/gather_probe.py::_kernel (pallas_call in
+// proto_block_ell) and experiments/gather_probe2.py::_kernel (pallas_call in
+// proto).  It computes
 //   out[i, c] = sum_j w[i, j] * xpad[bi*B + lidx[i, j], c],   bi = i / B,
-// over the slots with 0 <= lidx < B + 2*Wp, in slot order.
+// over the slots with 0 <= lidx < B + 2*Wp, in slot order, where xpad is x
+// with Wp zero rows before and after (no wrap: the probes clip their
+// graphs).  The local index is relative to the receiver's B-row block
+// window, so a row may read anywhere in it.  x is float32, or bfloat16
+// stored and summed in float32: the TPU's "default" precision truncated x
+// to bf16 inside the MXU, which here is a bf16 array and half the bytes.
 //
-// Bound on this card: bytes, as above: (n + 2*Wp)*F*el + n*F*4 + n*d*8.
-// At the probes' n = 99,840, F = 128, d = 8: 0.0325 ms in float32 at
-// Wp = 256, 0.0248 in bf16; 0.0344 at d = 16 (3.35 TB/s).
+// Bound on this card: bytes.  The function reads xpad once, the [n, d]
+// int32 + float32 tables once and writes y once: (n + 2*Wp)*F*el + n*F*4 +
+// n*d*8 bytes, against 2*n*d*F operations (~3-6 us at 67 TFLOP/s).  At the
+// probes' n = 99,840, F = 128, d = 8: 0.0325 ms in float32 at Wp = 256,
+// 0.0248 in bf16; 0.0344 at d = 16 (3.35 TB/s).
 //
-// Design.  Nothing is staged: the staging body read the window's rows
-// (B + 2*Wp) / B times (2-3x) in column tiles that each re-read the table,
-// and its sums waited on the staging.  At the probes' sizes x is 51 MB in
-// float32 (about the 50 MB L2) and 26 MB in bf16, and every sender lies
+// Design.  Nothing is staged: staging the block's window would read its
+// rows (B + 2*Wp) / B times (2-3x) in column tiles that each re-read the
+// table, and the sums would wait on the staging.  At the probes' sizes x
+// is 51 MB in float32 (about the 50 MB L2) and 26 MB in bf16, and every sender lies
 // within +-Wp of its receiver, so a gather reads x from device memory about
 // once and its d-fold reuse from L2, as K1's gather and P4's do.  One warp
 // owns one receiver row; its lanes load the row's d slots once, 32 a pass
@@ -349,15 +229,20 @@ window_warp_gather_kernel(const T* __restrict__ xpad, const int* __restrict__ li
 // ---------------------------------------------------------------------------
 // panel_ell_gather (P4)
 //
-// The same function as panel_ell_kernel above, on the same tables, as a
-// direct gather.  It replaces experiments/panel_ell_probe.py::_panel_kernel
-// (pallas_call in panel_spmm):
+// Replaces experiments/panel_ell_probe.py::_panel_kernel (pallas_call in
+// panel_spmm).  With the block's window xwin_i[t] = x[(bi*B - Wp + t) mod n],
+// t in [0, B + 2*Wp), cut into 128-row panels, it computes
 //   out[i, c] = sum_s wgt[i, s] * x[(bi*B - Wp + (s / W_P)*128 + idx[i, s]) mod n, c]
-// over the slots with 0 <= idx < 128, in slot order.
+// over the slots s in [0, n_panels*W_P) with 0 <= idx < 128 (idx = -1 marks
+// an empty slot), in slot order.  The tables are build_panel_tables' as
+// they are.
 //
-// Bound on this card: bytes, as above: 2*n*F*4 + n*slots*8.  At n =
-// 100,352, F = 128 that is 0.0364, 0.0393 and 0.0422 ms at 24, 36 and 48
-// slots (3.35 TB/s).
+// Bound on this card: bytes.  x read once and y written once (2*n*F*4) plus
+// the [n, n_panels*W_P] int32 + float32 tables (n*slots*8), against
+// 2*n*(filled slots)*F operations.  At n = 100,352, F = 128 that is 0.0364,
+// 0.0393 and 0.0422 ms at 24, 36 and 48 slots (3.35 TB/s).  The table is
+// 3-6x K1's: the bucketing that cut the TPU's one-hot build costs bytes
+// here.
 //
 // Design.  Nothing is staged: at the probe's size x (51 MB) is about the
 // size of the 50 MB L2, and K1's gather (csrc/block_ell_gather.cu) beat a
@@ -409,10 +294,10 @@ panel_ell_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx
 // at n = 131,072, F = 128, D = 8, ~138 MB, ~0.041 ms at 3.35 TB/s; the
 // operations ~4 us at 67 TFLOP/s.
 //
-// This is P5a's earlier body.  P5a now runs K4's ring in its column-weight
-// mode (csrc/banded_stream.cu banded_stream_cols_launch); this body runs
-// only rows that are not whole 16-byte pieces or misaligned operands, and,
-// for comparison, ops/probe_kernels.py _banded_cols_window_launch.
+// This is P5a's earlier body.  P5a runs K4's ring in its column-weight
+// mode (csrc/banded_stream.cu banded_stream_cols_launch); this body takes
+// the rows that are not whole 16-byte pieces and misaligned operands
+// (ops/probe_kernels.py _banded_cols_window_launch).
 // Design: K4's earlier tiling (ops/banded.py tile_shape, the caller's), so the two
 // differ in the weights' layout alone.  A block stages its [rows + 2*Wp,
 // cols] window (wrap rows included) and its [D, rows] weights in shared
@@ -450,8 +335,7 @@ banded_cols_kernel(const float* __restrict__ x, const float* __restrict__ wc,
     const int i = idx - k * rows;
     wtile[k * tile_rows + i] = wc[(int64_t)k * n + r0 + i];
   }
-  probe_stage<float>(win, x, r0 - Wp, rows + 2 * Wp, n, F, c0, cols,
-                     tile_cols);
+  probe_stage(win, x, r0 - Wp, rows + 2 * Wp, n, F, c0, cols, tile_cols);
   __syncthreads();
 
   for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
@@ -477,42 +361,7 @@ static int probe_set_smem(const void* kernel, size_t smem) {
 }
 
 // xpad [n_rows + 2*Wp, F] (dtype 0 = float32, 1 = bfloat16), lidx int32 and
-// w float32 [n_rows, d], out float32 [n_rows, F]; B divides n_rows.
-extern "C" int window_gather_launch(const void* xpad, const void* lidx,
-                                    const void* w, void* out, int n_rows,
-                                    int F, int d, int B, int Wp, int fc,
-                                    int dtype, void* stream) {
-  if (n_rows < 1 || F < 1 || d < 1 || B < 1 || Wp < 0 || fc < 1 ||
-      n_rows % B != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int rows = n_rows + 2 * Wp;
-  dim3 grid(n_rows / B, (F + fc - 1) / fc);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* li = static_cast<const int*>(lidx);
-  const float* wf = static_cast<const float*>(w);
-  float* o = static_cast<float*>(out);
-  if (dtype == 0) {
-    const size_t smem = (size_t)(B + 2 * Wp) * fc * sizeof(float);
-    int err = probe_set_smem((const void*)window_gather_kernel<float>, smem);
-    if (err) return err;
-    window_gather_kernel<float><<<grid, PROBE_THREADS, smem, s>>>(
-        static_cast<const float*>(xpad), li, wf, o, rows, F, d, B, Wp, fc);
-  } else if (dtype == 1) {
-    const size_t smem = (size_t)(B + 2 * Wp) * fc * sizeof(__nv_bfloat16);
-    int err = probe_set_smem(
-        (const void*)window_gather_kernel<__nv_bfloat16>, smem);
-    if (err) return err;
-    window_gather_kernel<__nv_bfloat16><<<grid, PROBE_THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(xpad), li, wf, o, rows, F, d, B, Wp,
-        fc);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// The same operands as window_gather_launch, for window_warp_gather: vec 4
+// w float32 [n_rows, d], out float32 [n_rows, F]; B divides n_rows.  vec 4
 // needs F % 4 == 0, xpad aligned to 4 elements (16 bytes in float32, 8 in
 // bfloat16) and out 16-byte aligned, else vec 1.  One warp a row.
 extern "C" int window_warp_gather_launch(const void* xpad, const void* lidx,
@@ -555,30 +404,9 @@ extern "C" int window_warp_gather_launch(const void* xpad, const void* lidx,
 }
 
 // x and out float32 [n, F]; idx int32 and wgt float32 [n, slots] with
-// slots = ((B + 2*Wp) / 128) * W_P; B divides n, B + 2*Wp <= n.
-extern "C" int panel_ell_launch(const void* x, const void* idx,
-                                const void* wgt, void* out, int n, int F,
-                                int slots, int W_P, int B, int Wp, int fc,
-                                void* stream) {
-  if (n < 1 || F < 1 || W_P < 1 || B < 1 || Wp < 0 || fc < 1 ||
-      n % B != 0 || B + 2 * Wp > n || (B + 2 * Wp) % PROBE_PANEL != 0 ||
-      slots != (B + 2 * Wp) / PROBE_PANEL * W_P) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = (size_t)(B + 2 * Wp) * fc * sizeof(float);
-  int err = probe_set_smem((const void*)panel_ell_kernel, smem);
-  if (err) return err;
-  dim3 grid(n / B, (F + fc - 1) / fc);
-  panel_ell_kernel<<<grid, PROBE_THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(idx),
-      static_cast<const float*>(wgt), static_cast<float*>(out), n, F, slots,
-      W_P, B, Wp, fc);
-  return (int)cudaGetLastError();
-}
-
-// The same operands as panel_ell_launch, for panel_ell_gather: vec 4 needs
-// F % 4 == 0 and 16-byte aligned x and out, else vec 1.  One warp a row.
+// slots = ((B + 2*Wp) / 128) * W_P; B divides n, B + 2*Wp <= n.  vec 4
+// needs F % 4 == 0 and 16-byte aligned x and out, else vec 1.  One warp a
+// row.
 extern "C" int panel_ell_gather_launch(const void* x, const void* idx,
                                        const void* wgt, void* out, int n,
                                        int F, int slots, int W_P, int B,

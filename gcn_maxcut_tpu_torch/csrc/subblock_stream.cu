@@ -15,10 +15,10 @@
 // 2*n*d*F float operations.  At the probe's n = 100,352, F = 128, d = 8
 // that is ~109 MB, ~0.033 ms at 3.35 TB/s.
 //
-// Design.  P3's earlier body (csrc/block_ell_window.cu) staged each
-// sub-block's R0 + 2*Wp slice on its own, synchronously: x was read
-// (R0 + 2*Wp) / R0 times, 5x at Wp = 256 and 9x at Wp = 512.  Here it is
-// K4's ring (csrc/banded_stream.cu) with a table lookup in place of fixed
+// Design.  Staging each sub-block's R0 + 2*Wp slice on its own would read
+// x (R0 + 2*Wp) / R0 times, 5x at Wp = 256 and 9x at Wp = 512, and the
+// sums would wait on it.  So this is K4's ring (csrc/banded_stream.cu)
+// with a table lookup in place of fixed
 // offsets.  A block owns one column tile of fc columns and a strip of S
 // consecutive sub-blocks.  Shared memory holds a ring of R >= 2*R0 + 2*Wp
 // source rows: the current sub-block's slice and the next sub-block's R0

@@ -24,10 +24,8 @@ on the first parameter's card; each other card of a mesh keeps a slot for
 the count and a copy of the tables (``side_state``, made once by ``Adam``)
 and gets the count copied before its update.
 
-``LAUNCHES`` counts the kernel's launches where they are made: updates
-(``adam_update``) and counts (``adam_count``).  ``train/chunks.ChunkRunner``
-adds a captured epoch's launches once for every replay, as it does for the
-other kernels' counters.
+``ops/launches.py`` counts the kernel's launches where they are made:
+updates (``adam_update``) and counts (``adam_count``).
 """
 
 from __future__ import annotations
@@ -40,16 +38,9 @@ import numpy as np
 import torch
 
 from gcn_maxcut_tpu_torch import build
-
-# Launches of the CUDA kernels, counted where they launch.
-LAUNCHES = {"adam_update": 0, "adam_count": 0}
+from gcn_maxcut_tpu_torch.ops import launches
 
 MAX_LEAVES = 64               # csrc/adam.cu ADAM_MAX_LEAVES: leaves a launch
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def side_state(params: Sequence[torch.Tensor], count: torch.Tensor,
@@ -141,9 +132,9 @@ def _launch(opt, leaves: List[tuple], device: torch.device, count: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"adam_launch failed: CUDA error {err}")
     groups = range(0, len(leaves), MAX_LEAVES)
-    LAUNCHES["adam_update"] += sum(any(p.numel() for p, *_ in leaves[i:i + MAX_LEAVES])
-                                   for i in groups)
-    LAUNCHES["adam_count"] += int(increment)
+    launches.LAUNCHES["adam_update"] += sum(
+        any(p.numel() for p, *_ in leaves[i:i + MAX_LEAVES]) for i in groups)
+    launches.LAUNCHES["adam_count"] += int(increment)
 
 
 @torch.no_grad()

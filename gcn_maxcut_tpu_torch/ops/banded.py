@@ -44,15 +44,8 @@ import torch
 
 from gcn_maxcut_tpu_torch import build
 from gcn_maxcut_tpu_torch.ops import halo_stream as hs
+from gcn_maxcut_tpu_torch.ops import launches
 from gcn_maxcut_tpu_torch.ops.halo_stream import _DTYPE_CODES, SMEM_LIMIT, _vec16
-
-# Launches made by each op, counted where each kernel launches: under the
-# op's name by ``_circulant_launch`` (K2, K3: ``csrc/halo_stream.cu``) and
-# ``_stream_launch`` (K4: ``csrc/banded_stream.cu``), under the op's name +
-# "_window" by ``_launch`` (the earlier body, ``csrc/banded_window.cu``).
-LAUNCHES = {"banded_spmm_unit": 0, "banded_spmm_unit_packed": 0, "banded_spmm": 0,
-            "banded_spmm_unit_window": 0, "banded_spmm_unit_packed_window": 0,
-            "banded_spmm_window": 0}
 
 MAX_OFFSETS = 32            # csrc/banded_window.cu BANDED_MAX_OFFSETS
 _TILE_BYTES = 96 * 1024     # shared memory for one block's window
@@ -66,11 +59,6 @@ STREAM_COLS = 64
 STREAM_STRIP_MAX = 1024
 STREAM_MIN_BLOCKS = 256
 STREAM_THREADS = 256          # csrc/banded_stream.cu BSTREAM_THREADS
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def padded_bandwidth(offsets: Sequence[int]) -> int:
@@ -231,7 +219,7 @@ def _stream_launch(x: torch.Tensor, w: torch.Tensor, offsets: Sequence[int]) -> 
     """K4: ``banded_stream_launch`` on contiguous float32 x [n, F] and
     w [n, D] on the card, counted under "banded_spmm"."""
     out = _stream_call(x, w, offsets, _check_weighted(x, w, offsets))
-    LAUNCHES["banded_spmm"] += 1
+    launches.LAUNCHES["banded_spmm"] += 1
     return out
 
 
@@ -275,7 +263,7 @@ def _circulant_launch(x: torch.Tensor, offsets: Sequence[int], F: int, *, op: st
     wp = _check_unit(x, offsets, F)
     pre, post = wrap_tiles(x, wp, F)
     out = hs.launch(x, pre, post, offsets)
-    LAUNCHES[op] += 1
+    launches.LAUNCHES[op] += 1
     return out
 
 
@@ -313,7 +301,7 @@ def _launch(
             )
     if err != 0:
         raise RuntimeError(f"banded_window_launch failed: CUDA error {err}")
-    LAUNCHES[op + "_window"] += 1
+    launches.LAUNCHES[op + "_window"] += 1
     return out
 
 

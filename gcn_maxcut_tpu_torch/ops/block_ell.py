@@ -22,10 +22,7 @@ in slot order, in float32 (``gather_shape``).  Table slots whose sender
 lies outside the receiver's slice (padding slots: sender n − 1, weight 0)
 are skipped, as the one-hot matched nothing for them.
 The outlier correction stays a PyTorch ``index_add_`` after the kernel, as
-it was an XLA scatter outside the Pallas kernel.  The earlier body,
-``csrc/block_ell_window.cu`` (one block stages each sub-block's slice),
-stays reachable by ``_slice_launch`` as K1's and P3's earlier body; P3 runs
-its own ring (``ops/probe_kernels.subblock_spmm``).
+it was an XLA scatter outside the Pallas kernel.
 
 ``mode`` ("split" or "fast") is accepted for signature parity only: both
 compute in plain float32 here (the TPU's bf16 split undid the MXU's input
@@ -48,19 +45,10 @@ import numpy as np
 import torch
 
 from gcn_maxcut_tpu_torch import build
-
-# Launches of the CUDA kernel, counted where it launches.
-LAUNCHES = {"block_ell_spmm": 0}
+from gcn_maxcut_tpu_torch.ops import launches
 
 _R0 = 128                    # row sub-block of the planner's slice guarantee
-_SMEM_BYTES = 96 * 1024      # shared memory for one block's staged slice (P3's kernel)
-_MAX_COLS = 128
 GATHER_THREADS = 256         # csrc/block_ell_gather.cu BELL_GATHER_THREADS
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------- planning
@@ -223,7 +211,7 @@ class BlockEllOperand(NamedTuple):
 
 
 def sub_block_rows(block: int) -> int:
-    """R0: the rows that share one staged slice."""
+    """R0: the rows of one sub-block, which all read from one slice."""
     return _R0 if block % _R0 == 0 else block
 
 
@@ -237,34 +225,19 @@ def gather_shape(n: int, F: int, *, vec4: bool = True) -> tuple[int, int]:
     return vec, -(-n * (F // vec) // GATHER_THREADS)
 
 
-def column_tile(F: int, slice_rows: int, elsize: int = 4) -> int:
-    """Columns of one slice-kernel block: all of F when the [slice_rows, F] slice
-    of ``elsize``-byte elements fits the shared-memory budget, else the
-    largest multiple of 8 that fits (at most 128)."""
-    fit = _SMEM_BYTES // (slice_rows * elsize)
-    if fit < 1:
-        raise ValueError(f"a slice of {slice_rows} rows does not fit the kernel's shared memory")
-    if F <= min(fit, _MAX_COLS):
-        return F
-    return min(_MAX_COLS, fit // 8 * 8 if fit >= 8 else fit)
-
-
-def _fn(source: str, name: str, n_ints: int):
-    """A launcher of ``csrc/<source>.cu``: four pointers, ``n_ints`` ints,
-    the stream."""
-    fn = getattr(build.load(source), name)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+@functools.cache
+def _gather_kernel():
+    """``block_ell_gather_launch``: four pointers, seven ints, the stream."""
+    fn = build.load("block_ell_gather").block_ell_gather_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-_slice_kernel = functools.cache(lambda: _fn("block_ell_window", "block_ell_window_launch", 6))
-_gather_kernel = functools.cache(lambda: _fn("block_ell_gather", "block_ell_gather_launch", 7))
-
-
-def _check(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
-           n: int, block: int, wp: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1's operand rules on the card; returns them contiguous."""
+def _launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
+            n: int, block: int, wp: int) -> torch.Tensor:
+    """K1: the in-slice table sum of ``csrc/block_ell_gather.cu`` on CUDA,
+    after K1's operand rules."""
     if x.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.float32 or w.dtype != torch.float32:
@@ -279,14 +252,7 @@ def _check(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
     if rows != n or sidx.shape[0] != n or n % block or block + 2 * wp > n or wp < 0:
         raise ValueError(
             f"bad geometry: x has {rows} rows, n={n}, block={block}, wp={wp}")
-    return x.contiguous(), sidx.contiguous(), w.contiguous()
-
-
-def _launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
-            n: int, block: int, wp: int) -> torch.Tensor:
-    """K1: the in-slice table sum of ``csrc/block_ell_gather.cu`` on CUDA."""
-    x, sidx, w = _check(x, sidx, w, n, block, wp)
-    F = x.shape[1]
+    x, sidx, w = x.contiguous(), sidx.contiguous(), w.contiguous()
     out = torch.empty_like(x)
     vec, blocks = gather_shape(n, F, vec4=(x.data_ptr() | out.data_ptr()) % 16 == 0)
     with torch.cuda.device(x.device):
@@ -297,26 +263,6 @@ def _launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
         )
     if err != 0:
         raise RuntimeError(f"block_ell_gather_launch failed: CUDA error {err}")
-    return out
-
-
-def _slice_launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
-                  n: int, block: int, wp: int) -> torch.Tensor:
-    """The same sum by ``csrc/block_ell_window.cu``, one block per (R0-row
-    sub-block, column tile) staging its slice: K1's and P3's earlier
-    body, on no op's path."""
-    x, sidx, w = _check(x, sidx, w, n, block, wp)
-    r0 = sub_block_rows(block)
-    F = x.shape[1]
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _slice_kernel()(
-            x.data_ptr(), sidx.data_ptr(), w.data_ptr(), out.data_ptr(),
-            n, F, sidx.shape[1], wp, r0, column_tile(F, r0 + 2 * wp),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"block_ell_window_launch failed: CUDA error {err}")
     return out
 
 
@@ -347,7 +293,7 @@ def _raw(x: torch.Tensor, op: BlockEllOperand, n: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return block_ell_spmm_plain(x, *op[:5], n, op.block, op.wp)
     y = _launch(x, op.sidx, op.w, n, op.block, op.wp)
-    LAUNCHES["block_ell_spmm"] += 1
+    launches.LAUNCHES["block_ell_spmm"] += 1
     return _add_outliers(y, x, op.out_s, op.out_r, op.out_w)
 
 

@@ -30,10 +30,8 @@ import torch
 
 from gcn_maxcut_tpu_torch import build
 from gcn_maxcut_tpu_torch.core.graph import Graph
+from gcn_maxcut_tpu_torch.ops import launches
 from gcn_maxcut_tpu_torch.ops.segment import spmm
-
-# Launches of the CUDA kernel, counted where it launches.
-LAUNCHES = 0
 
 _SMEM_LIMIT = 232_448         # dynamic shared memory one block may use on the H100
 CLIMB_THREADS = 512           # csrc/climb.cu CLIMB_THREADS
@@ -154,7 +152,6 @@ def greedy_climb(
     launch of ``csrc/climb.cu`` on the current stream, with no host read,
     or raises.  Classes must lie in [0, k): the kernel leaves a node of
     another class unmoved where the plain version raises."""
-    global LAUNCHES
     if asn.device.type != "cuda":
         return greedy_climb_plain(g, asn, k, num_fixed, max_steps)
     _check(g, asn, k)
@@ -171,5 +168,5 @@ def greedy_climb(
         )
     if err != 0:
         raise RuntimeError(f"climb_launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    launches.LAUNCHES["climb"] += 1
     return out, moves

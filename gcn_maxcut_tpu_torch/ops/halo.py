@@ -52,6 +52,7 @@ import torch
 
 from gcn_maxcut_tpu_torch import build
 from gcn_maxcut_tpu_torch.ops import halo_stream as hs
+from gcn_maxcut_tpu_torch.ops import launches
 from gcn_maxcut_tpu_torch.ops.banded import MAX_OFFSETS, padded_bandwidth, tile_shape
 from gcn_maxcut_tpu_torch.ops.halo_stream import (  # noqa: F401  (re-exported)
     _DTYPE_CODES,
@@ -68,20 +69,7 @@ from gcn_maxcut_tpu_torch.ops.halo_stream import (  # noqa: F401  (re-exported)
 )
 from gcn_maxcut_tpu_torch.parallel.mesh import Mesh
 
-# Launches made by each op, one per shard, counted where each kernel
-# launches: under the op's name by ``_launch`` (``csrc/halo_stream.cu``),
-# under the op's name + "_window" by ``_window_launch`` (the halo mode of
-# ``csrc/banded_window.cu``).  K5 counts its weighted and unit launches
-# together.
-LAUNCHES = {"halo_banded_spmm": 0, "halo_banded_spmm_unit_packed": 0,
-            "halo_banded_spmm_window": 0, "halo_banded_spmm_unit_packed_window": 0}
-
 DEFAULT_BLOCK = 1024
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 @functools.cache
@@ -146,7 +134,8 @@ def _launch(
     x: torch.Tensor, pre: torch.Tensor, post: torch.Tensor,
     offsets: Sequence[int], w: torch.Tensor | None = None, *, op: str,
 ) -> torch.Tensor:
-    """One shard's launch of ``op`` (a ``LAUNCHES`` key) on a contiguous
+    """One shard's launch of ``op`` (a ``launches.LAUNCHES`` key; K5 counts
+    its weighted and unit launches together) on a contiguous
     [m, L] CUDA tensor and its [Wp, L] tiles, with a float32 [m, D] weight
     table or (``w`` None) unit weights: ``halo_stream_launch`` in
     ``halo_stream_shape``'s geometry where the shard takes 16-byte copies
@@ -157,7 +146,7 @@ def _launch(
     if not _vec16(x.shape[1], x.element_size(), x, pre, post):
         return _window_launch(x, pre, post, offsets, w, op=op)
     out = hs.launch(x, pre, post, offsets, w)
-    LAUNCHES[op] += 1
+    launches.LAUNCHES[op] += 1
     return out
 
 
@@ -189,7 +178,7 @@ def _window_launch(
             )
     if err != 0:
         raise RuntimeError(f"halo_window launch failed: CUDA error {err}")
-    LAUNCHES[op + "_window"] += 1
+    launches.LAUNCHES[op + "_window"] += 1
     return out
 
 

@@ -27,15 +27,11 @@ their ports (``gcn_maxcut_tpu_torch/experiments/``) run on these ops:
     mode (``ops/banded._stream_call``).
 
 Each wrapper runs its plain version on CPU tensors only; on a CUDA tensor
-it launches its kernel or raises, and counts the launch.  The ops are
-forward only: the probes differentiate nothing.  The earlier bodies of
-P1/P2 (the staging ``window_gather_kernel``), P3 (``block_ell_window.cu``),
-P4 (the staging ``panel_ell_kernel``) and P5a (``banded_cols_kernel``) stay
-reachable by ``_window_gather_window_launch``, ``_subblock_window_launch``,
-``_panel_window_launch`` and ``_banded_cols_window_launch``, for comparison
-only, counted under the op's name + ``_window``.  P5a's rows that are not
-whole 16-byte pieces, or a misaligned x, run its earlier body by K4's
-shape rule (``halo_stream._vec16``).
+it launches its kernel or raises, and counts the launch (``ops/launches.py``).
+The ops are forward only: the probes differentiate nothing.  P5a's rows
+that are not whole 16-byte pieces, or a misaligned x, run its earlier body
+(``banded_cols_kernel``, ``_banded_cols_window_launch``) by K4's shape rule
+(``halo_stream._vec16``), counted under ``banded_spmm_cols_window``.
 """
 
 from __future__ import annotations
@@ -50,6 +46,7 @@ import torch
 from gcn_maxcut_tpu_torch import build
 from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
+from gcn_maxcut_tpu_torch.ops import launches
 from gcn_maxcut_tpu_torch.ops.banded import (
     MAX_OFFSETS,
     banded_spmm_plain,
@@ -57,12 +54,6 @@ from gcn_maxcut_tpu_torch.ops.banded import (
     tile_shape,
 )
 from gcn_maxcut_tpu_torch.ops.halo_stream import _vec16
-
-# Launches of each CUDA kernel, counted where it launches: under the op's
-# name, and under the op's name + "_window" for its earlier body.
-LAUNCHES = {"window_gather": 0, "panel_ell_spmm": 0, "banded_spmm_cols": 0,
-            "subblock_spmm": 0, "window_gather_window": 0, "subblock_spmm_window": 0,
-            "panel_ell_spmm_window": 0, "banded_spmm_cols_window": 0}
 
 PANEL = 128                  # rows of one P4 panel (csrc PROBE_PANEL)
 GATHER_ROWS = 8              # rows (warps) of one warp-gather block (csrc PROBE_GATHER_THREADS / 32)
@@ -76,11 +67,6 @@ SM_COUNT = 132               # SMs of the H100 SXM
 SUBBLOCK_COLS = 64
 SUBBLOCK_THREADS = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 @functools.cache
@@ -198,27 +184,7 @@ def window_gather(xpad: torch.Tensor, lidx: torch.Tensor, w: torch.Tensor,
     n = _window_geometry(xpad, lidx, w, block, wp)
     _check_cuda("window_gather", xpad, lidx, w)
     out = _window_warp_launch(xpad, lidx, w, n, block, wp)
-    LAUNCHES["window_gather"] += 1
-    return out
-
-
-def _window_gather_window_launch(xpad: torch.Tensor, lidx: torch.Tensor, w: torch.Tensor,
-                                 block: int, wp: int) -> torch.Tensor:
-    """P1/P2's earlier body, ``window_gather_kernel`` (the block window
-    staged in shared memory, in column tiles), on CUDA tensors; for
-    comparison only."""
-    n = _window_geometry(xpad, lidx, w, block, wp)
-    _check_cuda("window_gather", xpad, lidx, w)
-    F, d = xpad.shape[1], lidx.shape[1]
-    fc = tbell.column_tile(F, block + 2 * wp, xpad.element_size())
-    out = torch.empty((n, F), dtype=torch.float32, device=xpad.device)
-    with torch.cuda.device(xpad.device):
-        err = _fn("window_gather_launch", (_P, _P, _P, _P) + (_I,) * 7 + (_P,))(
-            xpad.data_ptr(), lidx.data_ptr(), w.data_ptr(), out.data_ptr(),
-            n, F, d, block, wp, fc, _DTYPE_CODES[xpad.dtype], _stream(xpad))
-    if err != 0:
-        raise RuntimeError(f"window_gather_launch failed: CUDA error {err}")
-    LAUNCHES["window_gather_window"] += 1
+    launches.LAUNCHES["window_gather"] += 1
     return out
 
 
@@ -346,18 +312,7 @@ def subblock_spmm(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
     _subblock_geometry(x, sidx, w, n, block, wp)
     _check_cuda("subblock_spmm", x, sidx, w)
     out = _subblock_stream_launch(x, sidx, w, n, block, wp)
-    LAUNCHES["subblock_spmm"] += 1
-    return out
-
-
-def _subblock_window_launch(x: torch.Tensor, sidx: torch.Tensor, w: torch.Tensor,
-                            n: int, block: int, wp: int) -> torch.Tensor:
-    """P3's earlier body, ``csrc/block_ell_window.cu`` (each sub-block's
-    slice staged on its own), on CUDA tensors; for comparison only."""
-    _subblock_geometry(x, sidx, w, n, block, wp)
-    _check_cuda("subblock_spmm", x, sidx, w)
-    out = tbell._slice_launch(x, sidx, w, n, block, wp)
-    LAUNCHES["subblock_spmm_window"] += 1
+    launches.LAUNCHES["subblock_spmm"] += 1
     return out
 
 
@@ -412,26 +367,7 @@ def panel_ell_spmm(x: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
     _panel_geometry(x, idx, wgt, n, block, wp, w_p)
     _check_cuda("panel_ell_spmm", x, idx, wgt)
     out = _panel_gather_launch(x, idx, wgt, n, block, wp, w_p)
-    LAUNCHES["panel_ell_spmm"] += 1
-    return out
-
-
-def _panel_window_launch(x: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
-                         n: int, block: int, wp: int, w_p: int) -> torch.Tensor:
-    """P4's earlier body, ``panel_ell_kernel`` (the block window staged in
-    shared memory), on CUDA tensors; for comparison only."""
-    _panel_geometry(x, idx, wgt, n, block, wp, w_p)
-    _check_cuda("panel_ell_spmm", x, idx, wgt)
-    F = x.shape[1]
-    fc = tbell.column_tile(F, block + 2 * wp)
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _fn("panel_ell_launch", (_P, _P, _P, _P) + (_I,) * 7 + (_P,))(
-            x.data_ptr(), idx.data_ptr(), wgt.data_ptr(), out.data_ptr(),
-            n, F, idx.shape[1], w_p, block, wp, fc, _stream(x))
-    if err != 0:
-        raise RuntimeError(f"panel_ell_launch failed: CUDA error {err}")
-    LAUNCHES["panel_ell_spmm_window"] += 1
+    launches.LAUNCHES["panel_ell_spmm"] += 1
     return out
 
 
@@ -474,7 +410,7 @@ def banded_spmm_cols(x: torch.Tensor, wc: torch.Tensor,
     if not _vec16(x.shape[1], x.element_size(), x):
         return _banded_cols_window_launch(x, wc, offsets)
     out = tb._stream_call(x, wc, offsets, wp, cols=True)
-    LAUNCHES["banded_spmm_cols"] += 1
+    launches.LAUNCHES["banded_spmm_cols"] += 1
     return out
 
 
@@ -498,5 +434,5 @@ def _banded_cols_window_launch(x: torch.Tensor, wc: torch.Tensor,
             wp, rows, cols, _stream(x))
     if err != 0:
         raise RuntimeError(f"banded_cols_launch failed: CUDA error {err}")
-    LAUNCHES["banded_spmm_cols_window"] += 1
+    launches.LAUNCHES["banded_spmm_cols_window"] += 1
     return out

@@ -25,11 +25,10 @@ whose devices span several cards runs its chunks without capture (logged
 once): capture across cards waits for a machine with more cards.  On the
 CPU every epoch is eager: the same code, with the same single read a chunk.
 
-The kernel launch counters (``LAUNCHES`` of ``ops/block_ell.py``,
-``ops/banded.py``, ``ops/halo.py``, ``ops/probe_kernels.py`` and
-``ops/adam.py``) count the wrappers' Python calls, and a replay makes
-none.  So the runner takes back what the counters gained while capturing
-(a capture launches nothing) and adds that gain once for every replay.
+The kernel launch counters (``ops/launches.py``) count the wrappers'
+Python calls, and a replay makes none.  So the runner takes back what the
+counters gained while capturing (a capture launches nothing) and adds that
+gain once for every replay.
 
 A step that draws from its own ``torch.Generator`` (the recipe's dropout)
 names it in ``generators``: the graph registers its state before capture,
@@ -48,24 +47,18 @@ any non-finite loss or gradient of the chunk (the gradients as the step's
 
 from __future__ import annotations
 
-import importlib
 import logging
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from gcn_maxcut_tpu_torch.ops.launches import LAUNCHES
 from gcn_maxcut_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
-_COUNTER_MODULES = ("block_ell", "banded", "halo", "probe_kernels", "adam")
 _LOGGED: set = set()
-
-
-def _counters() -> List[dict]:
-    return [importlib.import_module(f"gcn_maxcut_tpu_torch.ops.{m}").LAUNCHES
-            for m in _COUNTER_MODULES]
 
 
 def chunk_sizes(start: int, epochs: int, per_call: int, first_two: bool = False) -> List[int]:
@@ -110,7 +103,7 @@ class ChunkRunner:
         self.optimizer = optimizer
         self.generators = list(generators)
         self.graph: torch.cuda.CUDAGraph | None = None
-        self.captured_launches: List[dict] = []
+        self.captured_launches: Dict[str, int] = {}
         self.eager_epochs = self.replays = 0
         self.nonfinite_seen = False
         k = self.max_chunk
@@ -160,8 +153,7 @@ class ChunkRunner:
                 self._recorded_epoch()
             here.wait_stream(side)
             self.eager_epochs += 1
-            counters = _counters()
-            before = [dict(c) for c in counters]
+            before = dict(LAUNCHES)
             graph = torch.cuda.CUDAGraph()
             for g in self.generators:
                 graph.register_generator_state(g)
@@ -173,10 +165,9 @@ class ChunkRunner:
                     "capturing the epoch into a CUDA graph failed; a chunk's step must not "
                     "read the device on the host or take shapes from its data") from e
             finally:
-                self.captured_launches = [{k: c[k] - b.get(k, 0) for k in c}
-                                          for c, b in zip(counters, before)]
-                for c, b in zip(counters, before):
-                    c.update(b)
+                self.captured_launches = {k: v - before[k] for k, v in LAUNCHES.items()
+                                          if v != before[k]}
+                LAUNCHES.update(before)
             self.graph = graph
 
     def run(self, k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -205,9 +196,8 @@ class ChunkRunner:
                     for _ in range(replays):
                         self.graph.replay()
                 self.replays += replays
-                for c, gain in zip(_counters(), self.captured_launches):
-                    for name, v in gain.items():
-                        c[name] += v * replays
+                for name, v in self.captured_launches.items():
+                    LAUNCHES[name] += v * replays
                 losses, stops = self._losses[:k], self._stops[:k]
             with span("chunk.read"):
                 out = torch.cat([losses, stops, self._bad.float()]).cpu().numpy()

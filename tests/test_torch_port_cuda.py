@@ -32,7 +32,9 @@ from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
 from gcn_maxcut_tpu_torch.ops import climb as tclimb
 from gcn_maxcut_tpu_torch.ops import halo as th
+from gcn_maxcut_tpu_torch.ops import launches as tlaunches
 from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
+from gcn_maxcut_tpu_torch.ops.launches import LAUNCHES
 from gcn_maxcut_tpu_torch.ops.segment import spmm
 from gcn_maxcut_tpu_torch.parallel import data_parallel as tdp
 from gcn_maxcut_tpu_torch.parallel import giant as tpgiant
@@ -62,7 +64,7 @@ CASES = [
 def launches(op, counts=None):
     """Launches of a circulant op on either kernel: ``halo_stream.cu``
     (under the op's name) or its earlier body (the op's name + "_window")."""
-    counts = tb.LAUNCHES if counts is None else counts
+    counts = LAUNCHES if counts is None else counts
     return counts[op] + counts[op + "_window"]
 
 
@@ -94,7 +96,7 @@ def test_cuda_kernel_matches_plain(cuda_device, packed, dtype):
               else (lambda z: tb.banded_spmm_unit(z, offsets)))
         x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32)).to(dtype)
         dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32)).to(dtype)
-        before = dict(tb.LAUNCHES)
+        before = dict(LAUNCHES)
         xc = x.to(cuda_device).requires_grad_(True)
         yc = fn(xc)
         yc.backward(dy.to(cuda_device))
@@ -173,13 +175,13 @@ def test_cuda_circulant_stream_equals_plain_and_earlier_body(cuda_device, case, 
     m, L = n // r, r * F
     stream = L * x.element_size() % 16 == 0
     key = op if stream else op + "_window"
-    before = dict(tb.LAUNCHES)
+    before = dict(LAUNCHES)
     xk = x.clone().requires_grad_(True)
     yk = _circulant(xk, offsets, r)
     yk.backward(dy)
     torch.cuda.synchronize()
-    assert {k: tb.LAUNCHES[k] - before[k] for k in tb.LAUNCHES} == {
-        k: 2 if k == key else 0 for k in tb.LAUNCHES}
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        k: 2 if k == key else 0 for k in LAUNCHES}
     y, g = yk.detach(), xk.grad
     neg = tuple(-o for o in offsets)
     # the plain versions sum in float32 in offset order and round once, as
@@ -211,15 +213,15 @@ def test_cuda_circulant_misaligned_or_narrow_rows_take_the_earlier_body(cuda_dev
         row_bytes = r * F * x.element_size()
         fwd_stream = row_bytes % 16 == 0 and not misaligned
         bwd_stream = row_bytes % 16 == 0
-        before = dict(tb.LAUNCHES)
+        before = dict(LAUNCHES)
         xk = x.detach().requires_grad_(True)             # x's own address
         yk = _circulant(xk, offsets, r)
         yk.backward(dy)
         torch.cuda.synchronize()
         want = {op: int(fwd_stream) + int(bwd_stream),
                 op + "_window": 2 - int(fwd_stream) - int(bwd_stream)}
-        assert {k: tb.LAUNCHES[k] - before[k] for k in want} == want
-        assert sum(tb.LAUNCHES[k] - before[k] for k in tb.LAUNCHES) == 2
+        assert {k: LAUNCHES[k] - before[k] for k in want} == want
+        assert sum(LAUNCHES[k] - before[k] for k in LAUNCHES) == 2
         assert torch.equal(yk.detach(), _circulant_plain(x, offsets, r))
         assert torch.equal(xk.grad, _circulant_plain(dy, [-o for o in offsets], r))
         if (r, F) == (8, 3):
@@ -268,12 +270,12 @@ def test_cuda_block_ell_matches_plain(cuda_device, case):
     dy = torch.tensor(rng.normal(size=(g.n_pad, F)).astype(np.float32))
     gc = g.to(cuda_device)
     for ew in (None, "weights"):
-        before = tbell.LAUNCHES["block_ell_spmm"]
+        before = LAUNCHES["block_ell_spmm"]
         xc = x.to(cuda_device).requires_grad_(True)
         yc = spmm(gc, xc, None if ew is None else gc.weights)
         yc.backward(dy.to(cuda_device))
         torch.cuda.synchronize()
-        assert tbell.LAUNCHES["block_ell_spmm"] == before + 2     # forward + backward
+        assert LAUNCHES["block_ell_spmm"] == before + 2     # forward + backward
         xp = x.clone().requires_grad_(True)
         yp = spmm(g, xp, None if ew is None else g.weights)
         yp.backward(dy)
@@ -399,7 +401,7 @@ def test_cuda_halo_k5_matches_plain(cuda_device, case, dtype):
     xs = list(x.to(cuda_device, dtype).split(n_shard))
     ws = list(w.to(cuda_device).split(n_shard))
     def launches():     # counted by the kernel that ran: the new one, or the earlier body (F = 3)
-        return th.LAUNCHES["halo_banded_spmm"] + th.LAUNCHES["halo_banded_spmm_window"]
+        return LAUNCHES["halo_banded_spmm"] + LAUNCHES["halo_banded_spmm_window"]
 
     before = launches()
     yw = th.halo_banded_spmm(xs, ws, offsets, mesh, block)
@@ -429,12 +431,12 @@ def test_cuda_halo_k6_matches_plain(cuda_device, case, dtype):
     x = torch.tensor(rng.normal(size=(n_dev * n_loc, F)).astype(np.float32))
     dy = torch.tensor(rng.normal(size=x.shape).astype(np.float32)).to(dtype)
     xs = list(x.to(cuda_device, dtype).split(n_loc))
-    before = th.LAUNCHES["halo_banded_spmm_unit_packed"]
+    before = LAUNCHES["halo_banded_spmm_unit_packed"]
     xk = [t.clone().requires_grad_(True) for t in xs]
     yk = th.halo_banded_spmm_unit_packed(xk, offsets, r, mesh)
     torch.autograd.backward(yk, list(dy.to(cuda_device).split(n_loc)))
     torch.cuda.synchronize()
-    assert th.LAUNCHES["halo_banded_spmm_unit_packed"] == before + 2 * n_dev
+    assert LAUNCHES["halo_banded_spmm_unit_packed"] == before + 2 * n_dev
     yp, gp = _plain_ring_and_grad(xs, dy.to(cuda_device), mesh, offsets, r)
     assert_kernel_close(torch.cat(yk).detach(), yp)
     assert_kernel_close(torch.cat([t.grad for t in xk]), gp)
@@ -457,10 +459,9 @@ def test_cuda_halo_trainer_matches_cpu_ring(cuda_device):
 
 # ---- the design probes' kernels (ops/probe_kernels.py), forward only
 
-# (n, F, d, B, Wp): the last has a 3072-row window (the earlier body cuts
-# F into column tiles there: 8 columns in float32, 16 in bfloat16, a ragged
-# last one); F = 20 takes the warp gather's VEC = 4 path with a partial
-# warp, F = 40 two float4 chunks of the row
+# (n, F, d, B, Wp): the last has a 3072-row window; F = 20 takes the warp
+# gather's VEC = 4 path with a partial warp, F = 40 two float4 chunks of
+# the row
 WINDOW_CASES = [(2048, 16, 8, 256, 64), (600, 20, 5, 200, 24), (2048, 40, 3, 1024, 1024)]
 
 
@@ -480,16 +481,13 @@ def test_cuda_window_gather_matches_plain(cuda_device, case, dtype):
     n, F, d, B, Wp = case
     xpad, lidx, w = _window_operands(n, F, d, B, Wp, dtype)
     xc, lc, wc = xpad.to(cuda_device), lidx.to(cuda_device), w.to(cuda_device)
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     y = tpk.window_gather(xc, lc, wc, B, Wp)
-    earlier = tpk._window_gather_window_launch(xc, lc, wc, B, Wp)
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES == {**before, "window_gather": before["window_gather"] + 1,
-                            "window_gather_window": before["window_gather_window"] + 1}
+    assert LAUNCHES == {**before, "window_gather": before["window_gather"] + 1}
     assert y.dtype == torch.float32
-    # bit for bit: the plain version's slot order and roundings, and the earlier body
+    # bit for bit: the plain version's slot order and roundings
     assert torch.equal(y.cpu(), tpk.window_gather_plain(xpad, lidx, w, B, Wp))
-    assert torch.equal(y, earlier)
 
 
 @pytest.mark.cuda
@@ -505,7 +503,6 @@ def test_cuda_window_gather_vec1_equals_plain(cuda_device, F, dtype):
     assert tpk.warp_gather_shape(n, F, vec4=tpk._aligned4(xc))[0] == 1
     y = tpk.window_gather(xc, lc, wc, B, Wp)
     assert torch.equal(y.cpu(), tpk.window_gather_plain(xpad, lidx, w, B, Wp))
-    assert torch.equal(y, tpk._window_gather_window_launch(xc, lc, wc, B, Wp))
 
 
 def _misaligned(x: torch.Tensor) -> torch.Tensor:
@@ -537,15 +534,12 @@ def test_cuda_subblock_spmm_matches_plain(cuda_device, n, F, B, wp, misaligned):
     x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
     xc = _misaligned(x) if misaligned else x.to(cuda_device)
     sc, wc = sidx.to(cuda_device), w.to(cuda_device)
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     y = tpk.subblock_spmm(xc, sc, wc, n, B, wp)
-    earlier = tpk._subblock_window_launch(xc, sc, wc, n, B, wp)
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES == {**before, "subblock_spmm": before["subblock_spmm"] + 1,
-                            "subblock_spmm_window": before["subblock_spmm_window"] + 1}
-    # bit for bit: the plain version's slot order and roundings, and the earlier body
+    assert LAUNCHES == {**before, "subblock_spmm": before["subblock_spmm"] + 1}
+    # bit for bit: the plain version's slot order and roundings
     assert torch.equal(y.cpu(), tpk.subblock_spmm_plain(x, sidx, w, n, B, wp))
-    assert torch.equal(y, earlier)
 
 
 @pytest.mark.cuda
@@ -585,15 +579,12 @@ def test_cuda_panel_ell_spmm_matches_plain(cuda_device, n, F, B, wp, w_p, misali
     ii, wg = torch.tensor(idx), torch.tensor(wgt)
     xc = _misaligned(x) if misaligned else x.to(cuda_device)
     ic, gc = ii.to(cuda_device), wg.to(cuda_device)
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     y = tpk.panel_ell_spmm(xc, ic, gc, n, B, wp, w_p)
-    earlier = tpk._panel_window_launch(xc, ic, gc, n, B, wp, w_p)
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES == {**before, "panel_ell_spmm": before["panel_ell_spmm"] + 1,
-                            "panel_ell_spmm_window": before["panel_ell_spmm_window"] + 1}
-    # bit for bit: the plain version's slot order and roundings, and the earlier body
+    assert LAUNCHES == {**before, "panel_ell_spmm": before["panel_ell_spmm"] + 1}
+    # bit for bit: the plain version's slot order and roundings
     assert torch.equal(y.cpu(), tpk.panel_ell_spmm_plain(x, ii, wg, n, B, wp, w_p))
-    assert torch.equal(y, earlier)
 
 
 # WEIGHTED_CASES, then n % 4 != 0 (4-byte weight copies) with a ragged
@@ -615,16 +606,16 @@ def test_cuda_banded_spmm_cols_matches_plain(cuda_device, n, F, offsets, misalig
     xc = _misaligned(x) if misaligned else x.to(cuda_device)
     wcc = wc.to(cuda_device)
     ring = F % 4 == 0 and not misaligned
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     y = tpk.banded_spmm_cols(xc, wcc, offsets)
     earlier = tpk._banded_cols_window_launch(xc, wcc, offsets)
     torch.cuda.synchronize()
     # K4's ring in its column-weight mode where the rows are 16-byte pieces
     # on an aligned x, else the earlier body; each counted by the kernel that ran
     key = "banded_spmm_cols" if ring else "banded_spmm_cols_window"
-    assert tpk.LAUNCHES == {**before, key: before[key] + 1,
-                            "banded_spmm_cols_window": before["banded_spmm_cols_window"]
-                            + (1 if ring else 2)}
+    assert LAUNCHES == {**before, key: before[key] + 1,
+                        "banded_spmm_cols_window": before["banded_spmm_cols_window"]
+                        + (1 if ring else 2)}
     # bit for bit: the plain version, K4 on the row-major weights, the earlier body
     assert torch.equal(y.cpu(), tpk.banded_spmm_cols_plain(x, wc, offsets))
     assert torch.equal(y, tb.banded_spmm(xc, wcc.t().contiguous(), offsets))
@@ -655,13 +646,10 @@ def test_cuda_probe_kernels_reject_what_they_do_not_take(cuda_device):
         tpk.panel_ell_spmm(x, idx, torch.zeros(n, 4).cpu(), n, B, 64, 2)
     with pytest.raises(ValueError, match="float32"):
         tpk.panel_ell_spmm(x.double(), idx, torch.zeros(n, 4, device=cuda_device), n, B, 64, 2)
-    # the earlier bodies take the same rules
-    with pytest.raises(ValueError, match="lie on"):
-        tpk._subblock_window_launch(x, lidx.cpu(), w, n, B, Wp)
     with pytest.raises(ValueError, match="slots"):
-        tpk._panel_window_launch(x, idx, torch.zeros(n, 4, device=cuda_device), n, B, 64, 3)
+        tpk.panel_ell_spmm(x, idx, torch.zeros(n, 4, device=cuda_device), n, B, 64, 3)
     # the C launchers refuse what their kernels do not take, and launch nothing
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     ring = tpk._fn("subblock_stream_launch", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 11
                    + (ctypes.c_void_p,), "subblock_stream")
     gather = tpk._fn("panel_ell_gather_launch", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
@@ -684,18 +672,16 @@ def test_cuda_probe_kernels_reject_what_they_do_not_take(cuda_device):
     assert gather(*ptrs, n, F, 5, 2, B, 64, 1, stream) != 0                    # slot count
     assert gather(*ptrs, n, F, 4, 2, B, 64, 2, stream) != 0                    # vec
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES == before
+    assert LAUNCHES == before
     with pytest.raises(ValueError, match="lie on"):
         tpk.banded_spmm_cols(x, torch.ones(2, n), (1, -1))
     with pytest.raises(ValueError, match="float32"):
         tpk.banded_spmm_cols(x, torch.ones(2, n, device=cuda_device).double(), (1, -1))
     with pytest.raises(ValueError, match="lie on"):
         tpk._banded_cols_window_launch(x, torch.ones(2, n), (1, -1))
-    with pytest.raises(ValueError, match="lie on"):
-        tpk._window_gather_window_launch(xpad, lidx.cpu(), w, B, Wp)
     # window_warp_gather's and the column ring's C launchers refuse what
     # their kernels do not take, and launch nothing
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     warp = tpk._fn("window_warp_gather_launch", (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7
                    + (ctypes.c_void_p,))
     out = torch.empty(n, F, device=cuda_device)
@@ -720,7 +706,7 @@ def test_cuda_probe_kernels_reject_what_they_do_not_take(cuda_device):
     assert launch(F=6) != 0
     assert launch(smem=geom.smem_bytes + 16) != 0
     torch.cuda.synchronize()
-    assert tpk.LAUNCHES == before
+    assert LAUNCHES == before
 
 
 # ---- K4 (csrc/banded_stream.cu, a shared-memory ring), K1 (csrc/block_ell_gather.cu)
@@ -763,14 +749,14 @@ def test_cuda_banded_stream_matches_plain(cuda_device, case):
     # the op, forward and backward: one launch each, counted by the kernel
     # that ran
     key = "banded_spmm" if F % 4 == 0 else "banded_spmm_window"
-    before = dict(tb.LAUNCHES)
+    before = dict(LAUNCHES)
     xk, wk = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     yk = tb.banded_spmm(xk, wk, offsets)
     dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32), device=cuda_device)
     yk.backward(dy)
     torch.cuda.synchronize()
-    assert {k: tb.LAUNCHES[k] - before[k] for k in tb.LAUNCHES} == {
-        k: 2 if k == key else 0 for k in tb.LAUNCHES}
+    assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == {
+        k: 2 if k == key else 0 for k in LAUNCHES}
     xp, wq = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     yp = tb.banded_spmm_plain(xp, wq, offsets)
     yp.backward(dy)
@@ -842,7 +828,6 @@ def test_cuda_block_ell_stream_matches_plain(cuda_device, case):
     assert tbell.gather_shape(n, F)[0] == (4 if F % 4 == 0 else 1)
     ref = tpk.subblock_spmm_plain(x, si, wt, n, block, wp)    # the same slice test
     assert torch.equal(tbell._launch(x, si, wt, n, block, wp), ref)
-    assert torch.equal(tbell._slice_launch(x, si, wt, n, block, wp), ref)
 
 
 @pytest.mark.cuda
@@ -858,12 +843,12 @@ def test_cuda_block_ell_stream_launch_counts_and_transpose_plan(cuda_device):
     for F in (3, 8):
         x = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
         dy = torch.tensor(rng.normal(size=(n, F)).astype(np.float32))
-        before = tbell.LAUNCHES["block_ell_spmm"]
+        before = LAUNCHES["block_ell_spmm"]
         xc = x.to(cuda_device).requires_grad_(True)
         yc = spmm(gc, xc, gc.weights)
         yc.backward(dy.to(cuda_device))
         torch.cuda.synchronize()
-        assert tbell.LAUNCHES["block_ell_spmm"] == before + 2      # forward + transpose plan
+        assert LAUNCHES["block_ell_spmm"] == before + 2      # forward + transpose plan
         xp = x.clone().requires_grad_(True)
         yp = spmm(g, xp, g.weights)
         yp.backward(dy)
@@ -938,21 +923,21 @@ def test_cuda_halo_stream_equals_plain_and_earlier_body(cuda_device, case, dtype
     # counted by the kernel that ran: shards without 16-byte rows or
     # addresses go to the earlier body (the cotangents are fresh, aligned)
     op = "halo_banded_spmm" if r == 1 else "halo_banded_spmm_unit_packed"
-    before = dict(th.LAUNCHES)
+    before = dict(LAUNCHES)
     xk = [t.detach().requires_grad_(True) for t in xs]      # the shards' own addresses
     if r == 1:
         yk = th.halo_banded_spmm_unit(xk, offsets, mesh, _halo_block(n_shard, offsets))
     else:
         yk = th.halo_banded_spmm_unit_packed(xk, offsets, r, mesh)
     fwd = {op: n_dev if vec16 else 0, op + "_window": 0 if vec16 else n_dev}
-    assert {k: th.LAUNCHES[k] - before[k] for k in fwd} == fwd
+    assert {k: LAUNCHES[k] - before[k] for k in fwd} == fwd
     torch.autograd.backward(yk, dys)
     torch.cuda.synchronize()
     bwd16 = not narrow
-    assert {k: th.LAUNCHES[k] - before[k] for k in fwd} == {
+    assert {k: LAUNCHES[k] - before[k] for k in fwd} == {
         op: fwd[op] + (n_dev if bwd16 else 0),
         op + "_window": fwd[op + "_window"] + (0 if bwd16 else n_dev)}
-    assert sum(th.LAUNCHES[k] - before[k] for k in th.LAUNCHES) == 2 * n_dev
+    assert sum(LAUNCHES[k] - before[k] for k in LAUNCHES) == 2 * n_dev
     y, g = torch.cat(yk).detach(), torch.cat([t.grad for t in xk])
     # the plain version sums in float32 in offset order and rounds once, as
     # the kernel does: equal bit for bit, in bfloat16 too; the gradient is
@@ -1016,10 +1001,10 @@ def test_cuda_batched_greedy_flip_equals_cpu(cuda_device):
         starts = torch.tensor(rng.integers(0, 3, (6, g.n_pad)))
         starts[:, :3] = torch.arange(3)
         asn, cut = greedy_flip_local_search(g, starts, max_steps=500)
-        launched = tclimb.LAUNCHES
+        launched = LAUNCHES["climb"]
         asn_c, cut_c = greedy_flip_local_search(g.to(cuda_device), starts.to(cuda_device),
                                                 max_steps=500)
-        assert tclimb.LAUNCHES == launched + 1
+        assert LAUNCHES["climb"] == launched + 1
         assert torch.equal(asn_c.cpu(), asn) and torch.equal(cut_c.cpu(), cut)
 
 
@@ -1031,11 +1016,11 @@ def _kernel_against_cpu(g, starts, max_steps, whole_weights=True):
     the CPU's assignments."""
     asn, cut = greedy_flip_local_search(g, starts, max_steps=max_steps)
     _, moves = tclimb.greedy_climb_plain(g, starts, 3, 3, max_steps)
-    launched = tclimb.LAUNCHES
+    launched = LAUNCHES["climb"]
     gc, sc = g.to("cuda"), starts.to("cuda")
     asn_c, cut_c = greedy_flip_local_search(gc, sc, max_steps=max_steps)
     asn_k, moves_k = tclimb.greedy_climb(gc, sc, 3, 3, max_steps)
-    assert tclimb.LAUNCHES == launched + 2
+    assert LAUNCHES["climb"] == launched + 2
     assert torch.equal(asn_c.cpu(), asn) and torch.equal(asn_k.cpu(), asn)
     assert torch.equal(moves_k.cpu(), moves)
     want = cut if whole_weights else hard_cut_value(gc, asn.to("cuda")).cpu()
@@ -1130,7 +1115,7 @@ def test_cuda_k1_on_a_hop0_shard_plan_matches_plain(cuda_device, F):
     _, sg = _sharded(n, edges, D, card, local_reorder="rcm", block_ell=True)
     assert sg.bell_block is not None
     rng = np.random.default_rng(5)
-    tbell.reset_launches()
+    tlaunches.reset()
     for d in range(D):
         x = torch.tensor(rng.normal(size=(sg.n_shard, F)).astype(np.float32), device=cuda_device,
                          requires_grad=True)
@@ -1142,7 +1127,7 @@ def test_cuda_k1_on_a_hop0_shard_plan_matches_plain(cuda_device, F):
         ref = tbell.block_ell_spmm_plain(x.detach(), *args)
         assert_kernel_close(y, ref)
         assert_kernel_close(dx, tbell.block_ell_spmm_plain(2 * ref, *args))
-    assert tbell.LAUNCHES["block_ell_spmm"] == 2 * D
+    assert LAUNCHES["block_ell_spmm"] == 2 * D
 
 
 TRAINING_VARIANTS = {
@@ -1195,12 +1180,12 @@ def test_cuda_hybrid_on_a_2x4_mesh_matches_the_cpu(cuda_device):
     n = 4096
     lists = [_coo(random_regular_edges(n, 8, seed=s)) for s in (1, 2)]
     cfg = tpgiant.GiantConfig(number_epochs=10, log_every=1)
-    tbell.reset_launches()
+    tlaunches.reset()
     runs = [thybrid.train_hybrid(lists, n, cfg, mesh=make_mesh(
         ("data", "graph"), shape=(2, 4), devices=[dev] * 8)) for dev in (cuda_device, "cpu")]
     for key in ("loss_history", "per_graph_cuts"):    # float sums in another order
         np.testing.assert_allclose(runs[0][key], runs[1][key], rtol=1e-3)
-    assert tbell.LAUNCHES["block_ell_spmm"] == 0          # expanders: no plan
+    assert LAUNCHES["block_ell_spmm"] == 0          # expanders: no plan
 
 
 @pytest.mark.cuda
@@ -1241,9 +1226,9 @@ def test_cuda_k1_on_hybrid_shard_plans_matches_plain(cuda_device):
             assert_kernel_close(tbell.block_ell_spmm(x, *args),
                                 tbell.block_ell_spmm_plain(x, *args))
     cfg = tpgiant.GiantConfig(number_epochs=2, block_ell=True, local_reorder="rcm")
-    tbell.reset_launches()
+    tlaunches.reset()
     thybrid.train_hybrid(lists, n, cfg, mesh=mesh)
-    assert tbell.LAUNCHES["block_ell_spmm"] == 2 * D * 6 * 2
+    assert LAUNCHES["block_ell_spmm"] == 2 * D * 6 * 2
 
 
 @pytest.mark.cuda
@@ -1395,9 +1380,9 @@ def _adam_state(opt) -> list:
     return [*opt.params, *opt.mu, *opt.nu, opt._count]
 
 
-def _adam_launches(tadam, before: dict) -> tuple:
+def _adam_launches(before: dict) -> tuple:
     """Update and count launches since ``before``."""
-    return tuple(tadam.LAUNCHES[k] - before[k] for k in ("adam_update", "adam_count"))
+    return tuple(LAUNCHES[k] - before[k] for k in ("adam_update", "adam_count"))
 
 
 @pytest.mark.cuda
@@ -1418,9 +1403,9 @@ def test_cuda_adam_kernel_equals_the_plain_step(cuda_device, mu_dtype, lr, start
         opt.count = plain.count = opt._last - 30
     for step in range(60):
         grads = _adam_grads(cuda_device, step)
-        launched = dict(tadam.LAUNCHES)
+        launched = dict(LAUNCHES)
         opt.step(grads)
-        assert _adam_launches(tadam, launched) == (1, 1)
+        assert _adam_launches(launched) == (1, 1)
         tadam.step_plain(plain, grads)
     torch.cuda.synchronize()
     assert opt.count == plain.count == (60 if start == "zero" else opt._last + 30)
@@ -1474,17 +1459,45 @@ def test_cuda_captured_adam_kernel_equals_the_plain_step(cuda_device, mu_dtype):
         opt.step(grads_of(got))
         return got[0].sum()
 
-    launched = dict(tadam.LAUNCHES)
+    launched = dict(LAUNCHES)
     runner = ChunkRunner(step, [cuda_device], 10)
     for _ in range(6):
         runner.run(10)
-    assert runner.replays == 59 and _adam_launches(tadam, launched) == (60, 60)
+    assert runner.replays == 59 and _adam_launches(launched) == (60, 60)
     for _ in range(60):
         tadam.step_plain(plain, grads_of(ref))
     torch.cuda.synchronize()
     assert opt.count == plain.count == 60
     for a, b in zip(_adam_state(opt), _adam_state(plain)):
         assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_runner_counts_a_kernel_it_never_names(cuda_device):
+    """A step that launches the climb kernel (``ops/climb.py``, which the
+    chunk runner does not import): after ``run(k)`` the registry counts it
+    k times, one eager launch and k - 1 replays, and the replayed climbs
+    give the eager climb's assignments."""
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+
+    g = _recipe_graphs(1)[0].to(cuda_device)
+    starts = torch.tensor(np.random.default_rng(3).integers(0, 3, (4, g.n_pad)),
+                          device=cuda_device)
+    starts[:, :3] = torch.arange(3, device=cuda_device)
+    want, _ = tclimb.greedy_climb(g, starts, 3, 3, 500)
+    out = torch.empty_like(starts)
+
+    def step():
+        out.copy_(tclimb.greedy_climb(g, starts, 3, 3, 500)[0])
+
+    k = 4
+    launched = LAUNCHES["climb"]
+    runner = ChunkRunner(step, [cuda_device], k)
+    runner.run(k)
+    torch.cuda.synchronize()
+    assert runner.replays == k - 1 and runner.captured_launches == {"climb": 1}
+    assert LAUNCHES["climb"] == launched + k
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
@@ -1501,9 +1514,9 @@ def test_cuda_adam_kernel_splits_past_its_leaf_limit(cuda_device):
     opt, plain = Adam(got, 1e-2), Adam(ref, 1e-2)
     for step in range(5):
         grads = [torch.randn(n, generator=gen, device=cuda_device) for n in sizes]
-        launched = dict(tadam.LAUNCHES)
+        launched = dict(LAUNCHES)
         opt.step(grads)
-        assert _adam_launches(tadam, launched) == (2, 1)
+        assert _adam_launches(launched) == (2, 1)
         tadam.step_plain(plain, grads)
     for a, b in zip(_adam_state(opt), _adam_state(plain)):
         assert _same_bits(a, b)
@@ -1530,9 +1543,9 @@ def test_cuda_adam_kernel_on_a_mesh_of_two_cards(cuda_device):
     for step in range(12):
         grads = [(torch.randn(t.shape, generator=gen) * 10.0 ** (step % 3 - 1)).to(d)
                  for t, d in zip(start, places)]
-        launched = dict(tadam.LAUNCHES)
+        launched = dict(LAUNCHES)
         opt.step(grads)
-        assert _adam_launches(tadam, launched) == (2, 1)
+        assert _adam_launches(launched) == (2, 1)
         tadam.step_plain(plain, grads)
     torch.cuda.synchronize()
     assert not bool(opt.nonfinite) and opt.count == plain.count == 12
@@ -1650,9 +1663,9 @@ def test_cuda_packed_giant_chunks_equal_eager(cuda_device, monkeypatch):
     for name, K, capture in (("k4", 4, None), ("k1", 1, None), ("eager", 4, False)):
         monkeypatch.setattr(tchunks, "ChunkRunner", functools.partial(ChunkRunner,
                                                                       capture=capture))
-        tb.reset_launches()
+        tlaunches.reset()
         runs[name] = tgiant.train_banded_giant_packed(epochs_per_call=K, **kw)
-        assert tb.LAUNCHES["banded_spmm_unit_packed"] == 6 * 8
+        assert LAUNCHES["banded_spmm_unit_packed"] == 6 * 8
     assert runs["k4"]["history"] == runs["k1"]["history"] == runs["eager"]["history"]
 
 
@@ -1680,9 +1693,9 @@ def test_cuda_k1_sharded_chunks_equal_eager(cuda_device, monkeypatch):
         params["embed"] = params["embed"].reshape(D, sg.n_shard, -1)
         state = tpgiant.GiantState.create(params, ring, cfg.learning_rate)
         step = tpgiant.make_giant_step(sg, ring, cfg, state)
-        tbell.reset_launches()
+        tlaunches.reset()
         runs.append(np.concatenate([step(), step()]))
-        counts.append(tbell.LAUNCHES["block_ell_spmm"])
+        counts.append(LAUNCHES["block_ell_spmm"])
         assert step.runner.replays == (9 if capture is None else 0)
     assert counts[0] == counts[1] == D * 6 * 10
     np.testing.assert_array_equal(runs[0], runs[1])
@@ -1943,7 +1956,7 @@ def test_cuda_climb_routes_by_the_graph(cuda_device, route):
     starts[:, :3] = torch.arange(3)
     asn, cut = greedy_flip_local_search(g, starts, max_steps=500)
     tls.clear_climbs()
-    launched = tclimb.LAUNCHES
+    launched = LAUNCHES["climb"]
     profiling.reset()
     try:
         with _profiled_cpu():
@@ -1957,10 +1970,10 @@ def test_cuda_climb_routes_by_the_graph(cuda_device, route):
     assert torch.equal(asn_c.cpu(), asn) and torch.equal(cut_c.cpu(), cut)
     assert counts["climb.runs"] == 1 and counts["climb.steps"] > 0
     if route == "kernel":
-        assert tclimb.LAUNCHES == launched + 1 and kept == 0
+        assert LAUNCHES["climb"] == launched + 1 and kept == 0
         assert counts["climb.kernel"] == 1 and "climb.captures" not in counts
     else:
-        assert tclimb.LAUNCHES == launched and kept == 1
+        assert LAUNCHES["climb"] == launched and kept == 1
         assert counts["climb.captures"] == 1 and "climb.kernel" not in counts
 
 

@@ -17,6 +17,7 @@ from gcn_maxcut_tpu_torch.experiments.panel_ell_probe import build_panel_tables
 from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
 from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
+from gcn_maxcut_tpu_torch.ops.launches import LAUNCHES
 
 UNROLL = 4          # csrc/probe_kernels.cu PROBE_GATHER_UNROLL
 
@@ -521,19 +522,19 @@ def test_banded_spmm_cols_route(monkeypatch, F, misaligned, route):
     n, offsets = 256, (1, -1, 9)
     x = torch.zeros(n, F)
     x = _misaligned_cpu(x) if misaligned else x
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     tpk.banded_spmm_cols(x, torch.ones(len(offsets), n), offsets)
     if route == "ring":
         assert calls == [("ring", True)]
-        assert tpk.LAUNCHES == {**before, "banded_spmm_cols": before["banded_spmm_cols"] + 1}
+        assert LAUNCHES == {**before, "banded_spmm_cols": before["banded_spmm_cols"] + 1}
     else:
         assert calls == ["_banded_cols_window_launch"]
-        assert tpk.LAUNCHES == before        # the earlier body counts its own launch
+        assert LAUNCHES == before        # the earlier body counts its own launch
 
 
 def test_window_gather_reaches_only_the_warp_gather(monkeypatch):
-    # P1/P2 off the CPU run window_warp_gather at every shape, never the
-    # staging body
+    # P1/P2 off the CPU run window_warp_gather at every shape, and no other
+    # launcher
     _off_the_cpu(monkeypatch)
     calls = []
     _record(monkeypatch, tpk, "_window_warp_launch", calls)
@@ -542,9 +543,9 @@ def test_window_gather_reaches_only_the_warp_gather(monkeypatch):
     for F, dtype in ((16, torch.float32), (3, torch.float32), (8, torch.bfloat16)):
         xpad = torch.zeros(n + 2 * wp, F, dtype=dtype)
         lidx = torch.zeros(n, 4, dtype=torch.int32)
-        before = dict(tpk.LAUNCHES)
+        before = dict(LAUNCHES)
         tpk.window_gather(xpad, lidx, torch.ones(n, 4), block, wp)
-        assert tpk.LAUNCHES == {**before, "window_gather": before["window_gather"] + 1}
+        assert LAUNCHES == {**before, "window_gather": before["window_gather"] + 1}
     assert calls == ["_window_warp_launch"] * 3
 
 

@@ -33,6 +33,7 @@ from gcn_maxcut_tpu_torch.experiments import (
     weighted_probe,
 )
 from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
+from gcn_maxcut_tpu_torch.ops.launches import LAUNCHES
 
 ROOT = Path(__file__).resolve().parent.parent
 N, F, D, W, B = 2048, 16, 8, 31, 256
@@ -186,10 +187,10 @@ def test_wrappers_take_the_plain_path_on_cpu_and_raise_elsewhere():
     xpad = torch.tensor(rng.normal(size=(n + 2 * wp, 8)).astype(np.float32))
     lidx = torch.tensor(rng.integers(0, 128 + 2 * wp, size=(n, 4)).astype(np.int32))
     w = torch.ones(n, 4)
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     assert torch.equal(tpk.window_gather(xpad, lidx, w, 128, wp),
                        tpk.window_gather_plain(xpad, lidx, w, 128, wp))
-    assert tpk.LAUNCHES == before
+    assert LAUNCHES == before
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tpk.window_gather(xpad.to("meta"), lidx.to("meta"), w.to("meta"), 128, wp)
     with pytest.raises(ValueError, match="geometry"):

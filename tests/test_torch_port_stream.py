@@ -15,6 +15,7 @@ from gcn_maxcut_tpu_torch.experiments import weighted_probe
 from gcn_maxcut_tpu_torch.ops import banded as tb
 from gcn_maxcut_tpu_torch.ops import block_ell as tbell
 from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
+from gcn_maxcut_tpu_torch.ops.launches import LAUNCHES
 
 BENCH = micro.banded_offsets(8, 63)
 GIANT = tgiant.circulant_offsets(8, 63, 0)
@@ -141,7 +142,6 @@ def test_ops_off_the_cpu_reach_only_the_streaming_kernels(monkeypatch):
     assert calls == ["_stream_launch"]
 
     calls = _on_card(monkeypatch, tbell, "_launch")
-    monkeypatch.setattr(tbell, "_slice_launch", _fail)
     monkeypatch.setattr(tbell, "_add_outliers", lambda y, *a: y)
     sidx = torch.empty(4096, 8, dtype=torch.int32, device=meta)
     op = tbell.BlockEllOperand(sidx, torch.empty(4096, 8, device=meta), None, None, None, 512, 64)
@@ -151,23 +151,22 @@ def test_ops_off_the_cpu_reach_only_the_streaming_kernels(monkeypatch):
 
 def test_subblock_spmm_keeps_the_slice_kernel(monkeypatch):
     # P3 measures 128-row slices; off the CPU it runs them from its ring
-    # (csrc/subblock_stream.cu), never the earlier slice-staging body
+    # (csrc/subblock_stream.cu), never K1's gather
     calls = _on_card(monkeypatch, tpk, "_subblock_stream_launch")
-    monkeypatch.setattr(tbell, "_slice_launch", _fail)
     monkeypatch.setattr(tbell, "_launch", _fail)
     monkeypatch.setattr(tpk, "_dispatch", lambda name, x: False)
     monkeypatch.setattr(tpk, "_check_cuda", lambda name, *t: None)
     n, block, wp = 2048, 256, 64
     x = torch.zeros(n, 16)
     sidx = torch.zeros(n, 4, dtype=torch.int32)
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     tpk.subblock_spmm(x, sidx, torch.ones(n, 4), n, block, wp)
     assert calls == ["_subblock_stream_launch"]
-    assert tpk.LAUNCHES == {**before, "subblock_spmm": before["subblock_spmm"] + 1}
+    assert LAUNCHES == {**before, "subblock_spmm": before["subblock_spmm"] + 1}
 
 
 def test_panel_ell_spmm_reaches_only_the_gather(monkeypatch):
-    # P4 off the CPU runs panel_ell_gather, never the staging panel_ell_kernel
+    # P4 off the CPU runs panel_ell_gather and no other launcher
     calls = _on_card(monkeypatch, tpk, "_panel_gather_launch")
     monkeypatch.setattr(tpk, "_fn", _fail)
     monkeypatch.setattr(tpk, "_dispatch", lambda name, x: False)
@@ -175,7 +174,7 @@ def test_panel_ell_spmm_reaches_only_the_gather(monkeypatch):
     n, block, wp, w_p = 2048, 256, 64, 3
     x = torch.zeros(n, 16)
     idx = torch.full((n, 3 * w_p), -1, dtype=torch.int32)
-    before = dict(tpk.LAUNCHES)
+    before = dict(LAUNCHES)
     tpk.panel_ell_spmm(x, idx, torch.zeros(n, 3 * w_p), n, block, wp, w_p)
     assert calls == ["_panel_gather_launch"]
-    assert tpk.LAUNCHES == {**before, "panel_ell_spmm": before["panel_ell_spmm"] + 1}
+    assert LAUNCHES == {**before, "panel_ell_spmm": before["panel_ell_spmm"] + 1}
