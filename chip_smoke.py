@@ -17,7 +17,7 @@ Phases; any failure ends the run with a non-zero exit code:
                 rows that are not 16-byte pieces; P5a runs on
                 ``banded_stream.cu`` in its column-weight
                 mode; ``climb.cu``: the decode's climb; ``adam.cu``: Adam's
-                step) with nvcc for sm_90a, one nvcc
+                step; ``sddmm.cu``: the cut loss's SDDMM) with nvcc for sm_90a, one nvcc
                 per source, started together, and print the card's name and
                 power limit;
   2. kernels    hold K1 (``block_ell_spmm``: the microbenchmark's plan at
@@ -71,6 +71,13 @@ Phases; any failure ends the run with a non-zero exit code:
                 kernel's two launches, and the plain step's passes) beside
                 the bytes bound of one pass and the library's fused step
                 (``torch._fused_adam_``, float32 first moment);
+     sddmm      the cut loss's SDDMM (``ops/segment.sddmm``): ``csrc/sddmm.cu``
+                against the plain op on the card at the recipe's graphs (n =
+                500, d = 6 and 8, one shared padding: n_pad 504, e_pad
+                4,096), scores and gradient bit for bit, one forward and one
+                backward launch; forward plus backward timed beside the
+                plain op, and the plain op on the d = 6 graph stored with
+                no padded slot (what the run of padded slots costs it);
   3. giant      the packed giant trainer at its defaults (n = 10,002,432,
                 d = 8, bandwidth 63, bf16 aggregation and first moment, 40
                 epochs) through K3 on ``halo_stream.cu``, after a small run
@@ -103,7 +110,8 @@ Phases; any failure ends the run with a non-zero exit code:
                 final checkpoint, the refined cut at least the
                 post-processed one on every graph; C2 (``adam.cu``)
                 launched once for the update and once for the count at
-                every Adam step of the training (a step a graph an epoch);
+                every Adam step of the training (a step a graph an epoch),
+                and C3 (``sddmm.cu``) once forward and once backward;
      variants   each training variant (batched steps, the cosine rate, the
                 quantile loss, entropy 0.5) and the QUBO loop on the card
                 against the CPU from one start, 10 epochs at n_pad 64
@@ -248,6 +256,7 @@ K1_SOURCE = "gcn_maxcut_tpu_torch/csrc/block_ell_gather.cu"
 PROBE_SOURCE = "gcn_maxcut_tpu_torch/csrc/probe_kernels.cu"
 SUBBLOCK_SOURCE = "gcn_maxcut_tpu_torch/csrc/subblock_stream.cu"
 ADAM_SOURCE = "gcn_maxcut_tpu_torch/csrc/adam.cu"
+SDDMM_SOURCE = "gcn_maxcut_tpu_torch/csrc/sddmm.cu"
 PAST_L2_N = 1_048_576           # P3's ring against K1's gather: x is 512 MB at F = 128
 PROBE_ITERS = 10                # timed calls of each probe case (plus 2 warm-up)
 
@@ -259,6 +268,8 @@ ADAM_CASES = {
     "giant": ([(32, 16), (16,), (16, 16), (16,), (GIANT_N // 8, 256)], "bfloat16"),
     "recipe": ([(1000, 500), (500,), (500, 3), (3,)], "float32"),
 }
+# the cut loss's SDDMM at the recipe's graphs (n = 500, one shared padding)
+SDDMM_DEGREES = (6, 8)
 GIANT_CHECKPOINT_EVERY = 20
 PLAIN_N = 1_048_576
 PLAIN_EPOCHS = 10
@@ -381,6 +392,15 @@ def launches_but_adam() -> dict:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def launches_but_sddmm(launches: dict, what: str) -> dict:
+    """``launches`` less the cut loss's SDDMM (``csrc/sddmm.cu``), after
+    checking that ``what`` launched it, one backward for each forward:
+    every training step of the recipe's loss does."""
+    check(launches["sddmm"] == launches["sddmm_backward"] > 0,
+          f"{what}: the cut loss launched sddmm.cu, one backward for each forward")
+    return {k: v for k, v in launches.items() if k not in ("sddmm", "sddmm_backward")}
 
 
 def card_line() -> str:
@@ -1417,6 +1437,63 @@ def phase_adam(torch) -> dict:
     return out
 
 
+def phase_sddmm(torch, seg) -> dict:
+    """The cut loss's SDDMM (C3): ``csrc/sddmm.cu`` against the plain op on
+    the card at the recipe's graphs, scores and gradient (one tensor as x
+    and y, as the loss calls it) bit for bit, one launch each way; forward
+    plus backward timed in turns with the plain op, and with the plain op on
+    the same graph stored with no padded slot."""
+    from gcn_maxcut_tpu_torch.core.graph import graph_from_edges
+    from gcn_maxcut_tpu_torch.data.generate import generate_graph
+    from gcn_maxcut_tpu_torch.data.process import DataConfig, process_graphs
+
+    log("== sddmm")
+    ds = process_graphs([generate_graph(500, d, "reg", seed=40 + d) for d in SDDMM_DEGREES],
+                        DataConfig(max_nodes=1000))
+    out = {}
+    for d, key in zip(SDDMM_DEGREES, sorted(ds.graphs)):
+        g = ds.graphs[key].to("cuda")
+        spec, m = ds.specs[key], int(g.n_edges)
+        bare = graph_from_edges(spec.edges, spec.n_nodes, weights=spec.weights, n_pad=g.n_pad,
+                                e_pad=m).to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        s = torch.softmax(torch.randn(g.n_pad, 3, generator=gen, device="cuda"), dim=-1)
+        s.requires_grad_(True)
+        de = torch.randn(g.e_pad, generator=gen, device="cuda")
+
+        def fwd_bwd(op, graph=g, cot=de):
+            e = op(graph, s, s)
+            return (e.detach(), *torch.autograd.grad(e, [s], cot))
+
+        registry.reset()
+        got = fwd_bwd(seg.sddmm)
+        check({k: v for k, v in registry.LAUNCHES.items() if v}
+              == {"sddmm": 1, "sddmm_backward": 1},
+              f"sddmm d={d}: one forward and one backward launch, and no other kernel")
+        want = fwd_bwd(seg.sddmm_plain)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"sddmm d={d}: the kernel's scores and gradient are the plain op's bit for bit")
+        ms = ms_in_turns(torch, {
+            "kernel": lambda: fwd_bwd(seg.sddmm),
+            "plain": lambda: fwd_bwd(seg.sddmm_plain),
+            "plain_unpadded": lambda: fwd_bwd(seg.sddmm_plain, bare, de[:m])})
+        k = s.shape[1]
+        # forward: senders, receivers, mask, x and y once, the scores; backward:
+        # the cotangent, mask, senders, receivers, sender order, both pointer
+        # tables, x, the gradient
+        bytes_ = 16 * g.e_pad + 8 * g.n_pad * k + 20 * g.e_pad + 8 * (g.n_pad + 1) \
+            + 8 * g.n_pad * k
+        out[d] = {"shape": [g.n_pad, k, g.e_pad], "n_edges": m, "padded_slots": g.e_pad - m,
+                  "ms": ms["kernel"], "plain_ms": ms["plain"],
+                  "plain_unpadded_ms": ms["plain_unpadded"], "bytes": bytes_,
+                  "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3}
+        log(f"  d={d}: n_pad {g.n_pad}, e_pad {g.e_pad} ({g.e_pad - m} padded slots), k = {k}: "
+            f"kernel {ms['kernel']:.4f} ms forward + backward, plain {ms['plain']:.4f} ms, "
+            f"plain with no padded slot {ms['plain_unpadded']:.4f} ms; bytes bound "
+            f"{out[d]['bound_ms']:.6f} ms ({bytes_:,} bytes)")
+    return out
+
+
 def circulant_cut(torch, assignment, offsets) -> int:
     """Cut of a node-order assignment on the circulant graph: each positive
     offset s contributes the edges (i, i + s mod n)."""
@@ -1634,6 +1711,7 @@ def phase_recipe(run_pipeline, cli_main) -> dict:
     registry.reset()
     res = run_pipeline(OUT_DIR / "chip_smoke_pipeline", device="cuda")
     adam_launches = {k: registry.LAUNCHES[k] for k in ("adam_update", "adam_count")}
+    sddmm_launches = {k: registry.LAUNCHES[k] for k in ("sddmm", "sddmm_backward")}
     tested_path = OUT_DIR / "chip_smoke_pipeline" / "test_results.json"
     check(cli_main(["test", "--dataset", res["dataset"], "--checkpoint",
                     res["final_checkpoint"], "--output", str(tested_path),
@@ -1647,7 +1725,7 @@ def phase_recipe(run_pipeline, cli_main) -> dict:
         f"test command on the {len(tested)} training graphs: post "
         f"{sum(r['post_cut'] for r in tested) / len(tested):.2f}, refined "
         f"{sum(r['refined_cut'] for r in tested) / len(tested):.2f}; launches {launches}, "
-        f"Adam {adam_launches}")
+        f"Adam {adam_launches}, SDDMM {sddmm_launches}")
     # an Adam step a graph an epoch; a stop inside a chunk runs its frozen
     # epochs to the chunk's end
     steps = adam_launches["adam_count"]
@@ -1655,6 +1733,8 @@ def phase_recipe(run_pipeline, cli_main) -> dict:
     check(adam_launches["adam_update"] == steps and steps % len(tested) == 0
           and res["epochs_run"] <= steps // len(tested) < res["epochs_run"] + chunk,
           "C2 launched adam.cu's update and count once each an Adam step of the training")
+    check(sddmm_launches == {"sddmm": steps, "sddmm_backward": steps},
+          "C3 launched sddmm.cu once forward and once backward a graph step of the training")
     # The JAX package's own pipeline on this configuration (python -m
     # gcn_maxcut_tpu pipeline, run on the CPU) decodes a post-processed
     # average cut of REFERENCE_POST_CUT and does not beat its randomized
@@ -1671,6 +1751,7 @@ def phase_recipe(run_pipeline, cli_main) -> dict:
     res.pop("summary")
     res.pop("history")
     return {**res, "launches": launches, "adam_launches": adam_launches,
+            "sddmm_launches": sddmm_launches,
             "test_command": {"graphs": len(tested),
                              "post": [r["post_cut"] for r in tested],
                              "refined": [r["refined_cut"] for r in tested]}}
@@ -1794,8 +1875,10 @@ def phase_variants(torch) -> dict:
     check(all(map(math.isfinite, b["history"])), "finite batched loss history")
     check(b["best_loss"] < b["history"][0] and b["history"][-1] < b["history"][0],
           "batched + cosine training improves the loss")
-    check(all(v == 0 for r in runs.values() for v in r["launches"].values()),
-          "the recipe's variants run no hand-written kernel but Adam's (dense aggregation)")
+    check(all(v == 0 for name, r in runs.items()
+              for v in launches_but_sddmm(r["launches"], name).values()),
+          "the recipe's variants run no hand-written kernel but Adam's and the loss's SDDMM "
+          "(dense aggregation)")
 
     test_specs, _ = generate_graph_dataset(5, 500, 500, 6, 8, base_seed=1000 + 5000)
     tds = process_graphs(test_specs, DataConfig(max_nodes=1000))
@@ -1982,7 +2065,8 @@ def phase_locality(torch, np, loc) -> dict:
     # of the two decode forwards (initial and best parameters)
     check(launches["block_ell_spmm"] == 4 * res["epochs_run"] + 2 * 2,
           "K1 launched 4 times an epoch plus 2 for each decode")
-    check(all(v == 0 for k, v in launches.items() if k != "block_ell_spmm"),
+    check(all(v == 0 for k, v in launches_but_sddmm(launches, "the locality trainer").items()
+              if k != "block_ell_spmm"),
           "the locality trainer runs no banded kernel")
     check(all(map(math.isfinite, res["history"])), "finite loss history")
     check(res["final_cut"] > res["initial_cut"], "training improves the cut")
@@ -2407,7 +2491,8 @@ def phase_dp(torch, np, make_mesh, tdp, tloop, tgiant, thybrid, tpart,
         f"(best {min(losses):.1f}); card: {card}")
     check(all(map(math.isfinite, losses)), "finite DP loss history")
     check(losses[-1] < losses[0] and min(losses) < losses[0], "DP training improves the loss")
-    check(not any(launches.values()), "DP on the recipe runs no hand-written kernel but Adam's")
+    check(not any(launches_but_sddmm(launches, "DP on the recipe").values()),
+          "DP on the recipe runs no hand-written kernel but Adam's and the loss's SDDMM")
     test_specs, _ = generate_graph_dataset(5, 500, 500, 6, 8, base_seed=1000 + 5000)
     tds = process_graphs(test_specs, DataConfig(max_nodes=1000))
     results, _ = harness.test_multiple_graphs(state.params(), tds, [500],
@@ -2486,6 +2571,8 @@ DEVICE_KERNEL = {
     "adam_update": "adam_kernel",
     "adam_count": "adam_count_kernel",
     "climb": "climb_kernel",
+    "sddmm": "sddmm_forward_kernel",
+    "sddmm_backward": "sddmm_backward_kernel",
 }
 
 
@@ -2690,7 +2777,8 @@ def phase_chunks(torch, np, giant, tgiant, tgb, thybrid, tpart, make_mesh, micro
         return run
 
     runs = chunk_runs(torch, np, recipe_run)
-    out["recipe"] = held_equal("recipe (per_graph, 20 graphs, 1000-wide)", runs, {}, True)
+    out["recipe"] = held_equal("recipe (per_graph, 20 graphs, 1000-wide)", runs,
+                               {"sddmm": 20, "sddmm_backward": 20}, True)
     busy = {}
     for name, K, capture in RUNS[1:]:
         run = recipe_run(K, capture)
@@ -2862,9 +2950,9 @@ def phase_microbench(cli_main, chunk_recipe_ms: float) -> dict:
     check(launches["banded_spmm_unit"] == 3 * (2 + 30) + (2 + 10),
           "K2 launched halo_stream.cu 108 times (F = 128)")
     check(launches["banded_spmm"] == (2 + 30) + (2 + 10), "K4 launched its ring 44 times")
-    check(all(v == 0 for k, v in launches.items()
+    check(all(v == 0 for k, v in launches_but_sddmm(launches, "bench --what train").items()
               if k not in ("block_ell_spmm", "banded_spmm_unit", "banded_spmm")),
-          "bench --what all runs no earlier body and no other kernel")
+          "bench --what all runs no earlier body and no other kernel but the loss's SDDMM")
     fractions = [spmm[k] for k in spmm if "fraction" in k]
     fractions += [banded[k] for k in banded if "fraction" in k]
     check(all(0 < f <= 1 for f in fractions), "every roofline fraction in (0, 1]")
@@ -3135,6 +3223,7 @@ def main() -> int:
                                                     probes)
     report["probes"] = phase_probes(torch, probes)
     report["adam"] = phase_adam(torch)
+    report["sddmm"] = phase_sddmm(torch, seg)
     report["giant"] = phase_giant(torch, giant)
     report["halo"] = phase_halo(torch, tgb, giant, make_mesh,
                                 report["giant"]["packed"]["cut_fraction"])
@@ -3275,6 +3364,21 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": adam["library_ms"],
         "library_equal": adam["library_equal"], "shape": adam["leaves"],
         "dtype": f"float32, mu {adam['mu_dtype']}", "recipe": report["adam"]["recipe"],
+    })
+    sddmm = report["sddmm"]
+    recipe = report["recipe"]
+    kernels.append({
+        "name": "C3 SDDMM forward + backward (ops/segment.sddmm)", "route": "cuda",
+        "source": SDDMM_SOURCE,
+        "replaces": "none: the JAX package's gathers and scatter-adds under XLA",
+        # measured on the recipe's pipeline: launches a graph step
+        "launches": sum(recipe["sddmm_launches"].values()) / recipe["adam_launches"]["adam_count"],
+        "ms": {d: r["ms"] for d, r in sddmm.items()},
+        "plain_ms": {d: r["plain_ms"] for d, r in sddmm.items()},
+        "plain_unpadded_ms": {d: r["plain_unpadded_ms"] for d, r in sddmm.items()},
+        "bound_ms": {d: r["bound_ms"] for d, r in sddmm.items()}, "bound_by": "bytes (latency)",
+        "library_ms": None, "shape": {d: r["shape"] for d, r in sddmm.items()},
+        "dtype": "float32",
     })
     log(f"total {report['seconds']:.1f} s")
     log(card_line())

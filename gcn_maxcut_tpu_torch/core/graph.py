@@ -9,6 +9,12 @@ tables, all as torch tensors.  Padding conventions are the JAX package's:
   * the first ``n_edges`` edge slots are real; padded slots have
     ``senders == receivers == n_pad - 1`` and ``weights == edge_mask == 0``.
 
+``sender_order``/``sender_ptr`` list the real edges grouped by sender:
+``sender_order[sender_ptr[u] : sender_ptr[u + 1]]`` are the ids of node
+``u``'s out-edges, ascending, and ``sender_ptr[n_pad] == n_edges``; the
+padded slots follow, in order.  The card's SDDMM backward
+(``ops/segment.sddmm``) walks them as ``row_ptr`` walks the in-edges.
+
 ``symmetric`` records that every directed edge is stored with its reverse
 and the same weight (graphs built with ``symmetrize=True``, or from a
 symmetric dense matrix).  Only then may the ELL and block-ELL SpMMs reuse
@@ -39,8 +45,8 @@ _PLAN_TENSORS = (
 )
 _TENSOR_FIELDS = (
     "senders", "receivers", "weights", "edge_mask", "row_ptr", "degrees",
-    "node_mask", "n_nodes", "n_edges", "ell_senders", "ell_weights",
-    "ell_mask",
+    "node_mask", "n_nodes", "n_edges", "sender_order", "sender_ptr",
+    "ell_senders", "ell_weights", "ell_mask",
     *(f"bell_{f}" for f in _PLAN_TENSORS),
     *(f"bell_t_{f}" for f in _PLAN_TENSORS),
     "reorder_perm",
@@ -61,7 +67,10 @@ class Graph:
     Shapes: ``senders/receivers`` int32 [e_pad] (receivers nondecreasing),
     ``weights/edge_mask`` float32 [e_pad], ``row_ptr`` int32 [n_pad + 1],
     ``degrees/node_mask`` float32 [n_pad], ``n_nodes/n_edges`` int32
-    scalars (directed edge count), ELL tables [n_pad, width] or None.
+    scalars (directed edge count), ``sender_order`` int32 [e_pad] and
+    ``sender_ptr`` int32 [n_pad + 1] (the real edges by sender; None on a
+    graph not built by ``_build_padded_coo``), ELL tables [n_pad, width] or
+    None.
     """
 
     senders: torch.Tensor
@@ -73,6 +82,8 @@ class Graph:
     node_mask: torch.Tensor
     n_nodes: torch.Tensor
     n_edges: torch.Tensor
+    sender_order: torch.Tensor | None = None  # int32 [e_pad]
+    sender_ptr: torch.Tensor | None = None    # int32 [n_pad + 1]
     ell_senders: torch.Tensor | None = None   # int32 [n_pad, width]
     ell_weights: torch.Tensor | None = None   # float32 [n_pad, width]
     ell_mask: torch.Tensor | None = None      # float32 [n_pad, width]
@@ -166,6 +177,11 @@ def _build_padded_coo(
     row_ptr = np.zeros(n_pad + 1, dtype=np.int32)
     np.cumsum(counts, out=row_ptr[1:])
 
+    sender_order = np.arange(e_pad, dtype=np.int32)
+    sender_order[:m] = np.argsort(src, kind="stable")
+    sender_ptr = np.zeros(n_pad + 1, dtype=np.int32)
+    np.cumsum(np.bincount(src, minlength=n_pad), out=sender_ptr[1:])
+
     degrees = np.bincount(dst, minlength=n_pad).astype(np.float32)
 
     node_mask = np.zeros(n_pad, dtype=np.float32)
@@ -207,6 +223,8 @@ def _build_padded_coo(
         node_mask=torch.from_numpy(node_mask),
         n_nodes=torch.tensor(n_nodes, dtype=torch.int32),
         n_edges=torch.tensor(m, dtype=torch.int32),
+        sender_order=torch.from_numpy(sender_order),
+        sender_ptr=torch.from_numpy(sender_ptr),
         symmetric=symmetric,
         **ell,
         **plan,

@@ -28,6 +28,8 @@ LAUNCHES = {
     "adam_update": 0, "adam_count": 0,
     # the decode's climb, csrc/climb.cu (ops/climb.py)
     "climb": 0,
+    # the cut loss's SDDMM, csrc/sddmm.cu (ops/segment.py)
+    "sddmm": 0, "sddmm_backward": 0,
 }
 
 

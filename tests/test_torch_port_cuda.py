@@ -34,6 +34,7 @@ from gcn_maxcut_tpu_torch.ops import climb as tclimb
 from gcn_maxcut_tpu_torch.ops import halo as th
 from gcn_maxcut_tpu_torch.ops import launches as tlaunches
 from gcn_maxcut_tpu_torch.ops import probe_kernels as tpk
+from gcn_maxcut_tpu_torch.ops import segment as tseg
 from gcn_maxcut_tpu_torch.ops.launches import LAUNCHES
 from gcn_maxcut_tpu_torch.ops.segment import spmm
 from gcn_maxcut_tpu_torch.parallel import data_parallel as tdp
@@ -2004,3 +2005,184 @@ def test_cuda_a_captured_runner_records_one_capture_then_replays(cuda_device):
     order = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
              if str(e.device_type).endswith("CPU") and e.name in ("chunk.capture", "chunk.replay")]
     assert order == ["chunk.capture"] + ["chunk.replay"] * 3
+
+
+def _sddmm_graphs():
+    """One graph of each of the recipe's degrees 6, 7 and 8 (n = 500), made
+    together by the recipe's data path: one shared padding (n_pad 504,
+    e_pad 4,096), so the d = 6 and d = 7 graphs end in runs of 1,096 and 596
+    padded slots."""
+    from gcn_maxcut_tpu_torch.data.generate import generate_graph
+
+    specs = [generate_graph(500, d, "reg", seed=40 + d) for d in (6, 7, 8)]
+    return process_graphs(specs, DataConfig(max_nodes=1000)).graphs
+
+
+def _sddmm_runs(g, x, y, de, op):
+    """``op``'s scores and its gradients in x and y (one gradient when y is
+    x) at cotangent ``de``."""
+    xr = x.clone().requires_grad_(True)
+    yr = xr if y is x else y.clone().requires_grad_(True)
+    e = op(g, xr, yr)
+    return (e, *torch.autograd.grad(e, [xr] if yr is xr else [xr, yr], de))
+
+
+def _assert_sddmm_equals_plain(g, x, y, de):
+    """The card's op and its launches against the plain op on the card, bit
+    for bit (zeros up to their sign)."""
+    before = dict(LAUNCHES)
+    got = _sddmm_runs(g, x, y, de, tseg.sddmm)
+    assert (LAUNCHES["sddmm"] - before["sddmm"],
+            LAUNCHES["sddmm_backward"] - before["sddmm_backward"]) == (1, 1)
+    want = _sddmm_runs(g, x, y, de, tseg.sddmm_plain)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.float32 and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("same", [True, False], ids=["x_is_y", "x_and_y"])
+@pytest.mark.parametrize("d", [6, 7, 8])
+def test_cuda_sddmm_equals_plain_at_the_recipes_shapes(cuda_device, d, same):
+    """``csrc/sddmm.cu`` against the plain op on the card at the recipe's
+    shapes (k = 3), scores and gradients bit for bit, for one tensor as x
+    and y (the cut loss) and for two."""
+    g = _sddmm_graphs()[d - 6].to(cuda_device)
+    assert g.n_pad == 504 and g.e_pad == 4096 and int(g.n_edges) == 500 * d
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.softmax(torch.randn(g.n_pad, 3, generator=gen, device=cuda_device), dim=-1)
+    y = x if same else torch.randn(g.n_pad, 3, generator=gen, device=cuda_device)
+    de = torch.randn(g.e_pad, generator=gen, device=cuda_device)
+    _assert_sddmm_equals_plain(g, x, y, de)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 5, 8, 33, 100])
+def test_cuda_sddmm_equals_plain_at_other_widths(cuda_device, k):
+    """Rows of other widths: the forward keeps ``torch.sum``'s lane order
+    (one to 32 lanes a row, up to four products a lane)."""
+    g = _sddmm_graphs()[0].to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    x = torch.randn(g.n_pad, k, generator=gen, device=cuda_device)
+    y = torch.randn(g.n_pad, k, generator=gen, device=cuda_device)
+    _assert_sddmm_equals_plain(g, x, x, torch.randn(g.e_pad, generator=gen, device=cuda_device))
+    _assert_sddmm_equals_plain(g, x, y, torch.randn(g.e_pad, generator=gen, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_on_column_slices_equals_plain(cuda_device):
+    """The pairwise variant's k = 1 column slices of one [n_pad, 3] tensor,
+    made contiguous by the op: the gradient that reaches the tensor is the
+    plain op's."""
+    g = _sddmm_graphs()[1].to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    s0 = torch.softmax(torch.randn(g.n_pad, 3, generator=gen, device=cuda_device), dim=-1)
+    de = torch.randn(g.e_pad, generator=gen, device=cuda_device)
+    outs = []
+    for op in (tseg.sddmm, tseg.sddmm_plain):
+        s = s0.clone().requires_grad_(True)
+        e = op(g, s[:, 0:1], s[:, 2:3]) + op(g, s[:, 2:3], s[:, 0:1])
+        outs.append((e, *torch.autograd.grad(e, [s], de)))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_on_a_graph_that_is_not_symmetric_equals_plain(cuda_device):
+    """Directed edges with repeats and self loops: a node's out-edges and
+    in-edges differ, so the sender-order walk and the row walk differ."""
+    rng = np.random.default_rng(9)
+    edges = rng.integers(0, 300, (2500, 2))
+    g = graph_from_edges(edges, 300, symmetrize=False, e_pad=3072).to(cuda_device)
+    assert not g.symmetric and int(g.n_edges) == 2500
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.randn(g.n_pad, 3, generator=gen, device=cuda_device)
+    y = torch.randn(g.n_pad, 3, generator=gen, device=cuda_device)
+    de = torch.randn(g.e_pad, generator=gen, device=cuda_device)
+    _assert_sddmm_equals_plain(g, x, x, de)
+    _assert_sddmm_equals_plain(g, x, y, de)
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_on_a_graph_with_no_padded_edges_equals_plain(cuda_device):
+    """e_pad equal to the directed edge count: no padded slot, and node
+    n_pad - 1 is a real node with real edges."""
+    edges = random_regular_edges(512, 6, seed=3)
+    g = graph_from_edges(edges, 512, n_pad=512, e_pad=3072).to(cuda_device)
+    assert int(g.n_edges) == g.e_pad == 3072 and int(g.sender_ptr[-1]) == 3072
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.softmax(torch.randn(g.n_pad, 3, generator=gen, device=cuda_device), dim=-1)
+    y = torch.randn(g.n_pad, 3, generator=gen, device=cuda_device)
+    de = torch.randn(g.e_pad, generator=gen, device=cuda_device)
+    _assert_sddmm_equals_plain(g, x, x, de)
+    _assert_sddmm_equals_plain(g, x, y, de)
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_on_a_stacked_batchs_graph_equals_plain(cuda_device):
+    """A graph taken from a stacked batch on the card (``index``), as the
+    trainers take theirs: its tables are views that the op reads as they
+    are."""
+    graphs = _sddmm_graphs()
+    batch = pad_graph_batch([graphs[i] for i in sorted(graphs)]).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    for i in range(3):
+        g = batch.index(i)
+        x = torch.softmax(torch.randn(g.n_pad, 3, generator=gen, device=cuda_device), dim=-1)
+        _assert_sddmm_equals_plain(g, x, x, torch.randn(g.e_pad, generator=gen,
+                                                        device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_sddmm_rejects_what_it_does_not_take(cuda_device):
+    """No fallback on the card: another dtype, a batch, a graph without the
+    sender-order table or operands on two devices raise."""
+    graphs = _sddmm_graphs()
+    g = graphs[0].to(cuda_device)
+    x = torch.rand(g.n_pad, 3, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tseg.sddmm(g, x.double(), x.double())
+    with pytest.raises(ValueError, match="float32"):
+        tseg.sddmm(g, x, x.half())
+    with pytest.raises(ValueError, match="not a batch"):
+        tseg.sddmm(pad_graph_batch([graphs[0], graphs[1]]).to(cuda_device), x, x)
+    with pytest.raises(ValueError, match="sender-order"):
+        tseg.sddmm(dataclasses.replace(g, sender_order=None, sender_ptr=None), x, x)
+    with pytest.raises(ValueError, match="one card"):
+        tseg.sddmm(g, x, x.cpu())
+    with pytest.raises(ValueError, match=r"\[n_pad"):
+        tseg.sddmm(g, x[:100], x[:100])
+
+
+@pytest.mark.cuda
+def test_cuda_recipe_captured_epoch_counts_the_sddmm_launches(cuda_device):
+    """The recipe's monitored epoch captured in a ``ChunkRunner``: one
+    forward and one backward launch a graph step, so 3k of each after
+    ``run(k)`` on 3 graphs; the epochs equal the eager ones, which take the
+    same kernels."""
+    from gcn_maxcut_tpu_torch.train.chunks import ChunkRunner
+
+    batch = _chunk_batch()
+    cfg = TrainingConfig(n_nodes=64, number_epochs=12, learning_rate=2e-2, patience=100,
+                         epochs_per_call=4)
+    start = tloop.setup_train_state(cfg, 3, device="cpu").params()
+    runs = []
+    for capture in (None, False):
+        state = tloop.setup_train_state(cfg, 3, params=start, device=cuda_device)
+        es = tloop.init_early_stop_state(state.params())
+        gen = torch.Generator(device=cuda_device).manual_seed(cfg.seed + 1)
+        epoch = tloop.make_monitored_epoch_fn(
+            state, tloop.epoch_inputs(batch.to(cuda_device), cfg), es, gen)
+        runner = ChunkRunner(epoch, [cuda_device], 4, capture=capture, generators=[gen])
+        before = dict(LAUNCHES)
+        losses = runner.run(4)[0]
+        torch.cuda.synchronize()
+        counts = {k: LAUNCHES[k] - before[k] for k in ("sddmm", "sddmm_backward")}
+        assert counts == {"sddmm": 12, "sddmm_backward": 12}
+        if capture is None:
+            assert runner.replays == 3
+            assert runner.captured_launches["sddmm"] == 3
+            assert runner.captured_launches["sddmm_backward"] == 3
+        runs.append((losses, state.params()))
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1]["conv1"]["w"], runs[1][1]["conv1"]["w"])

@@ -17,9 +17,14 @@ FIELDS = (
     "node_mask", "n_nodes", "n_edges", "ell_senders", "ell_weights",
     "ell_mask",
 )
+# the port's own fields, which the JAX package's graph does not carry: the
+# sender-order table of the card's SDDMM backward (ops/segment.sddmm)
+PORT_FIELDS = ("sender_order", "sender_ptr")
 
 
 def assert_graph_equal(gj, gt):
+    for f in PORT_FIELDS:
+        assert not hasattr(gj, f) and getattr(gt, f) is not None, f
     for f in FIELDS:
         a, b = getattr(gj, f), getattr(gt, f)
         assert (a is None) == (b is None), f
