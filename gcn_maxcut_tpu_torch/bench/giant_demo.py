@@ -30,7 +30,9 @@ the JAX trainers' epoch count: whole chunks, and at least two in a fresh
 run.  Epoch time is the mean over the chunks after the first (which
 includes the kernel build and the capture), from CUDA events on the card
 and the host clock on the CPU; checkpoint writes fall outside the timed
-stretches and are timed on their own.
+stretches and are timed on their own.  Under a profiler session both
+trainers record everything before their first chunk as the span
+``giant.setup`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -279,28 +281,35 @@ def train_banded_giant(
     hidden], "b"}, "conv2": {"w": [hidden, classes], "b"}, "embed": [n,
     emb]}``.  Epochs run in chunks of ``epochs_per_call`` as in the JAX
     trainer: ``epochs`` rounds up to whole chunks, and at least two run,
-    the second the first timed one."""
-    dev = resolve_device(device)
-    offsets = circulant_offsets(d, bandwidth, seed)
-    e_undirected = n * d // 2
-    if params is None:
-        params = plain_params(n, dim_embedding, hidden_dim, num_classes, seed, dev)
-    params = {k: ({n_: t.to(dev).clone() for n_, t in v.items()}
-                  if isinstance(v, dict) else v.to(dev).clone())
-              for k, v in params.items()}
-    for t in _leaves(params):
-        t.requires_grad_(True)
+    the second the first timed one.
 
-    def loss_fn(p):
-        h = torch.relu(banded_gcn_conv(p["conv1"], p["embed"], offsets, d))
-        probs = torch.softmax(banded_gcn_conv(p["conv2"], h, offsets, d), dim=-1)
-        onehot = ste_argmax_onehot(pin_terminals(probs))
-        same = torch.dot(onehot.reshape(-1), banded_spmm_unit(onehot, offsets).reshape(-1))
-        return -(e_undirected - 0.5 * same)
+    Under a profiler session everything before the first chunk (the
+    device, the offsets, the parameters' copy to the device, the closures,
+    Adam's state, the chunk callable) is the span ``giant.setup``, as in
+    ``train_banded_giant_packed``."""
+    with span("giant.setup"):
+        dev = resolve_device(device)
+        offsets = circulant_offsets(d, bandwidth, seed)
+        e_undirected = n * d // 2
+        if params is None:
+            params = plain_params(n, dim_embedding, hidden_dim, num_classes, seed, dev)
+        params = {k: ({n_: t.to(dev).clone() for n_, t in v.items()}
+                      if isinstance(v, dict) else v.to(dev).clone())
+                  for k, v in params.items()}
+        for t in _leaves(params):
+            t.requires_grad_(True)
 
-    optimizer = Adam(_leaves(params), learning_rate)
-    chunks = chunk_sizes(0, epochs, epochs_per_call, first_two=True)
-    chunk = chunk_step(lambda: loss_fn(params), _leaves(params), optimizer, [dev], max(chunks))
+        def loss_fn(p):
+            h = torch.relu(banded_gcn_conv(p["conv1"], p["embed"], offsets, d))
+            probs = torch.softmax(banded_gcn_conv(p["conv2"], h, offsets, d), dim=-1)
+            onehot = ste_argmax_onehot(pin_terminals(probs))
+            same = torch.dot(onehot.reshape(-1), banded_spmm_unit(onehot, offsets).reshape(-1))
+            return -(e_undirected - 0.5 * same)
+
+        optimizer = Adam(_leaves(params), learning_rate)
+        chunks = chunk_sizes(0, epochs, epochs_per_call, first_two=True)
+        chunk = chunk_step(lambda: loss_fn(params), _leaves(params), optimizer, [dev],
+                           max(chunks))
     history, first, steady = _train(chunk, [dev], chunks)
     return _result(n, d, sum(chunks), history, first, steady, "plain", offsets)
 
