@@ -257,6 +257,7 @@ PROBE_SOURCE = "gcn_maxcut_tpu_torch/csrc/probe_kernels.cu"
 SUBBLOCK_SOURCE = "gcn_maxcut_tpu_torch/csrc/subblock_stream.cu"
 ADAM_SOURCE = "gcn_maxcut_tpu_torch/csrc/adam.cu"
 SDDMM_SOURCE = "gcn_maxcut_tpu_torch/csrc/sddmm.cu"
+HEAD_SOURCE = "gcn_maxcut_tpu_torch/csrc/group_head.cu"
 PAST_L2_N = 1_048_576           # P3's ring against K1's gather: x is 512 MB at F = 128
 PROBE_ITERS = 10                # timed calls of each probe case (plus 2 warm-up)
 
@@ -271,6 +272,9 @@ ADAM_CASES = {
 # the cut loss's SDDMM at the recipe's graphs (n = 500, one shared padding)
 SDDMM_DEGREES = (6, 8)
 GIANT_CHECKPOINT_EVERY = 20
+# the packed giant's head and cut loss (C4, csrc/group_head.cu): one launch
+# of each an epoch of the packed trainer on the card
+HEAD_LAUNCHES = ("group_head", "cut_dot", "group_head_backward")
 PLAIN_N = 1_048_576
 PLAIN_EPOCHS = 10
 HALO_SHARDS = 4                 # the virtual ring of the halo trainers
@@ -1494,6 +1498,100 @@ def phase_sddmm(torch, seg) -> dict:
     return out
 
 
+def phase_group_head(torch, giant) -> dict:
+    """The packed giant's head and cut loss (C4): ``csrc/group_head.cu``
+    against the composition (``group_head_cut_plain``) on the card at the
+    giant's n on bf16 streams, as the trainer calls it: the one-hot bit for
+    bit, the loss within 1e-6 relative, the gradients within the card
+    test's tolerance (``gradient_excess``, which must fail b2's gradient
+    with one block's partial lost), one launch of each kernel and K3's two;
+    forward plus backward (with K3's two launches) timed in turns with the
+    composition, and the three kernels' own device time from a profiler
+    trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gcn_maxcut_tpu_torch.ops import group_head as gh
+
+    log("== group head")
+    n, r, d, k = GIANT_N, 8, 8, 3
+    offsets = giant.circulant_offsets(d, 63, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    z = (torch.randn(n, 16, generator=gen, device="cuda") * 8).to(torch.bfloat16)
+    b2 = torch.randn(16, generator=gen, device="cuda") * 0.1
+    z.requires_grad_(True)
+    b2.requires_grad_(True)
+
+    def fwd_bwd(op):
+        same = op(z, b2, 1.0 / d, k, offsets, r)
+        return (same.detach(), *torch.autograd.grad(-(n * d // 2 - 0.5 * same), [z, b2]))
+
+    registry.reset()
+    got = fwd_bwd(gh.group_head_cut)
+    check({name: v for name, v in registry.LAUNCHES.items() if v}
+          == {"group_head": 1, "cut_dot": 1, "group_head_backward": 1,
+              "banded_spmm_unit_packed": 2},
+          "group head: one launch of each kernel and K3's two, and no other kernel")
+    want = fwd_bwd(gh.group_head_cut_plain)
+    with torch.no_grad():
+        s = gh.group_head_onehot(z, b2, 1.0 / d, k)
+        class_ok, term = gh._masks(k, "cuda")
+        h = z.float() * (1.0 / d) + b2
+        onehot = gh.group_onehot(gh.pin_group_head(gh.group_softmax(h, class_ok), term),
+                                 class_ok)
+    rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    dz_err = float((got[1].float() - want[1].float()).abs().max())
+    db2_err = float((got[2] - want[2]).abs().max())
+    check(torch.equal(s, onehot.to(torch.bfloat16)),
+          "group head: the one-hot is the composition's bit for bit")
+    check(rel <= 1e-6, "group head: the loss's dot within 1e-6 of the composition's")
+    # the backward at the test's tolerance (gh.gradient_excess), and that
+    # tolerance fails b2's gradient with the backward's block 0 lost
+    dz_x, db2_x = gh.gradient_excess(got[1], got[2], want[1], want[2], 1.0 / d)
+    check(dz_x <= 1, f"group head: z's cotangent within one bf16 ulp (excess {dz_x:.3g})")
+    check(db2_x <= 1, f"group head: b2's gradient within its rounding bound (excess {db2_x:.3g})")
+    check(not got[2][k:].any(), "group head: b2's gradient 0 on the padding lanes")
+    block0 = (torch.arange(n, device="cuda") // 256) % gh._grid(n, z.device) == 0
+    lost = got[2] - (want[1].float() * d)[block0].sum(0)
+    lost_x = gh.gradient_excess(got[1], lost, want[1], want[2], 1.0 / d)[1]
+    check(lost_x > 1, f"group head: b2's tolerance fails a lost block partial ({lost_x:.3g})")
+    del s, onehot, h, want, block0, lost
+    ms = ms_in_turns(torch, {"op": lambda: fwd_bwd(gh.group_head_cut),
+                             "composition": lambda: fwd_bwd(gh.group_head_cut_plain)})
+    reps = 10
+    names = ("group_head_kernel", "cut_dot_kernel", "group_head_backward_kernel",
+             "halo_stream_kernel")
+    device_us = dict.fromkeys(names, 0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fwd_bwd(gh.group_head_cut)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        for name in names:
+            if name in e.key:
+                device_us[name] += float(getattr(e, "self_device_time_total",
+                                                 getattr(e, "self_cuda_time_total", 0.0)))
+    per_call = {name: us / reps / 1e3 for name, us in device_us.items()}
+    kernels_ms = sum(per_call[name] for name in names[:3])
+    # forward: z read, S written; the dot: S and A S read; backward: z, A S
+    # and K3's adjoint read, dz written: eight [n, 16] bf16 arrays
+    bytes_ = 8 * n * 16 * 2
+    out = {"n": n, "ms_op": ms["op"], "ms_composition": ms["composition"],
+           "kernels_ms": kernels_ms, "per_kernel_ms": per_call, "bytes": bytes_,
+           "bound_ms": bytes_ / HBM_BYTES_PER_S * 1e3, "dot_rel_diff": rel,
+           "dz_max_abs_diff": dz_err, "db2_max_abs_diff": db2_err, "dz_excess": dz_x,
+           "db2_excess": db2_x, "lost_block_excess": lost_x}
+    log(f"  n={n} bf16: forward + backward with K3's two launches: op {ms['op']:.4f} ms, "
+        f"composition {ms['composition']:.4f} ms; the three kernels {kernels_ms:.4f} ms "
+        f"({ {name: round(v, 4) for name, v in per_call.items()} }), bytes bound "
+        f"{out['bound_ms']:.4f} ms; dot relative difference {rel:.3g}, dz max difference "
+        f"{dz_err:.3g}, db2 max difference {db2_err:.3g} (shares of the tolerance: dz "
+        f"{dz_x:.3g}, db2 {db2_x:.3g}, db2 with block 0 lost {lost_x:.3g}); card: {card_line()}")
+    return out
+
+
 def circulant_cut(torch, assignment, offsets) -> int:
     """Cut of a node-order assignment on the circulant graph: each positive
     offset s contributes the edges (i, i + s mod n)."""
@@ -1540,7 +1638,10 @@ def phase_giant(torch, giant) -> dict:
     # one Adam step an epoch: the first chunk's warm-up epoch, then replays
     check(adam_launches == {"adam_update": res["epochs"], "adam_count": res["epochs"]},
           "C2 launched adam.cu's update and count once each an epoch")
-    check(all(v == 0 for k, v in launches.items() if k != "banded_spmm_unit_packed"),
+    check(all(launches[k] == res["epochs"] for k in HEAD_LAUNCHES),
+          "C4 launched group_head.cu's forward, dot and backward once each an epoch")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "banded_spmm_unit_packed" and k not in HEAD_LAUNCHES),
           "the packed trainer runs no earlier body, no K2 and no K4")
     check(all(map(math.isfinite, res["history"])), "finite loss history")
     check(res["cut_fraction"] >= 0.90, "packed cut fraction >= 0.90")
@@ -1616,7 +1717,10 @@ def phase_giant_resume(torch, giant, tmp: str, full: dict) -> dict:
                  "uninterrupted run's")
     check(launches["banded_spmm_unit_packed"] == 6 * ran + 2,
           "K3 launched 6 times an epoch the resumed run ran, plus 2 for the decode")
-    check(all(v == 0 for k, v in launches.items() if k != "banded_spmm_unit_packed"),
+    check(all(launches[k] == ran for k in HEAD_LAUNCHES),
+          "C4 launched once each an epoch the resumed run ran")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "banded_spmm_unit_packed" and k not in HEAD_LAUNCHES),
           "the resumed run runs no other kernel")
     check(all(w["bytes"] > 0 and w["seconds"] > 0 for w in writes), "every checkpoint written")
     return {"exact": exact, "max_rel_diff": rel, "launches": launches,
@@ -2573,6 +2677,9 @@ DEVICE_KERNEL = {
     "climb": "climb_kernel",
     "sddmm": "sddmm_forward_kernel",
     "sddmm_backward": "sddmm_backward_kernel",
+    "group_head": "group_head_kernel",
+    "cut_dot": "cut_dot_kernel",
+    "group_head_backward": "group_head_backward_kernel",
 }
 
 
@@ -2791,7 +2898,8 @@ def phase_chunks(torch, np, giant, tgiant, tgb, thybrid, tpart, make_mesh, micro
     runs = trainer_runs(torch, tchunks, lambda K: giant.train_banded_giant_packed(
         epochs=CHUNK_EPOCHS, epochs_per_call=K, device="cuda"))
     out["giant_packed"] = held_equal(f"packed giant n={GIANT_N}", runs,
-                                     {"banded_spmm_unit_packed": 6}, True)
+                                     {"banded_spmm_unit_packed": 6,
+                                      **dict.fromkeys(HEAD_LAUNCHES, 1)}, True)
     out["giant_packed"]["traced_launches"] = traced_launches(
         torch, f"packed giant K={CHUNK_K}", lambda: giant.train_banded_giant_packed(
             epochs=CHUNK_EPOCHS, epochs_per_call=CHUNK_K, device="cuda"))[1]
@@ -3224,6 +3332,7 @@ def main() -> int:
     report["probes"] = phase_probes(torch, probes)
     report["adam"] = phase_adam(torch)
     report["sddmm"] = phase_sddmm(torch, seg)
+    report["group_head"] = phase_group_head(torch, giant)
     report["giant"] = phase_giant(torch, giant)
     report["halo"] = phase_halo(torch, tgb, giant, make_mesh,
                                 report["giant"]["packed"]["cut_fraction"])
@@ -3379,6 +3488,17 @@ def main() -> int:
         "bound_ms": {d: r["bound_ms"] for d, r in sddmm.items()}, "bound_by": "bytes (latency)",
         "library_ms": None, "shape": {d: r["shape"] for d, r in sddmm.items()},
         "dtype": "float32",
+    })
+    head = report["group_head"]
+    kernels.append({
+        "name": "C4 packed head and cut loss (ops/group_head.group_head_cut)", "route": "cuda",
+        "source": HEAD_SOURCE,
+        "replaces": "none: the JAX package's head under XLA's fusion",
+        # measured on the packed giant's 40-epoch run: launches an epoch
+        "launches": sum(packed["launches"][k] for k in HEAD_LAUNCHES) / packed["epochs"],
+        "ms": head["kernels_ms"], "op_ms": head["ms_op"], "plain_ms": head["ms_composition"],
+        "bound_ms": head["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shape": [head["n"], 16], "dtype": "bfloat16 streams, float32 activations",
     })
     log(f"total {report['seconds']:.1f} s")
     log(card_line())

@@ -15,7 +15,11 @@ one seed gives one graph in both.  Every aggregation is the banded SpMM of
 
 The loss is the negative hard cut ``−(E − ½⟨S, A S⟩)`` of the straight-
 through one-hot assignment S, so each epoch runs three aggregations forward
-and three backward (the adjoint is the kernel with negated offsets).
+and three backward (the adjoint is the kernel with negated offsets).  On
+a card with float32 activations the packed trainer's head, from the second
+aggregation's output to the loss and back to its cotangent, is one CUDA op
+(``ops/group_head.py``); anywhere else it is the composition of
+``group_softmax``, ``pin_group_head`` and ``group_onehot``.
 Optimisation is Adam (``train/optim.py``), optionally with a bfloat16 first
 moment.  Both trainers take initial parameters in the JAX layout
 (``convert.params_from_jax``) through ``params=``; by default they are
@@ -46,14 +50,14 @@ import torch
 
 from gcn_maxcut_tpu_torch.device import resolve_device
 from gcn_maxcut_tpu_torch.models.gcn import gcn_conv_init
+from gcn_maxcut_tpu_torch.ops import group_head
 from gcn_maxcut_tpu_torch.ops.banded import banded_spmm_unit, banded_spmm_unit_packed
+from gcn_maxcut_tpu_torch.ops.group_head import G, group_onehot, group_softmax, pin_group_head
 from gcn_maxcut_tpu_torch.ops.ste import pin_terminals, ste_argmax_onehot
 from gcn_maxcut_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from gcn_maxcut_tpu_torch.train.chunks import chunk_sizes, chunk_step
 from gcn_maxcut_tpu_torch.train.optim import Adam
 from gcn_maxcut_tpu_torch.utils.profiling import span
-
-G = 16  # lane-group width of the packed layout (classes padded to it)
 
 
 def circulant_offsets(d: int, bandwidth: int, seed: int) -> tuple[int, ...]:
@@ -125,29 +129,6 @@ def packed_params(
         n // r, r * dim_embedding, [(dim_embedding, G), (G, G)], seed,
         resolve_device(device),
     )
-
-
-def group_softmax(h: torch.Tensor, class_ok: torch.Tensor) -> torch.Tensor:
-    """Softmax over the real classes (``class_ok`` lanes) of each 16-lane
-    row; the max is a shift and carries no gradient."""
-    gmax = (h + (class_ok - 1.0) * 1e9).amax(dim=-1, keepdim=True).detach()
-    e = torch.exp(h - gmax) * class_ok
-    return e / e.sum(dim=-1, keepdim=True)
-
-
-def pin_group_head(probs: torch.Tensor, term_onehot: torch.Tensor) -> torch.Tensor:
-    """Rows 0..k-1 (the terminals) pinned to ``term_onehot``, identity
-    gradient."""
-    head = probs[: term_onehot.shape[0]]
-    return torch.cat([(term_onehot - head).detach() + head, probs[term_onehot.shape[0]:]])
-
-
-def group_onehot(pinned: torch.Tensor, class_ok: torch.Tensor) -> torch.Tensor:
-    """Straight-through group argmax: every lane equal to the row's max is
-    set (ties set several lanes, as in the JAX trainer)."""
-    gmax = pinned.amax(dim=-1, keepdim=True)
-    hard = ((pinned >= gmax).to(pinned.dtype) * class_ok).detach()
-    return (hard - pinned).detach() + pinned
 
 
 def group_argmax(pinned: torch.Tensor, class_ok: torch.Tensor) -> torch.Tensor:
@@ -395,24 +376,39 @@ def train_banded_giant_packed(
         # terminals: positions 0..k-1 (nodes 0, m, 2m), pinned to their own class
         term_onehot = torch.eye(G, device=dev, dtype=act)[:num_classes]
 
-        def spmm(h):
+        # the head as one CUDA op where it applies (ops/group_head.py), else
+        # the composition of group_softmax, pin_group_head and group_onehot
+        fused = group_head.takes(dev, act, num_classes)
+
+        def stream(h):
+            """K3 on h, in the streams' dtype."""
             if agg is not None and act == torch.float32:
                 h = h.to(agg)
-            return banded_spmm_unit_packed(h, offsets, r).to(act)
+            return banded_spmm_unit_packed(h, offsets, r)
 
-        def pinned_probs(p):
+        def spmm(h):
+            return stream(h).to(act)
+
+        def aggregated(p):
+            """K3's output of the second layer, before its scaling and bias."""
             h = p["embed"].view(n, dim_embedding).to(act) @ p["conv1"]["w"].to(act)
             h = torch.relu(spmm(h) * inv_d + p["conv1"]["b"].to(act))
-            h = h @ p["conv2"]["w"].to(act)
-            h = spmm(h) * inv_d + p["conv2"]["b"].to(act)
+            return stream(h @ p["conv2"]["w"].to(act))
+
+        def pinned_probs(p):
+            h = aggregated(p).to(act) * inv_d + p["conv2"]["b"].to(act)
             return pin_group_head(group_softmax(h, class_ok), term_onehot)
 
         def loss_fn(p):
-            onehot = group_onehot(pinned_probs(p), class_ok)
-            same = torch.dot(
-                onehot.to(torch.float32).reshape(-1),
-                spmm(onehot).to(torch.float32).reshape(-1),
-            )
+            if fused:
+                same = group_head.group_head_cut(aggregated(p), p["conv2"]["b"], inv_d,
+                                                 num_classes, offsets, r)
+            else:
+                onehot = group_onehot(pinned_probs(p), class_ok)
+                same = torch.dot(
+                    onehot.to(torch.float32).reshape(-1),
+                    spmm(onehot).to(torch.float32).reshape(-1),
+                )
             return -(e_undirected - 0.5 * same)
 
         optimizer = Adam(

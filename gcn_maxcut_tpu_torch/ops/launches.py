@@ -30,6 +30,8 @@ LAUNCHES = {
     "climb": 0,
     # the cut loss's SDDMM, csrc/sddmm.cu (ops/segment.py)
     "sddmm": 0, "sddmm_backward": 0,
+    # the packed giant's head and cut loss, csrc/group_head.cu (ops/group_head.py)
+    "group_head": 0, "cut_dot": 0, "group_head_backward": 0,
 }
 
 

@@ -49,12 +49,10 @@ from gcn_maxcut_tpu_torch.bench.giant_demo import (
     _train,
     circulant_offsets,
     group_argmax,
-    group_onehot,
-    group_softmax,
     packed_params,
-    pin_group_head,
     plain_params,
 )
+from gcn_maxcut_tpu_torch.ops.group_head import group_onehot, group_softmax, pin_group_head
 from gcn_maxcut_tpu_torch.ops.halo import (
     halo_banded_spmm_unit,
     halo_banded_spmm_unit_packed,

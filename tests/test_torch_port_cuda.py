@@ -1667,6 +1667,7 @@ def test_cuda_packed_giant_chunks_equal_eager(cuda_device, monkeypatch):
         tlaunches.reset()
         runs[name] = tgiant.train_banded_giant_packed(epochs_per_call=K, **kw)
         assert LAUNCHES["banded_spmm_unit_packed"] == 6 * 8
+        assert all(LAUNCHES[k] == 8 for k in HEAD_LAUNCHES)
     assert runs["k4"]["history"] == runs["k1"]["history"] == runs["eager"]["history"]
 
 
@@ -2186,3 +2187,111 @@ def test_cuda_recipe_captured_epoch_counts_the_sddmm_launches(cuda_device):
         runs.append((losses, state.params()))
     np.testing.assert_array_equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1]["conv1"]["w"], runs[1][1]["conv1"]["w"])
+
+
+# ---- C4: the packed giant's head and cut loss (csrc/group_head.cu) ------------
+
+HEAD_LAUNCHES = ("group_head", "cut_dot", "group_head_backward")
+
+
+def _head_inputs(device, dtype, n, seed=0):
+    """z [n, 16] in ``dtype`` with tied rows (two and three equal largest
+    real lanes), b2 [16] (one bias on the three real lanes), the shifts of
+    one job's graph."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(scale=8.0, size=(n, 16)).astype(np.float32)
+    z[10:40, 1] = z[10:40, 0] = np.abs(z[10:40, :3]).max(axis=1) + 1.0
+    z[40:60, :3] = 5.0
+    z[n - 20:, 2] = z[n - 20:, 0] = np.abs(z[n - 20:, :3]).max(axis=1) + 0.5
+    b2 = np.full(16, 0.25, np.float32)
+    b2[3:] = rng.normal(size=13)
+    return (torch.tensor(z).to(dtype).to(device), torch.tensor(b2).to(device),
+            tgiant.circulant_offsets(8, 31, seed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 1_048_576], ids=["4k", "1m"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_group_head_matches_the_composition(cuda_device, dtype, n):
+    """``csrc/group_head.cu`` against the composition on the card
+    (``group_head_cut_plain``, K3 the same kernel), at 4,096 rows and at
+    1,048,576 (several rows a thread in the dot and the backward): the
+    one-hot bit for bit on every row (ties, terminal rows); the loss's dot
+    within 1e-6 relative (the kernel sums exact integer products, the
+    composition a float32 dot); z's cotangent within one ulp of its dtype
+    (the softmax adjoint p·(G − ⟨G, p⟩) is taken in another order than
+    autograd's); b2's gradient, a float32 sum over the rows in another
+    order than the composition's, within rtol 1e-5 plus one float32 ulp of
+    the sum of its terms' magnitudes (the rows' gradients cancel to a sum
+    far smaller than their magnitudes); one launch of each kernel and K3's
+    two; a second call the same bits; and three planted faults (the
+    softmax adjoint less its ⟨G, p⟩ term, inv_d applied twice, one block's
+    partial of b2's gradient lost) each fail that tolerance."""
+    from gcn_maxcut_tpu_torch.ops import group_head as tgh
+
+    z0, b20, offsets = _head_inputs(cuda_device, dtype, n)
+    inv_d, k, r = 1.0 / 8, 3, 8
+    s = tgh.group_head_onehot(z0, b20, inv_d, k)
+    class_ok, term = tgh._masks(k, cuda_device)
+    h = z0.float() * inv_d + b20
+    onehot = tgh.group_onehot(tgh.pin_group_head(tgh.group_softmax(h, class_ok), term), class_ok)
+    assert torch.equal(s, onehot.to(dtype))
+    assert s[10:40, :2].all() and s[40:60, :3].all() and s[n - 20:, 0].all()
+    assert torch.equal(s[:k].float(), torch.eye(16, device=cuda_device)[:k])
+
+    def fwd_bwd(op):
+        z, b2 = z0.clone().requires_grad_(True), b20.clone().requires_grad_(True)
+        same = op(z, b2, inv_d, k, offsets, r)
+        return (same.detach(), *torch.autograd.grad(-(n * 4 - 0.5 * same), [z, b2]))
+
+    tlaunches.reset()
+    got = fwd_bwd(tgh.group_head_cut)
+    assert {key: v for key, v in LAUNCHES.items() if v} == {
+        "group_head": 1, "cut_dot": 1, "group_head_backward": 1, "banded_spmm_unit_packed": 2}
+    again = fwd_bwd(tgh.group_head_cut)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fwd_bwd(tgh.group_head_cut_plain)
+    assert abs(float(got[0]) - float(want[0])) <= 1e-6 * abs(float(want[0]))
+    dz_x, db2_x = tgh.gradient_excess(got[1], got[2], want[1], want[2], inv_d)
+    assert dz_x <= 1 and db2_x <= 1
+    assert got[1].dtype == dtype and not got[2][k:].any()
+    # the tolerance fails a wrong backward: planted faults on the op's gradients
+    y = tb.banded_spmm_unit_packed(s, offsets, r).float()
+    at = tb.banded_spmm_unit_packed(s, [-o for o in offsets], r).float()
+    p = tgh.group_softmax(h, class_ok)
+    no_dot = (p * 0.5 * (y + at) * inv_d).to(dtype)     # the adjoint less ⟨G, p⟩
+    rows = torch.arange(n, device=cuda_device)
+    block0 = (rows // 256) % tgh._grid(n, cuda_device) == 0   # the backward's block 0
+    lost = got[2] - (want[1].float() / inv_d)[block0].sum(0)  # that block's partial dropped
+    faults = {"adjoint less <G, p>": tgh.gradient_excess(no_dot, got[2], *want[1:], inv_d)[0],
+              "inv_d twice": tgh.gradient_excess(got[1] * inv_d, got[2], *want[1:], inv_d)[0],
+              "block 0's partial lost": tgh.gradient_excess(got[1], lost, *want[1:], inv_d)[1]}
+    print(f"group head {dtype} n={n}: excess dz {dz_x:.3g}, db2 {db2_x:.3g}; planted faults "
+          + ", ".join(f"{name} {v:.3g}" for name, v in faults.items()))
+    assert all(v > 1 for v in faults.values())
+
+
+@pytest.mark.cuda
+def test_cuda_packed_giant_runs_the_head_op_once_an_epoch(cuda_device, monkeypatch):
+    """The packed trainer on the card: one launch of each of the head's
+    kernels an epoch, captured, and ``giant_demo.group_onehot`` never
+    called; with bfloat16 activations (the benchmark's control) the
+    composition and none of the head's launches."""
+    calls = []
+    real = tgiant.group_onehot
+
+    def counted(pinned, class_ok):
+        calls.append(pinned.dtype)
+        return real(pinned, class_ok)
+
+    monkeypatch.setattr(tgiant, "group_onehot", counted)
+    kw = dict(n=65_536, bandwidth=31, epochs=8, epochs_per_call=4, device=cuda_device)
+    tlaunches.reset()
+    res = tgiant.train_banded_giant_packed(**kw)
+    assert all(LAUNCHES[k] == 8 for k in HEAD_LAUNCHES) and not calls
+    assert LAUNCHES["banded_spmm_unit_packed"] == 6 * 8
+    assert all(np.isfinite(res["history"]))
+    tlaunches.reset()
+    tgiant.train_banded_giant_packed(act_dtype="bfloat16", **kw)
+    assert all(LAUNCHES[k] == 0 for k in HEAD_LAUNCHES)
+    assert calls and set(calls) == {torch.bfloat16}    # the eager and captured epochs' calls
